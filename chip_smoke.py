@@ -1,0 +1,309 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check what comes out.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
+
+1. device: CUDA must be there; prints the card's name and power limit;
+2. build: nvcc builds every kernel under bioengine_tpu_torch/csrc;
+3. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes and the test suite's, with CUDA-event times;
+4. the main path: cell-image-search at ViT-B/14 width (dim 768, depth 12,
+   heads 12, 224², bf16, bucket 64, weights from a numpy seed) ingests
+   synthetic fields, builds a FlatIP index and answers ping,
+   get_index_stats and 8 searches, with the kernels' launch counts read
+   around it and the embeddings held against the plain attention path;
+5. one JSON line of the kernels' numbers;
+6. the result line ``{"ok": true, "device": {...}}``, printed last.
+
+Any failed check exits non-zero before the result line. f32 comparisons
+run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
+f32.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
+from bioengine_tpu_torch.apps.cell_image_search.index import build_index
+from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
+    extract_cell_crops,
+    make_synthetic_images,
+)
+from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.ops import _build, attention
+
+SEED = 0
+BUCKET = 64
+VIT_DEPTH = 12
+N_FIELDS = 4
+N_SEARCHES = 8
+TOP_K = 10
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the test suite's tolerances (tests/test_ops_pallas.py): (atol, rtol)
+TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0)}
+ATTENTION_CASES = [
+    # (label, (B, H, N, d), dtype, causal)
+    ("vit_b14_main_path", (BUCKET, 12, 257, 64), torch.bfloat16, False),
+    ("vit_b14_main_path_f32", (BUCKET, 12, 257, 64), torch.float32, False),
+    ("n128", (2, 3, 128, 64), torch.float32, False),
+    ("n200", (2, 3, 200, 64), torch.float32, False),
+    ("n257", (2, 3, 257, 64), torch.float32, False),
+    ("causal_d32", (1, 2, 200, 32), torch.float32, True),
+    ("n300", (1, 1, 300, 64), torch.float32, False),
+    ("d128", (2, 4, 190, 128), torch.float32, False),
+    ("d128_causal_bf16", (1, 2, 77, 128), torch.bfloat16, True),
+]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``iters``
+    back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound_ms(shape, dtype) -> tuple[float, str]:
+    """Least time for one call: q, k, v read once and o written once over
+    HBM bandwidth, against 4*B*H*N^2*d FLOP over the type's peak."""
+    B, H, N, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    t_bytes = 4 * B * H * N * d * itemsize / PEAK_BYTES_PER_S
+    t_ops = 4 * B * H * N * N * d / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_device() -> tuple[str, str]:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    name = torch.cuda.get_device_name(0)
+    print(
+        f"device: {name}, count {torch.cuda.device_count()}, torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}"
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: off for cuBLAS and cuDNN (f32 comparisons are full f32)")
+    return card, name
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(
+        f"build: {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.2f} s: {[p.name for p in libs]}"
+    )
+
+
+def phase_kernels(card: str) -> dict:
+    """Each attention case: the kernel against the plain version, both on
+    the card. Returns the main path's numbers."""
+    rng = np.random.default_rng(SEED)
+    main = {}
+    for label, shape, dtype, causal in ATTENTION_CASES:
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+            for _ in range(3)
+        )
+        out = attention.flash_attention(q, k, v, causal=causal)
+        ref = attention.reference_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and out.shape == q.shape, f"{label}: output {out.dtype} {tuple(out.shape)}")
+        diff = (out.float() - ref.float()).abs()
+        atol, rtol = TOLERANCE[dtype]
+        max_abs = diff.max().item()
+        within = bool((diff <= atol + rtol * ref.float().abs()).all().item())
+        check(bool(torch.isfinite(out).all().item()), f"{label}: non-finite output")
+        check(within, f"{label}: max abs err {max_abs} over atol {atol} rtol {rtol}")
+        line = {
+            "case": label, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "causal": causal, "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
+        }
+        if label.startswith("vit_b14_main_path"):
+            line["kernel_ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
+            line["plain_ms"] = cuda_ms(lambda: attention.reference_attention(q, k, v))
+            line["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)
+            )
+            line["bound_ms"], line["bound_by"] = attention_bound_ms(shape, dtype)
+            line["card"] = card
+            if label == "vit_b14_main_path":
+                main = line
+        print("attention " + json.dumps(line))
+        del q, k, v, out, ref, diff
+    return main
+
+
+def synthetic_crops(seed: int, n_fields: int) -> list[np.ndarray]:
+    crops = []
+    for _, field in make_synthetic_images(n_images=n_fields, size=896, seed=seed):
+        crops += extract_cell_crops(field, crop_size=224, n_crops=50)
+    return crops
+
+
+async def drive_main_path(svc: CellImageSearch, crops, queries, workspace: str) -> dict:
+    """The slice as a user drives it; returns what the checks need."""
+    t0 = time.perf_counter()
+    await svc.test_deployment()  # builds the model from the seed; first forward
+    t_first = time.perf_counter() - t0
+    await svc.check_health()
+
+    t0 = time.perf_counter()
+    emb = svc.embedder.embed_batch(crops)
+    t_ingest = time.perf_counter() - t0
+    rows = [{"dataset": "synthetic", "crop": j} for j in range(len(crops))]
+    build_index(emb, rows, workspace)
+    stats = await svc.get_index_stats()
+    pong = await svc.ping()
+
+    found, search_ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        found.append(await svc.search(q, top_k=TOP_K))
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # throughput over full buckets: the crops repeated to 3 x BUCKET images
+    full = (crops * (3 * BUCKET // len(crops) + 1))[: 3 * BUCKET]
+    t0 = time.perf_counter()
+    bucket_emb = svc.embedder.embed_batch(full)
+    t_buckets = time.perf_counter() - t0
+    return {
+        "emb": emb, "bucket_emb": bucket_emb, "stats": stats, "ping": pong,
+        "found": found, "search_ms": search_ms, "t_first": t_first,
+        "t_ingest": t_ingest, "t_buckets": t_buckets,
+    }
+
+
+def phase_main_path(card: str) -> int:
+    crops = synthetic_crops(SEED, N_FIELDS)
+    check(len(crops) > TOP_K, f"only {len(crops)} crops from {N_FIELDS} fields")
+    probe = 5
+    queries = [crops[probe]] + synthetic_crops(SEED + 1, 1)[: N_SEARCHES - 1]
+    check(len(queries) == N_SEARCHES, f"{len(queries)} queries")
+    print(f"main path: ViT-B/14 (768 wide, {VIT_DEPTH} deep, 12 heads, 224^2, bf16), "
+          f"bucket {BUCKET}, {len(crops)} crops from {N_FIELDS} synthetic 896^2 fields")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workspace:
+        svc = CellImageSearch(
+            workspace_dir=workspace, batch_bucket=BUCKET, device="cuda", seed=SEED,
+            model_overrides={"depth": VIT_DEPTH},
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.launch_count = 0
+        r = asyncio.run(drive_main_path(svc, crops, queries, workspace))
+        launches = attention.launch_count
+        forwards = svc.embedder.forward_count
+        embed_dim = svc.embedder.embed_dim
+
+    print(f"main path: {forwards} bucket forwards, flash_attn_fwd launches {launches}")
+    check(launches > 0, "the main path launched no flash_attn_fwd kernel")
+    check(launches == VIT_DEPTH * forwards, f"{launches} launches for {forwards} forwards")
+
+    emb = r["emb"]
+    check(emb.shape == (len(crops), embed_dim) and np.isfinite(emb).all(), f"embeddings {emb.shape}")
+    check(np.isfinite(r["bucket_emb"]).all(), "non-finite embeddings in the full buckets")
+    norms = np.linalg.norm(emb, axis=1)
+    check(np.abs(norms - 1).max() <= 1e-3, f"norms off by {np.abs(norms - 1).max()}")
+    check(r["stats"]["loaded"] and r["stats"]["n_cells"] == len(crops), f"stats {r['stats']}")
+    check(r["stats"]["index_type"] == "FlatIP", f"stats {r['stats']}")
+    check(r["ping"]["status"] == "ok" and r["ping"]["backend"] == "cuda", f"ping {r['ping']}")
+    print("ping " + json.dumps(r["ping"]))
+    for i, found in enumerate(r["found"]):
+        scores = [x["score"] for x in found["results"]]
+        check(found["n_results"] == TOP_K, f"search {i}: {found['n_results']} results")
+        check(all(np.isfinite(scores)) and scores == sorted(scores, reverse=True),
+              f"search {i}: scores {scores}")
+    top = r["found"][0]["results"][0]
+    check(top["index_id"] == probe and top["crop"] == probe and top["score"] >= 0.99,
+          f"corpus crop {probe} came back as {top}")
+
+    # for comparison only: the same weights with the plain attention
+    plain = ViTEmbedder(
+        batch_bucket=BUCKET, device="cuda", seed=SEED,
+        attn_fn=attention.reference_attention, model_overrides={"depth": VIT_DEPTH},
+    )
+    ref = plain.embed_batch(crops[:BUCKET])
+    cos = np.sum(ref * emb[:BUCKET], axis=1)
+    print(f"kernel vs plain attention embeddings: min cosine {cos.min():.6f} over {len(cos)} rows")
+    check(cos.min() >= 0.999, f"min cosine {cos.min()}")
+
+    n_bucket_images = 3 * BUCKET
+    print(f"[{card}] embed: model build + first forward {r['t_first']:.3f} s; "
+          f"{len(crops) / r['t_ingest']:.1f} images/s over {len(crops)} crops; "
+          f"{n_bucket_images / r['t_buckets']:.1f} images/s over 3 full buckets of {BUCKET}")
+    ms = np.array(r["search_ms"])
+    svc_ms = [(f["embed_ms"], f["search_ms"]) for f in r["found"]]
+    print(f"[{card}] search: {ms.mean():.2f} ms mean per request over {len(ms)} "
+          f"(min {ms.min():.2f}, max {ms.max():.2f}); service embed/search ms {svc_ms}")
+    print(f"[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def main() -> int:
+    card, name = phase_device()
+    phase_build()
+    main_case = phase_kernels(card)
+    launches = phase_main_path(card)
+    print(json.dumps({"kernels": [{
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "bioengine_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
+        "launches": launches,
+        "max_abs_err": main_case["max_abs_err"],
+        "ms": main_case["kernel_ms"],
+        "kernel_ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)
