@@ -5,6 +5,8 @@ Every ``csrc/<name>.cu`` compiles on its own into
 headers, so a build takes seconds). The hash covers the sources and the
 flags, so an edited source rebuilds and an unchanged one is loaded as it is.
 Nothing builds at import time: the first call that needs a kernel builds it.
+nvcc's log, with ptxas's registers, shared memory and spills for each kernel
+(``-Xptxas -v``), is kept beside the library (``build_log``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -57,6 +59,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    return library_path(name).with_suffix(".log")
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of ``csrc/<name>.cu`` ("" if none)."""
+    path = log_path(name)
+    return path.read_text() if path.is_file() else ""
+
+
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     """Start nvcc for ``name`` unless its library is built; the output goes
     to a temporary name and is renamed into place once complete."""
@@ -77,6 +89,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
 
 

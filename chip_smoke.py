@@ -4,16 +4,21 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. device: CUDA must be there; prints the card's name and power limit;
-2. build: nvcc builds every kernel under bioengine_tpu_torch/csrc;
+2. build: nvcc builds every kernel under bioengine_tpu_torch/csrc, and
+   ptxas's registers, shared memory and spills are printed per kernel;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and the test suite's, with CUDA-event times;
+   path's shapes and the test suite's, with CUDA-event times; for flash
+   attention both paths, bf16 on the tensor cores (wgmma) and f32 on the
+   CUDA cores;
 4. the main path: cell-image-search at ViT-B/14 width (dim 768, depth 12,
    heads 12, 224², bf16, bucket 64, weights from a numpy seed) ingests
    synthetic fields, builds a FlatIP index and answers ping,
    get_index_stats and 8 searches, with the kernels' launch counts read
    around it and the embeddings held against the plain attention path;
-5. one JSON line of the kernels' numbers;
-6. the result line ``{"ok": true, "device": {...}}``, printed last.
+5. the device time of one bucket forward through the kernel and through
+   the plain attention, in turns;
+6. one JSON line of the kernels' numbers;
+7. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -40,6 +46,7 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
     make_synthetic_images,
 )
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops import _build, attention
 
 SEED = 0
@@ -65,7 +72,16 @@ ATTENTION_CASES = [
     ("n300", (1, 1, 300, 64), torch.float32, False),
     ("d128", (2, 4, 190, 128), torch.float32, False),
     ("d128_causal_bf16", (1, 2, 77, 128), torch.bfloat16, True),
+] + [
+    # the bf16 (wgmma) path at every head dim, across tile edges and ragged ends
+    (f"bf16_d{d}_n{n}", (2, 3, n, d), torch.bfloat16, False)
+    for d in (32, 64, 128)
+    for n in (1, 64, 65, 257, 300)
+] + [
+    (f"bf16_d{d}_n257_causal", (2, 3, 257, d), torch.bfloat16, True)
+    for d in (32, 64, 128)
 ]
+MAIN_CASE = "vit_b14_main_path"
 
 
 class SmokeFailure(RuntimeError):
@@ -121,13 +137,64 @@ def phase_device() -> tuple[str, str]:
     return card, name
 
 
-def phase_build() -> None:
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spill bytes of each kernel, from
+    nvcc's ``-Xptxas -v`` log, keyed by a short name such as
+    ``flash_attn_wgmma_kernel<64>``."""
+
+    def short(mangled: str) -> str:
+        # the kernel's name is the identifier before its template arguments,
+        # prefixed by its length
+        m = re.search(r"ILi(\d+)E", mangled)
+        if m:
+            end = m.start()
+            for size in range(1, end):
+                digits = str(size)
+                if mangled[end - size - len(digits):end - size] == digits:
+                    return f"{mangled[end - size:end]}<{m.group(1)}>"
+        return mangled
+
+    report: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            current = report.setdefault(short(m.group(1)), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_store_bytes"] = int(m.group(1))
+            current["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            current["static_smem_bytes"] = int(m.group(1))
+    return report
+
+
+def phase_build(card: str) -> dict:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(
         f"build: {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s: {[p.name for p in libs]}"
     )
+    ptxas = {}
+    for name in _build.kernel_names():
+        log = _build.build_log(name)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"build: {name}: {line.strip()}")
+        ptxas[name] = ptxas_report(log)
+        for kernel, info in ptxas[name].items():
+            print(f"[{card}] ptxas {name}: {kernel} {json.dumps(info)}")
+    wgmma = ptxas.get(attention.KERNEL_NAME, {}).get("flash_attn_wgmma_kernel<64>")
+    check(wgmma is not None and "registers" in wgmma, "no ptxas report for the wgmma kernel")
+    return ptxas
 
 
 def phase_kernels(card: str) -> dict:
@@ -152,9 +219,10 @@ def phase_kernels(card: str) -> dict:
         check(within, f"{label}: max abs err {max_abs} over atol {atol} rtol {rtol}")
         line = {
             "case": label, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-            "causal": causal, "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
+            "causal": causal, "path": attention.launch_plan(shape, dtype).path,
+            "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
         }
-        if label.startswith("vit_b14_main_path"):
+        if label.startswith(MAIN_CASE):
             line["kernel_ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
             line["plain_ms"] = cuda_ms(lambda: attention.reference_attention(q, k, v))
             line["library_ms"] = cuda_ms(
@@ -162,7 +230,7 @@ def phase_kernels(card: str) -> dict:
             )
             line["bound_ms"], line["bound_by"] = attention_bound_ms(shape, dtype)
             line["card"] = card
-            if label == "vit_b14_main_path":
+            if label == MAIN_CASE:
                 main = line
         print("attention " + json.dumps(line))
         del q, k, v, out, ref, diff
@@ -275,16 +343,45 @@ def phase_main_path(card: str) -> int:
     return launches
 
 
+def phase_forward(card: str) -> dict:
+    """Device time of one bucket forward of ViT-B/14 (bf16, bucket 64) with
+    the kernel and with the plain attention in its place, same weights, in
+    turns: kernel, plain, plain, kernel."""
+    models = {}
+    for label, attn_fn in (
+        ("kernel", attention.make_attn_fn()),
+        ("plain", attention.reference_attention),
+    ):
+        model = ViT(depth=VIT_DEPTH, attn_fn=attn_fn)
+        model.reset_parameters(SEED)
+        models[label] = model.to("cuda").eval()
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(
+        rng.standard_normal((BUCKET, 224, 224, 3), np.float32)
+    ).to("cuda")
+    times: dict[str, list[float]] = {"kernel": [], "plain": []}
+    with torch.inference_mode():
+        for label in ("kernel", "plain", "plain", "kernel"):
+            times[label].append(cuda_ms(lambda: models[label](x), iters=10, warmup=2))
+    out = {label: sum(ms) / len(ms) for label, ms in times.items()}
+    print(f"[{card}] bucket forward (ViT-B/14, {VIT_DEPTH} deep, bf16, {BUCKET} images), "
+          f"CUDA events, mean of 10 after 2 warm-up: kernel {times['kernel']} ms, "
+          f"plain attention {times['plain']} ms")
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
-    phase_build()
+    ptxas = phase_build(card)
     main_case = phase_kernels(card)
     launches = phase_main_path(card)
+    forward = phase_forward(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "bioengine_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
+        "path": main_case["path"],
         "launches": launches,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -293,6 +390,11 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "forward_ms": forward["kernel"],
+        "forward_plain_ms": forward["plain"],
+        "ptxas": ptxas[attention.KERNEL_NAME],
+        "smem_bytes": attention.launch_plan(main_case["shape"], torch.bfloat16).smem_bytes,
+        "card": card,
     }]}))
     print(json.dumps({
         "ok": True,

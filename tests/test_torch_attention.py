@@ -17,7 +17,7 @@ from bioengine_tpu.ops.pallas.attention import (
 )
 from bioengine_tpu.ops.pallas.attention import flash_attention as jax_flash
 from bioengine_tpu.ops.pallas.attention import make_attn_fn as jax_make_attn_fn
-from _torch_parity import seeded_flax_params
+from _torch_parity import emulate_wgmma_attention, seeded_flax_params
 from bioengine_tpu_torch.ops import attention
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -166,3 +166,119 @@ class TestWrapperContract:
         q = torch.zeros(1, 1, 8, 32)
         with pytest.raises(ValueError):
             attention.flash_attention(q, torch.zeros(1, 1, 9, 32), q)
+
+
+class TestLaunchPlan:
+    """The launch plan the wrapper hands the C entry point, which refuses
+    any other (csrc/flash_attn_fwd.cu plan_for)."""
+
+    # the main path's shape and the test suites' shapes
+    SHAPES = [
+        (64, 12, 257, 64),
+        (2, 3, 128, 64),
+        (2, 3, 200, 64),
+        (2, 3, 257, 64),
+        (1, 2, 200, 32),
+        (1, 2, 130, 64),
+        (1, 1, 100, 64),
+        (1, 1, 300, 64),
+        (2, 4, 190, 128),
+        (1, 2, 77, 128),
+        (2, 2, 70, 32),
+        (2, 3, 1, 32),
+        (2, 3, 65, 128),
+    ]
+
+    def test_main_path_shape(self):
+        plan = attention.launch_plan((64, 12, 257, 64), torch.bfloat16)
+        assert plan.path == "wgmma"
+        assert plan.q_tiles == 5
+        assert plan.grid == 64 * 12 * 5
+        assert plan.threads == 128 + 32
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=str)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+    def test_tiles_cover_every_row_once(self, shape, dtype):
+        B, H, N, _ = shape
+        plan = attention.launch_plan(shape, dtype)
+        assert plan.q_tiles == -(-N // attention.BLOCK_Q)
+        assert (plan.q_tiles - 1) * attention.BLOCK_Q < N <= plan.q_tiles * attention.BLOCK_Q
+        assert plan.grid == B * H * plan.q_tiles
+
+    @pytest.mark.parametrize("shape", [(64, 12, 257, 64), (2, 3, 65, 32)], ids=str)
+    def test_tiles_of_one_head_are_adjacent(self, shape):
+        B, H, _, _ = shape
+        plan = attention.launch_plan(shape, torch.bfloat16)
+        order = [plan.block_tile(b) for b in range(plan.grid)]
+        assert order == [
+            (bh, t) for bh in range(B * H) for t in range(plan.q_tiles)
+        ]
+
+    def test_grid_is_linear_past_the_grid_y_limit(self):
+        """More than 65535 query tiles of one head: one linear grid axis."""
+        plan = attention.launch_plan((1, 1, 64 * 70_000, 64), torch.bfloat16)
+        assert plan.q_tiles == 70_000 and plan.grid == 70_000
+
+    @pytest.mark.parametrize("d", attention.HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+    def test_shared_memory_fits_a_block(self, dtype, d):
+        plan = attention.launch_plan((1, 1, 257, d), dtype)
+        assert 0 < plan.smem_bytes <= 232_448  # 227 KB, an H100 block's most
+
+    @pytest.mark.parametrize(
+        "dtype, path",
+        [(torch.float32, "cuda_core_f32"), (torch.bfloat16, "wgmma")],
+        ids=str,
+    )
+    def test_path_follows_dtype(self, dtype, path):
+        for d in attention.HEAD_DIMS:
+            assert attention.launch_plan((2, 3, 257, d), dtype).path == path
+
+    @pytest.mark.parametrize(
+        "shape, dtype, error",
+        [
+            ((1, 1, 64, 64), torch.float16, TypeError),
+            ((1, 1, 64, 64), torch.float64, TypeError),
+            ((1, 1, 64, 48), torch.bfloat16, ValueError),
+            ((1, 1, 64, 256), torch.float32, ValueError),
+            ((1, 1, 0, 64), torch.bfloat16, ValueError),
+        ],
+        ids=["f16", "f64", "d48", "d256", "n0"],
+    )
+    def test_refuses_what_the_kernel_does_not_take(self, shape, dtype, error):
+        with pytest.raises(error):
+            attention.launch_plan(shape, dtype)
+
+
+class TestWgmmaEmulation:
+    """A plain emulation of the bf16 path's tiling and rounding (64 x 64
+    tiles, exp2 with the folded scale, P rounded to bf16 before P V, l in
+    f32) against the JAX kernel in bf16, at the JAX suite's bf16 tolerance."""
+
+    @pytest.mark.parametrize(
+        "shape, causal",
+        [
+            ((2, 3, 257, 64), False),
+            ((2, 3, 257, 32), False),
+            ((2, 3, 257, 128), False),
+            ((2, 3, 257, 64), True),
+        ],
+        ids=["n257_d64", "d32", "d128", "causal"],
+    )
+    def test_matches_jax_bf16(self, shape, causal):
+        arrays = _inputs(10, shape)
+        ref = _run_jax(arrays, jnp.bfloat16, causal=causal)
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+        out = emulate_wgmma_attention(q, k, v, causal)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2)
+
+    @pytest.mark.parametrize("n", [1, 64, 65])
+    def test_tile_edges_match_the_plain_version(self, n):
+        arrays = _inputs(11, (1, 2, n, 64))
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+        np.testing.assert_allclose(
+            emulate_wgmma_attention(q, k, v).float().numpy(),
+            attention.reference_attention(q, k, v).float().numpy(),
+            atol=2e-2,
+        )
