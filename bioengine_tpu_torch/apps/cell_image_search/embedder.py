@@ -7,7 +7,7 @@ the hand-written kernel on the card (the JAX embedder's rule of taking the
 kernel only at 1024 tokens and more was measured on a TPU and does not
 apply). Without ``weights_path`` the weights are random, from
 ``np.random.default_rng(seed)``; with one, they are a flat ``jax_params``
-npz of the flax ViT, carried over by ``vit_state_dict_from_flax``.
+npz of the flax ViT, carried over by ``state_dict_from_flax``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops.attention import make_attn_fn
 from bioengine_tpu_torch.runtime.convert import (
     load_params_npz,
-    vit_state_dict_from_flax,
+    state_dict_from_flax,
 )
 from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
 
@@ -73,7 +73,7 @@ class ViTEmbedder:
         kw.update(self.model_overrides)
         model = ViT(img_size=self.INPUT_SIZE, attn_fn=self.attn_fn, **kw)
         if self.weights_path:
-            state = vit_state_dict_from_flax(load_params_npz(self.weights_path))
+            state = state_dict_from_flax(load_params_npz(self.weights_path))
             model.load_state_dict(state)
             logger.info("loaded ViT weights from %s", self.weights_path)
         else:

@@ -1,7 +1,7 @@
 """Builtin model registry: model-zoo style names -> ``nn.Module`` factories.
 
 Counterpart of ``bioengine_tpu/models/registry.py``. Names arrive here with
-their ported models; so far the ViTs.
+their ported models; so far the U-Nets and the ViTs.
 """
 
 from __future__ import annotations
@@ -31,6 +31,20 @@ def get_model(name: str, **overrides: Any) -> nn.Module:
 
 def list_models() -> list[str]:
     return sorted(_REGISTRY)
+
+
+@register_model("unet2d")
+def _unet2d(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.unet import UNet2D
+
+    return UNet2D(**kw)
+
+
+@register_model("unet3d")
+def _unet3d(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.unet3d import UNet3D
+
+    return UNet3D(**kw)
 
 
 @register_model("vit-b14")

@@ -10,7 +10,7 @@ Counterpart of ``bioengine_tpu/models/vit.py`` with the same arithmetic:
 - input is NHWC and the output is the f32 CLS embedding.
 
 Module names follow the flax ones (``block{i}.attn.qkv``,
-``block{i}.mlp.Dense_0``), so ``runtime.convert.vit_state_dict_from_flax``
+``block{i}.mlp.Dense_0``), so ``runtime.convert.state_dict_from_flax``
 carries JAX weights over by name. Unlike flax, the position embedding is
 sized at construction, from ``img_size``.
 """

@@ -17,8 +17,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    around it and the embeddings held against the plain attention path;
 5. the device time of one bucket forward through the kernel and through
    the plain attention, in turns;
-6. one JSON line of the kernels' numbers;
-7. the result line ``{"ok": true, "device": {...}}``, printed last.
+6. the model-runner path (slice 2): ``jax_params`` packages written here
+   from seeded weights (UNet2D at the registry's width (32, 64, 128, 256),
+   UNet3D (16, 32, 64) with z strides (1, 2)) served through
+   ``RuntimeDeployment`` on the card: ``test``, a 512^2 request, a batch
+   of 4 at 1024^2, a tiled 2048^2 request (25 tiles of 512 in chunks of 16
+   through the pipelined engine), a tiled 96 x 256^2 volume and
+   ``get_status``; checks that the pipelined result equals the serial one
+   bit for bit, that a graph replay equals the eager forward, that the
+   program cache holds one graph per (bucket, batch bucket) and a repeated
+   request builds none, and that a streamed-weights package gives the
+   eager one's output; prints request times, megapixels/s, graph-capture
+   seconds, pipeline stage seconds, peak memory and a profiler top-10;
+7. one JSON line of the kernels' numbers;
+8. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import re
 import subprocess
 import sys
@@ -46,8 +59,18 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
     make_synthetic_images,
 )
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
+from bioengine_tpu_torch.models.unet import UNet2D
+from bioengine_tpu_torch.models.unet3d import UNet3D
 from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops import _build, attention
+from bioengine_tpu_torch.runtime.convert import (
+    flax_params_from_state_dict,
+    save_params_npz,
+    unflatten_params,
+)
+from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
+from bioengine_tpu_torch.runtime.weight_stream import write_manifest
 
 SEED = 0
 BUCKET = 64
@@ -370,12 +393,302 @@ def phase_forward(card: str) -> dict:
     return out
 
 
+# ---- slice 2: the model-runner path ------------------------------------------
+
+UNET2D_FEATURES = (32, 64, 128, 256)  # the registry's default, bench.py:204
+UNET3D_FEATURES = (16, 32, 64)  # bench.py:232
+UNET3D_Z_STRIDES = (1, 2)
+VOLUME = (1, 96, 256, 256, 1)  # (B, Z, Y, X, C)
+MR_REPEATS = {"512": 5, "4x1024": 5, "2048": 3, "volume": 3}
+# bf16 on the card against an f32 forward of the same weights on the CPU:
+# 8 GroupNorm layers of bf16 rounding, held to 10% of the output's range
+# (the tolerance of tests/test_torch_unet.py for bf16)
+MR_BF16_VS_F32 = 0.1
+
+
+def write_unet_package(root: str, name: str, model, arch: str, kwargs: dict,
+                       axes: str, manifest: bool = False) -> str:
+    """A ``jax_params`` package of ``model``'s weights: flax-named npz via
+    the reverse bridge, ``rdf.yaml`` as JSON text; per-sample zero-mean
+    in, sigmoid out."""
+    d = f"{root}/{name}"
+    os.makedirs(d)
+    flat = flax_params_from_state_dict(model.state_dict())
+    save_params_npz(f"{d}/weights.npz", unflatten_params(flat))
+    if manifest:
+        write_manifest(f"{d}/weights.npz", flat)
+    rdf = {
+        "type": "model", "name": name, "description": "seeded chip_smoke model",
+        "inputs": [{"name": "raw", "axes": axes, "preprocessing": [
+            {"name": "zero_mean_unit_variance", "kwargs": {"mode": "per_sample"}},
+        ]}],
+        "outputs": [{"name": "mask", "axes": axes, "postprocessing": [{"name": "sigmoid"}]}],
+        "weights": {"jax_params": {"source": "weights.npz",
+                                   "architecture": {"name": arch, "kwargs": kwargs}}},
+    }
+    with open(f"{d}/rdf.yaml", "w") as f:
+        f.write(json.dumps(rdf, indent=1))
+    return d
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+async def _timed(device: str, repeats: int, call):
+    """(result of the last call, per-call host ms) over ``repeats`` calls,
+    each ending with its result on the host."""
+    ms, out = [], None
+    for _ in range(repeats):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = await call()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def _engine_of(deployment: RuntimeDeployment, package: str):
+    (pipeline,) = [p for p in deployment._pipelines.values() if str(p.package_path) == package]
+    return pipeline, pipeline.engine
+
+
+async def drive_model_runner(dep: RuntimeDeployment, device: str, pkgs: dict, inputs: dict) -> dict:
+    """The model-runner as a user drives it; returns what the checks and
+    the report need."""
+    r: dict = {"ms": {}, "inputs": inputs}
+    for key in ("unet2d", "unet3d"):
+        t0 = time.perf_counter()
+        r[f"test_{key}"] = await dep.test(pkgs[key], skip_cache=True)
+        r[f"test_{key}_s"] = time.perf_counter() - t0
+    for key in ("512", "4x1024", "2048", "volume"):
+        pkg = pkgs["unet3d" if key == "volume" else "unet2d"]
+        t0 = time.perf_counter()
+        await dep.predict(pkg, {"raw": inputs[key]})  # builds the request's graphs
+        r[f"first_{key}_s"] = time.perf_counter() - t0
+    r["pipe2d"], engine2d = _engine_of(dep, pkgs["unet2d"])
+    r["pipe3d"], engine3d = _engine_of(dep, pkgs["unet3d"])
+    misses_before = engine2d.cache.stats.misses
+    for key in ("512", "4x1024", "2048", "volume"):
+        pkg = pkgs["unet3d" if key == "volume" else "unet2d"]
+        engine = engine3d if key == "volume" else engine2d
+        before = engine.pipeline_stats.as_dict()
+        out, ms = await _timed(device, MR_REPEATS[key],
+                               lambda pkg=pkg, key=key: dep.predict(pkg, {"raw": inputs[key]}))
+        after = engine.pipeline_stats.as_dict()
+        r[key], r["ms"][key] = out, ms
+        r[f"stages_{key}"] = {
+            k: (after[k] - before[k]) / MR_REPEATS[key]
+            for k in after if k.endswith("_seconds")
+        }
+        r[f"overlap_{key}"] = (
+            after["compute_seconds"] - before["compute_seconds"]
+        ) / max(after["wall_seconds"] - before["wall_seconds"], 1e-12)
+    r["repeat_misses"] = engine2d.cache.stats.misses - misses_before
+    r["streamed"] = await dep.predict(pkgs["unet2d_streamed"], {"raw": inputs["512"]})
+    r["status"] = await dep.get_status()
+    r["describe2d"], r["describe3d"] = engine2d.describe(), engine3d.describe()
+    return r
+
+
+def phase_model_runner(card: str, device: str = "cuda") -> dict:
+    """Slice 2 at full width: write the packages, drive RuntimeDeployment,
+    check, and print the numbers beside the card's name and power limit."""
+    rng = np.random.default_rng(SEED)
+    unet2d = UNet2D(features=UNET2D_FEATURES)
+    unet2d.reset_parameters(SEED)
+    unet3d = UNet3D(features=UNET3D_FEATURES, z_strides=UNET3D_Z_STRIDES)
+    unet3d.reset_parameters(SEED + 1)
+    inputs = {
+        "512": rng.standard_normal((1, 512, 512, 1), np.float32),
+        "4x1024": rng.standard_normal((4, 1024, 1024, 1), np.float32),
+        "2048": rng.standard_normal((1, 2048, 2048, 1), np.float32),
+        "volume": rng.standard_normal(VOLUME, np.float32),
+    }
+    print(f"model runner: UNet2D {UNET2D_FEATURES} and UNet3D {UNET3D_FEATURES} "
+          f"z_strides {UNET3D_Z_STRIDES}, bf16, weights from seeds {SEED} and "
+          f"{SEED + 1}; requests 512^2, 4 x 1024^2, 2048^2 (tiled), volume {VOLUME[1:4]} (tiled)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mr_") as root:
+        kw2d = {"features": list(UNET2D_FEATURES)}
+        kw3d = {"features": list(UNET3D_FEATURES), "z_strides": list(UNET3D_Z_STRIDES)}
+        pkgs = {
+            "unet2d": write_unet_package(root, "unet2d", unet2d, "unet2d", kw2d, "byxc"),
+            "unet2d_streamed": write_unet_package(
+                root, "unet2d_streamed", unet2d, "unet2d", kw2d, "byxc", manifest=True),
+            "unet3d": write_unet_package(root, "unet3d", unet3d, "unet3d", kw3d, "bzyxc"),
+        }
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dep = RuntimeDeployment(device=device)
+        try:
+            attention.launch_count = 0
+            r = asyncio.run(drive_model_runner(dep, device, pkgs, inputs))
+            launches = attention.launch_count
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            print(f"model runner: flash_attn_fwd launches {launches} (the U-Nets run no attention)")
+            checks = check_model_runner(card, device, pkgs, inputs, r, unet2d)
+            report_model_runner(card, device, r, checks, peak)
+        finally:
+            asyncio.run(dep.close())
+    return {"launches": launches, **checks}
+
+
+def check_model_runner(card, device, pkgs, inputs, r, unet2d) -> dict:
+    for key in ("unet2d", "unet3d"):
+        rep = r[f"test_{key}"]
+        check(rep["status"] == "passed" and rep["backend"] == device, f"test {key}: {rep}")
+    check(r["test_unet2d"]["output_shape"] == [1, 64, 64, 1], f"test: {r['test_unet2d']}")
+    for key in ("512", "4x1024", "2048", "volume"):
+        out = r[key]["mask"]
+        check(out.shape == inputs[key].shape, f"{key}: output {out.shape} for {inputs[key].shape}")
+        check(bool(np.isfinite(out).all()) and out.min() >= 0 and out.max() <= 1,
+              f"{key}: outputs outside [0, 1] after the sigmoid")
+        check(r[key]["_meta"]["backend"] == device, f"{key}: {r[key]['_meta']}")
+    check(np.array_equal(r["streamed"]["mask"], r["512"]["mask"]),
+          "the streamed-weights package differs from the eager one")
+    status = r["status"]
+    check(status["backend"] == device and len(status["loaded_pipelines"]) == 3, f"status {status}")
+
+    # the program cache: one graph per (bucket, batch bucket), none rebuilt
+    pipe2d, engine2d = r["pipe2d"], r["pipe2d"].engine
+    engine3d = r["pipe3d"].engine
+    shapes2d = sorted(k[1:5] for k in engine2d.cache.keys() if k[0] == engine2d.model_id)
+    shapes3d = sorted(k[1:6] for k in engine2d.cache.keys() if k[0] == engine3d.model_id)
+    want2d = sorted([(1, 64, 64, 1), (1, 512, 512, 1), (4, 1024, 1024, 1), (16, 512, 512, 1)])
+    want3d = sorted([(1, 16, 64, 64, 1), (4, 32, 256, 256, 1)])
+    check(shapes2d == want2d, f"UNet2D programs {shapes2d}, expected {want2d}")
+    check(shapes3d == want3d, f"UNet3D programs {shapes3d}, expected {want3d}")
+    check(r["repeat_misses"] == 0, f"repeated requests built {r['repeat_misses']} programs")
+
+    # the tiled 2048^2 request: pipelined == serial, bit for bit
+    x = apply_processing(to_nhwc(inputs["2048"], "byxc"), pipe2d.input_spec.preprocessing)
+    t0 = time.perf_counter()
+    piped = engine2d.predict(x)
+    t1 = time.perf_counter()
+    serial = engine2d.predict_serial(x)
+    t2 = time.perf_counter()
+    print(f"[{card}] engine alone, 2048^2 (pre-processed input): predict (pipelined) "
+          f"{(t1 - t0) * 1e3:.3f} ms, predict_serial {(t2 - t1) * 1e3:.3f} ms")
+    check(np.array_equal(piped, serial), "pipelined 2048^2 differs from the serial path: "
+          f"max abs {np.abs(piped - serial).max()}")
+    served = apply_processing(piped, pipe2d.output_spec.postprocessing)
+    check(np.array_equal(served, r["2048"]["mask"]), "predict() differs from the engine's result")
+
+    # one graph replay == the eager forward of the same module, same bucket
+    program = engine2d._program((16, 512, 512, 1), np.float32)
+    chunk = np.ascontiguousarray(
+        np.stack([x[0, i:i + 512, j:j + 512] for i in (0, 448, 896, 1344) for j in (0, 448, 896, 1344)])
+    )
+    staged = engine2d._staging_pool.acquire(chunk.shape, chunk.dtype)
+    staged[...] = chunk
+    replayed = engine2d._launch(program, staged)[0].result().copy()
+    engine2d._staging_pool.release(staged)
+    with torch.no_grad():
+        eager = engine2d.module(torch.from_numpy(chunk).to(device)).float().cpu().numpy()
+    replay_err = float(np.abs(replayed - eager).max())
+    check(replay_err == 0.0, f"graph replay differs from the eager forward by {replay_err}")
+
+    # the card's bf16 forward against an f32 forward of the same weights on
+    # the CPU, on the test's 64^2 input
+    small = np.random.default_rng(0).standard_normal((1, 64, 64, 1)).astype(np.float32)
+    ref32 = UNet2D(features=UNET2D_FEATURES, dtype=torch.float32)
+    ref32.load_state_dict(unet2d.state_dict())
+    with torch.inference_mode():
+        want = ref32(torch.from_numpy(small)).numpy()
+    got = engine2d.predict(small)
+    bf16_err = float(np.abs(got - want).max())
+    bound = MR_BF16_VS_F32 * float(np.abs(want).max())
+    check(bf16_err <= bound, f"card bf16 vs CPU f32: max abs {bf16_err} over {bound}")
+    print(f"[{card}] model runner checks: pipelined == serial (2048^2, 25 tiles, bit for bit); "
+          f"graph replay == eager (16 x 512^2, max abs {replay_err}); programs 2D {shapes2d}, "
+          f"3D {shapes3d}, repeated requests built {r['repeat_misses']}; streamed == eager; "
+          f"card bf16 vs CPU f32 max abs {bf16_err:.4g} (bound {bound:.4g})")
+    return {"replay_err": replay_err, "bf16_vs_f32": bf16_err,
+            "program": program, "chunk": chunk, "engine2d": engine2d}
+
+
+def report_model_runner(card, device, r, checks, peak) -> None:
+    mp = {"512": 512 * 512 / 1e6, "4x1024": 4 * 1024 * 1024 / 1e6,
+          "2048": 2048 * 2048 / 1e6, "volume": float(np.prod(VOLUME[1:4])) / 1e6}
+    for key, unit in (("512", "MP"), ("4x1024", "MP"), ("2048", "MP"), ("volume", "MVox")):
+        ms = np.array(r["ms"][key])
+        print(f"[{card}] model runner {key}: {ms.mean():.3f} ms mean per request over "
+              f"{len(ms)} after a warm-up call (min {ms.min():.3f}, max {ms.max():.3f}); "
+              f"{mp[key] / (ms.mean() / 1e3):.2f} {unit}/s; first call {r[f'first_{key}_s']:.3f} s")
+        stages = {k.removesuffix("_seconds"): round(v * 1e3, 3) for k, v in r[f"stages_{key}"].items()}
+        if key in ("2048", "volume"):
+            pipe = r["pipe3d" if key == "volume" else "pipe2d"]
+            pre, post = host_processing_ms(pipe, r["inputs"][key], r[key]["mask"])
+            print(f"[{card}] model runner {key}: pipeline stage ms per request {json.dumps(stages)}, "
+                  f"overlap efficiency {r[f'overlap_{key}']:.4f}; host pre-processing "
+                  f"{pre:.3f} ms, post-processing {post:.3f} ms")
+    for which in ("describe2d", "describe3d"):
+        for k, s in r[which]["programs"]["compile_seconds"].items():
+            print(f"[{card}] graph capture: {k} {s} s")
+    print(f"[{card}] model runner test(): unet2d {r['test_unet2d_s']:.3f} s, "
+          f"unet3d {r['test_unet3d_s']:.3f} s (package load + first graphs)")
+    print(f"[{card}] model runner peak device memory {peak / 2**30:.2f} GiB")
+    print("model runner status " + json.dumps(r["status"]))
+    if device != "cuda":
+        return
+    # where a 16-tile chunk's time goes on the card
+    program, chunk, engine = checks["program"], checks["chunk"], checks["engine2d"]
+    host = torch.from_numpy(chunk).pin_memory()
+    dev = torch.empty_like(host, device="cuda")
+    back = torch.empty(program.static_out.shape, dtype=program.static_out.dtype, pin_memory=True)
+    h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=20)
+    d2h = cuda_ms(lambda: back.copy_(program.static_out, non_blocking=True), iters=20)
+    replay = cuda_ms(program.graph.replay, iters=10, warmup=2)
+    with torch.no_grad():
+        eager = cuda_ms(lambda: engine.module(dev), iters=5, warmup=1)
+    print(f"[{card}] 16 x 512^2 chunk, CUDA events: H2D {h2d:.3f} ms, graph replay {replay:.3f} ms, "
+          f"eager forward {eager:.3f} ms, D2H {d2h:.3f} ms")
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.module(dev)
+        torch.cuda.synchronize()
+
+    def dev_us(e) -> float:
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+
+    averages = prof.key_averages()
+    # device events are the kernels; the aten ops that launched them carry
+    # the same time as their self device time, so each list sums alone
+    kernels = [e for e in averages if str(e.device_type).endswith("CUDA")]
+    ops = sorted((e for e in averages if e.key.startswith("aten::")), key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in kernels)
+    print(f"[{card}] profiler, eager forward of one 16 x 512^2 chunk: kernels busy "
+          f"{total / 1e3:.3f} ms ({len(kernels)} kernel names); top 10 aten ops by device time:")
+    for e in ops[:10]:
+        print(f"[{card}]   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / max(total, 1e-9):5.1f}% "
+              f"x{e.count:<4} {e.key}")
+
+
+def host_processing_ms(pipeline, x: np.ndarray, y: np.ndarray, repeats: int = 3) -> tuple[float, float]:
+    """Median host ms of the pipeline's input side (axes + pre-processing)
+    and output side (post-processing + axes) for one request's arrays."""
+    spec_in, spec_out = pipeline.input_spec, pipeline.output_spec
+    pre, post = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        apply_processing(to_nhwc(x, spec_in.axes), spec_in.preprocessing)
+        t1 = time.perf_counter()
+        from_nhwc(apply_processing(y, spec_out.postprocessing), spec_out.axes)
+        t2 = time.perf_counter()
+        pre.append((t1 - t0) * 1e3)
+        post.append((t2 - t1) * 1e3)
+    return float(np.median(pre)), float(np.median(post))
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
     main_case = phase_kernels(card)
     launches = phase_main_path(card)
     forward = phase_forward(card)
+    model_runner = phase_model_runner(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -383,6 +696,9 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
+        # slice 2's path runs no attention: its count stays 0
+        "launches_by_path": {"cell_image_search": launches,
+                             "model_runner": model_runner["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -94,7 +94,7 @@ class TestFlashAttentionParity:
         matches the JAX ViT with the JAX kernel in that slot."""
         from bioengine_tpu.models.vit import ViT as JaxViT
         from bioengine_tpu_torch.models.vit import ViT
-        from bioengine_tpu_torch.runtime.convert import vit_state_dict_from_flax
+        from bioengine_tpu_torch.runtime.convert import state_dict_from_flax
 
         images = np.random.default_rng(4).normal(size=(1, 56, 56, 3))
         images = images.astype(np.float32)
@@ -105,7 +105,7 @@ class TestFlashAttentionParity:
             jax.jit(jax_model.apply)({"params": params}, jnp.asarray(images))
         )
 
-        state = vit_state_dict_from_flax(params)
+        state = state_dict_from_flax(params)
         flash = ViT(**cfg, img_size=56, attn_fn=attention.make_attn_fn())
         base = ViT(**cfg, img_size=56)
         flash.load_state_dict(state)

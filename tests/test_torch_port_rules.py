@@ -9,7 +9,10 @@ import torch
 
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
-from bioengine_tpu_torch.runtime.devices import resolve_device
+from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeployment
+from bioengine_tpu_torch.models.unet import UNet2D
+from bioengine_tpu_torch.runtime.devices import resolve_device, resolve_devices
+from bioengine_tpu_torch.runtime.engine import InferenceEngine
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "bioengine_tpu"}
@@ -32,6 +35,12 @@ def _imported_top_levels(path: Path) -> set[str]:
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"attention.py", "vit.py", "service.py", "chip_smoke.py"} <= names
+    # slice 2: model-runner serving
+    assert {
+        "buckets.py", "tracing.py", "program_cache.py", "pipeline.py",
+        "unet.py", "unet3d.py", "registry.py", "convert.py", "devices.py",
+        "engine.py", "rdf.py", "weight_stream.py", "runtime.py",
+    } <= names
     assert (REPO / "bioengine_tpu_torch" / "csrc" / "flash_attn_fwd.cu").is_file()
 
 
@@ -71,3 +80,17 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CellImageSearch(workspace_dir=str(tmp_path))
     assert ViTEmbedder(device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            InferenceEngine("m", UNet2D(features=(4, 8)), device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            RuntimeDeployment(device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Pipeline(tmp_path, device=device)  # before reading the package
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_devices([0], device)
+    assert InferenceEngine("m", UNet2D(features=(4, 8)), device="cpu").device.type == "cpu"
+    assert RuntimeDeployment(device="cpu").backend == "cpu"

@@ -1,5 +1,5 @@
 """The PyTorch port's ViT against the flax ViT, on weights carried over by
-``vit_state_dict_from_flax``.
+``state_dict_from_flax``.
 
 Kernel path: the port with ``make_attn_fn()`` (its plain version on the
 CPU) against JAX with ``make_attn_fn()`` (the Pallas kernel in interpreter
@@ -58,7 +58,7 @@ def _images(seed, batch, size):
 
 def _port_forward(params, images, **cfg):
     model = ViT(img_size=images.shape[1], **cfg)
-    model.load_state_dict(convert.vit_state_dict_from_flax(params))
+    model.load_state_dict(convert.state_dict_from_flax(params))
     with torch.no_grad():
         return model(torch.from_numpy(images)).numpy()
 
@@ -105,12 +105,12 @@ def test_vit_b14_geometry_f32_matches_jax():
 
 def test_bridge_covers_every_parameter(tiny_init):
     params = _perturbed(tiny_init)
-    state = convert.vit_state_dict_from_flax(params)
+    state = convert.state_dict_from_flax(params)
     model = ViT(**TINY, img_size=56)
     expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in state.items()} == expected
     # flat and nested inputs give the same state_dict
-    flat_state = convert.vit_state_dict_from_flax(jax_convert.flatten_params(params))
+    flat_state = convert.state_dict_from_flax(jax_convert.flatten_params(params))
     assert all(torch.equal(flat_state[k], state[k]) for k in state)
     # conv kernel (kh, kw, I, O) -> (O, I, kh, kw)
     np.testing.assert_array_equal(
@@ -143,12 +143,12 @@ def test_reset_parameters_is_seeded():
 
 
 def test_registry():
-    assert registry.list_models() == ["vit-b14", "vit-s14"]
+    assert registry.list_models() == ["unet2d", "unet3d", "vit-b14", "vit-s14"]
     small = registry.get_model("vit-s14", depth=1, img_size=28)
     assert small.dim == 384 and small.block0.attn.num_heads == 6
     assert registry.get_model("vit-b14", depth=1, img_size=28).dim == 768
     with pytest.raises(KeyError):
-        registry.get_model("unet2d")
+        registry.get_model("cellpose")
 
 
 def test_rejects_other_image_sizes():
