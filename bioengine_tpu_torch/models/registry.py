@@ -1,7 +1,7 @@
 """Builtin model registry: model-zoo style names -> ``nn.Module`` factories.
 
 Counterpart of ``bioengine_tpu/models/registry.py``. Names arrive here with
-their ported models; so far the U-Nets and the ViTs.
+their ported models; so far the U-Nets, the ViTs and ``cellpose``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,13 @@ def _unet3d(**kw) -> nn.Module:
     from bioengine_tpu_torch.models.unet3d import UNet3D
 
     return UNet3D(**kw)
+
+
+@register_model("cellpose")
+def _cellpose(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.cellpose import CellposeNet
+
+    return CellposeNet(**kw)
 
 
 @register_model("vit-b14")

@@ -99,6 +99,26 @@ class GroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+@torch.no_grad()
+def reset_flax_scales(module: nn.Module, seed: int = 0) -> None:
+    """Random weights from ``np.random.default_rng(seed)`` with flax's
+    initialiser scales: kernels ~ N(0, 1/fan_in) (fan_in = input channels
+    x window, for transposed kernels too; a Dense's input width), zero
+    biases, unit GroupNorm scales."""
+    rng = np.random.default_rng(seed)
+    for name, p in module.named_parameters():
+        module_name, leaf = name.rsplit(".", 1)
+        if leaf == "bias":
+            p.zero_()
+        elif p.dim() == 1:  # GroupNorm scale
+            p.fill_(1.0)
+        else:
+            is_t = module_name.rsplit(".", 1)[-1].startswith("ConvTranspose")
+            fan_in = (p.shape[0] if is_t else p.shape[1]) * math.prod(p.shape[2:])
+            std = 1.0 / math.sqrt(fan_in)
+            p.copy_(torch.from_numpy(rng.normal(0.0, std, p.shape).astype(np.float32)))
+
+
 class ConvBlock(nn.Module):
     """(Conv 3^n -> GroupNorm -> SiLU) twice."""
 
@@ -166,24 +186,8 @@ class UNet(nn.Module):
         """In-plane bucket divisor: pooling is 2x per level in y and x."""
         return 2 ** (len(self.features) - 1)
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """Random weights from ``np.random.default_rng(seed)`` with flax's
-        initialiser scales: kernels ~ N(0, 1/fan_in) (fan_in = input
-        channels x window, for transposed kernels too), zero biases, unit
-        GroupNorm scales."""
-        rng = np.random.default_rng(seed)
-        for name, p in self.named_parameters():
-            module_name, leaf = name.rsplit(".", 1)
-            if leaf == "bias":
-                p.zero_()
-            elif p.dim() == 1:  # GroupNorm scale
-                p.fill_(1.0)
-            else:
-                is_t = module_name.rsplit(".", 1)[-1].startswith("ConvTranspose")
-                fan_in = (p.shape[0] if is_t else p.shape[1]) * math.prod(p.shape[2:])
-                std = 1.0 / math.sqrt(fan_in)
-                p.copy_(torch.from_numpy(rng.normal(0.0, std, p.shape).astype(np.float32)))
+        reset_flax_scales(self, seed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, *spatial, C_in), spatial divisible by the pools ->

@@ -29,8 +29,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    request builds none, and that a streamed-weights package gives the
    eager one's output; prints request times, megapixels/s, graph-capture
    seconds, pipeline stage seconds, peak memory and a profiler top-10;
-7. one JSON line of the kernels' numbers;
-8. the result line ``{"ok": true, "device": {...}}``, printed last.
+7. the cellpose fine-tuning path (slice 3): ``CellposeFinetune`` trains
+   ``CellposeNet`` (32, 64, 128, 256) in bf16 for 3 epochs at 8 x 256^2 on
+   16 synthetic 512^2 fields of ellipse cells (loss must fall); a train
+   step timed with CUDA events and profiled; one f32 step (TF32 off) on
+   the card against the CPU, and the bf16 step's loss against it; ``infer``
+   on 2 x 512^2 and 1024^2 split into forward, ``follow_flows`` and host
+   clustering, with the card's follow held against the CPU's; ``infer_3d``
+   on a 32 x 256^2 stack at anisotropy 1 and 2; ``export_model`` served by
+   ``RuntimeDeployment`` against ``_predict_raw``; one ``cellpose`` JSON
+   line of the numbers;
+8. one JSON line of the kernels' numbers;
+9. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -51,6 +61,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy import ndimage
 
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.index import build_index
@@ -59,11 +70,28 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
     make_synthetic_images,
 )
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
+from bioengine_tpu_torch.models.cellpose import (
+    CellposeConfig,
+    CellposeNet,
+    TrainState,
+    create_model_and_state,
+    make_train_step,
+)
 from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.models.unet3d import UNet3D
 from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops import _build, attention
+from bioengine_tpu_torch.ops.flows import (
+    FLOW_SCALE,
+    aggregate_orthogonal_flows,
+    cluster_sinks,
+    follow_flows,
+    follow_flows_3d,
+    masks_to_flows,
+    predictions_to_masks,
+)
 from bioengine_tpu_torch.runtime.convert import (
     flax_params_from_state_dict,
     save_params_npz,
@@ -644,10 +672,17 @@ def report_model_runner(card, device, r, checks, peak) -> None:
         eager = cuda_ms(lambda: engine.module(dev), iters=5, warmup=1)
     print(f"[{card}] 16 x 512^2 chunk, CUDA events: H2D {h2d:.3f} ms, graph replay {replay:.3f} ms, "
           f"eager forward {eager:.3f} ms, D2H {d2h:.3f} ms")
+    with torch.no_grad():
+        print_profile(card, "eager forward of one 16 x 512^2 chunk", lambda: engine.module(dev))
+
+
+def print_profile(card: str, what: str, fn) -> list[dict]:
+    """``torch.profiler`` over one call of ``fn``: the kernels' busy time
+    and the top 10 aten ops by device time, printed and returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.module(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e) -> float:
@@ -659,11 +694,14 @@ def report_model_runner(card, device, r, checks, peak) -> None:
     kernels = [e for e in averages if str(e.device_type).endswith("CUDA")]
     ops = sorted((e for e in averages if e.key.startswith("aten::")), key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in kernels)
-    print(f"[{card}] profiler, eager forward of one 16 x 512^2 chunk: kernels busy "
+    print(f"[{card}] profiler, {what}: kernels busy "
           f"{total / 1e3:.3f} ms ({len(kernels)} kernel names); top 10 aten ops by device time:")
+    top = []
     for e in ops[:10]:
         print(f"[{card}]   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / max(total, 1e-9):5.1f}% "
               f"x{e.count:<4} {e.key}")
+        top.append({"op": e.key, "ms": dev_us(e) / 1e3, "count": e.count})
+    return [{"busy_ms": total / 1e3}] + top
 
 
 def host_processing_ms(pipeline, x: np.ndarray, y: np.ndarray, repeats: int = 3) -> tuple[float, float]:
@@ -682,6 +720,379 @@ def host_processing_ms(pipeline, x: np.ndarray, y: np.ndarray, repeats: int = 3)
     return float(np.median(pre)), float(np.median(post))
 
 
+# ---- slice 3: cellpose fine-tuning -------------------------------------------
+
+CELLPOSE_FEATURES = (32, 64, 128, 256)  # the app's default backbone, bench.py:1057
+CELLPOSE_FIELDS = 16  # synthetic 512^2 two-channel training fields
+CELLPOSE_FIELD = 512
+CELLPOSE_CELLS = 60  # ellipse cells per 512^2 field
+CELLPOSE_CFG = {"tile": 256, "batch_size": 8, "epochs": 3}  # 8 steps an epoch
+CELLPOSE_TIMED_STEPS = 20
+CELLPOSE_INFER_REPEATS = 3
+CELLPOSE_VOLUME = (32, 256, 256)
+# card against CPU, f32 with TF32 off: loss relative, gradients against the
+# largest gradient; the bf16 step's loss against the f32 one
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-4
+STEP_BF16_RTOL = 0.02
+# follow_flows on the card against the CPU, on the same raw prediction
+FOLLOW_POS_TOL = 1e-3  # px
+FOLLOW_POS_SHARE = 0.999
+FOLLOW_MASK_AGREE = 0.995
+# the export served by RuntimeDeployment against _predict_raw, 512^2 (its
+# own bucket in both), as a share of the output's range
+EXPORT_TOL = 1e-3
+
+
+def synthetic_cell_fields(n: int, size: int, n_cells: int, seed: int):
+    """(n, size, size, 2) float32 fields (cytoplasm, nucleus) of ellipse
+    cells on a noisy background, and their (n, size, size) int32 instance
+    masks; cells drawn later never cover earlier ones."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(0.1, 0.02, (n, size, size, 2)).astype(np.float32)
+    masks = np.zeros((n, size, size), np.int32)
+    for i in range(n):
+        for lbl in range(1, n_cells + 1):
+            cy, cx = rng.uniform(12, size - 12, 2)
+            a, b = rng.uniform(7, 14, 2)
+            theta = rng.uniform(0, np.pi)
+            r = int(np.ceil(max(a, b))) + 1
+            ys = slice(max(int(cy) - r, 0), min(int(cy) + r + 1, size))
+            xs = slice(max(int(cx) - r, 0), min(int(cx) + r + 1, size))
+            dy, dx = np.meshgrid(np.arange(ys.start, ys.stop) - cy,
+                                 np.arange(xs.start, xs.stop) - cx, indexing="ij")
+            u = dy * np.cos(theta) + dx * np.sin(theta)
+            v = -dy * np.sin(theta) + dx * np.cos(theta)
+            free = ((u / a) ** 2 + (v / b) ** 2 < 1) & (masks[i, ys, xs] == 0)
+            masks[i, ys, xs][free] = lbl
+            images[i, ys, xs, 0][free] += rng.uniform(0.6, 1.2)
+            images[i, ys, xs, 1][free & ((u / a) ** 2 + (v / b) ** 2 < 0.25)] += 1.0
+    return images, masks
+
+
+def synthetic_cell_volume(shape, n_cells: int, seed: int) -> np.ndarray:
+    """A (D, H, W) float32 grayscale stack of bright ellipsoid cells."""
+    rng = np.random.default_rng(seed)
+    vol = rng.normal(0.1, 0.02, shape).astype(np.float32)
+    zz, yy, xx = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
+    for _ in range(n_cells):
+        c = [rng.uniform(6, s - 6) for s in shape]
+        radii = rng.uniform(5, 10, 3)
+        inside = sum(((g - ci) / ri) ** 2 for g, ci, ri in zip((zz, yy, xx), c, radii)) < 1
+        vol[inside] += rng.uniform(0.6, 1.2)
+    return vol
+
+
+def _device_ms(device: str, fn, iters: int, warmup: int = 1) -> float:
+    """CUDA-event ms per call on the card, host ms on the CPU."""
+    if device == "cuda":
+        return cuda_ms(fn, iters=iters, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _matched_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Share of the pixels labelled in ``a`` whose label in ``b`` is the
+    one that overlaps their ``a`` label most."""
+    fg = a > 0
+    if not fg.any():
+        return 1.0
+    pairs, counts = np.unique(np.stack([a[fg], b[fg]]), axis=1, return_counts=True)
+    best: dict[int, int] = {}
+    for (la, _), n in zip(pairs.T, counts):
+        best[la] = max(best.get(la, 0), int(n))
+    return sum(best.values()) / int(fg.sum())
+
+
+async def drive_cellpose(svc: CellposeFinetune, images, masks, timeout_s: float = 600) -> dict:
+    """The app as a user drives it: start, poll until done, list."""
+    t0 = time.perf_counter()
+    await svc.start_training(
+        train_images=list(images), train_labels=list(masks),
+        config={"features": list(CELLPOSE_FEATURES), "seed": SEED, **CELLPOSE_CFG},
+        session_id="smoke",
+    )
+    t_prep = time.perf_counter() - t0
+    deadline = time.time() + timeout_s
+    polls = 0
+    while True:
+        status = await svc.get_training_status(session_id="smoke")
+        polls += 1
+        if status["status"] in ("completed", "failed", "stopped"):
+            break
+        check(time.time() < deadline, f"training did not finish in {timeout_s} s: {status}")
+        await asyncio.sleep(0.1)
+    return {"status": status, "t_prep": t_prep, "t_total": time.perf_counter() - t0,
+            "polls": polls, "sessions": await svc.list_sessions()}
+
+
+def _train_batch(images, masks, n: int, tile: int, device: str):
+    """The first ``n`` fields' top-left tiles with their flow targets, as
+    device tensors (images, flows, cellprob)."""
+    bi = np.ascontiguousarray(CellposeFinetune._prepare_images(list(images[:n]))[:, :tile, :tile])
+    # flows of the whole fields, as the app derives them, then cropped
+    bf = np.stack([np.moveaxis(masks_to_flows(m), 0, -1)[:tile, :tile] for m in masks[:n]])
+    bp = (masks[:n, :tile, :tile] > 0).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (bi, bf, bp)]
+
+
+def cellpose_step_parity(card: str, images, masks, device: str) -> dict:
+    """One train step at 2 x 128^2 of an f32 model (TF32 off) on the card
+    and on the CPU, same weights and batch; and the bf16 step's loss."""
+    model = CellposeNet(features=CELLPOSE_FEATURES, dtype=torch.float32)
+    model.reset_parameters(SEED + 2)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for where, dtype in (("cpu", torch.float32), (device, torch.float32), (device, torch.bfloat16)):
+        m = CellposeNet(features=CELLPOSE_FEATURES, dtype=dtype)
+        m.load_state_dict(start)
+        state = TrainState.create(m.to(where), 1e-4, 1e-5)
+        _, metrics = make_train_step()(state, *_train_batch(images, masks, 2, 128, where))
+        out[(where, dtype)] = (
+            float(metrics["loss"]),
+            {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+        )
+    loss_cpu, g_cpu = out[("cpu", torch.float32)]
+    loss_dev, g_dev = out[(device, torch.float32)]
+    loss_bf16, _ = out[(device, torch.bfloat16)]
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    grad_err = max((g_dev[k] - g_cpu[k]).abs().max().item() for k in g_cpu)
+    loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    bf16_rel = abs(loss_bf16 - loss_dev) / abs(loss_dev)
+    print(f"[{card}] cellpose train step, 2 x 128^2, f32 (TF32 off): card loss {loss_dev!r}, CPU "
+          f"loss {loss_cpu!r} (rel {loss_rel:.3g}, bound {STEP_LOSS_RTOL}); gradients max abs "
+          f"diff {grad_err:.3g} of largest {scale:.3g} (bound {STEP_GRAD_TOL} of it); bf16 step "
+          f"loss {loss_bf16!r} (rel {bf16_rel:.3g} to f32, bound {STEP_BF16_RTOL})")
+    check(np.isfinite([loss_cpu, loss_dev, loss_bf16]).all(), "non-finite step loss")
+    check(loss_rel <= STEP_LOSS_RTOL, f"card vs CPU step loss rel {loss_rel}")
+    check(grad_err <= STEP_GRAD_TOL * scale, f"card vs CPU gradients {grad_err} of {scale}")
+    check(bf16_rel <= STEP_BF16_RTOL, f"bf16 vs f32 step loss rel {bf16_rel}")
+    return {"loss_rel": loss_rel, "grad_err_rel": grad_err / scale, "bf16_loss_rel": bf16_rel}
+
+
+def time_cellpose_step(card: str, images, masks, device: str) -> dict:
+    """ms per train step (CUDA events over CELLPOSE_TIMED_STEPS steps after
+    3 warm-up steps) at batch_size x tile^2, bf16, and a profile of one."""
+    batch, tile = CELLPOSE_CFG["batch_size"], CELLPOSE_CFG["tile"]
+    _, state = create_model_and_state(CellposeConfig(features=CELLPOSE_FEATURES), seed=SEED, device=device)
+    tensors = _train_batch(images, masks, batch, tile, device)
+    step = make_train_step()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ms = _device_ms(device, lambda: step(state, *tensors), iters=CELLPOSE_TIMED_STEPS, warmup=3)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    r = {"step_ms": ms, "tiles_per_s": batch / (ms / 1e3), "step_peak_gib": peak / 2**30}
+    print(f"[{card}] cellpose train step, {batch} x {tile}^2, bf16, CellposeNet {CELLPOSE_FEATURES}: "
+          f"{ms:.3f} ms per step (mean of {CELLPOSE_TIMED_STEPS} after 3 warm-up), "
+          f"{r['tiles_per_s']:.1f} tiles/s, peak device memory {r['step_peak_gib']:.2f} GiB")
+    if device == "cuda":
+        r["profile"] = print_profile(card, f"one train step at {batch} x {tile}^2",
+                                     lambda: step(state, *tensors))
+    return r
+
+
+async def _timed_requests(device: str, calls: dict, repeats: int) -> dict:
+    """For each key: a warm-up call, then ``repeats`` timed calls, all on
+    one event loop (so ``to_thread`` reuses warm worker threads, with their
+    CUDA library handles, as a long-lived server does). Returns {key:
+    (first result, last result, host ms per timed call)}."""
+    out = {}
+    for key, call in calls.items():
+        first = await call()
+        ms, last = [], first
+        for _ in range(repeats):
+            _sync(device)
+            t0 = time.perf_counter()
+            last = await call()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[key] = (first, last, ms)
+    return out
+
+
+def _host_ms(fn) -> tuple[object, float]:
+    t0 = time.perf_counter()
+    result = fn()
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: str) -> dict:
+    """``infer`` per request (host clock), split into host pre-processing,
+    ``_predict_raw`` (snapshot load, copy in, forward, copy out; its
+    forward alone by device clock) and per image ``predictions_to_masks``
+    (``follow_flows`` by device clock, host clustering); the card's follow
+    held against the CPU's on the same raw prediction."""
+    session = svc.sessions["smoke"]
+    calls = {
+        key: (lambda imgs=imgs: svc.infer(session_id="smoke", images=imgs))
+        for key, imgs in fields.items()
+    }
+    timed = asyncio.run(_timed_requests(device, calls, CELLPOSE_INFER_REPEATS))
+    r: dict = {}
+    for key, imgs in fields.items():
+        first, out, ms = timed[key]
+        for img, m, n in zip(imgs, out["masks"], out["n_cells"]):
+            check(m.shape == img.shape[:2] and m.dtype == np.int32, f"infer {key}: mask {m.shape}")
+            check(n == int(m.max()), f"infer {key}: n_cells {n} vs max {m.max()}")
+        check(out["n_cells"] == first["n_cells"], f"infer {key}: repeated calls disagree")
+        x, prep = _host_ms(lambda: svc._prepare_images(imgs))
+        pred, raw = _host_ms(lambda: svc._predict_raw(session, x))
+        model = svc._infer_models[tuple(CELLPOSE_FEATURES)]
+        xt = torch.from_numpy(x).to(device)
+        with torch.inference_mode():
+            fwd = _device_ms(device, lambda: model(xt), iters=5)
+        _, to_masks = _host_ms(lambda: [predictions_to_masks(p, device=device) for p in pred])
+        flow = torch.from_numpy(np.ascontiguousarray(np.moveaxis(pred[0, ..., :2], -1, 0) / FLOW_SCALE))
+        flow_dev = flow.to(device)
+        follow = _device_ms(device, lambda: follow_flows(flow_dev), iters=3)
+        fg = pred[0, ..., 2] > 0.0
+        p_dev = follow_flows(flow_dev).cpu().numpy()
+        _, cluster = _host_ms(lambda: cluster_sinks(p_dev, fg, 15))
+        r[key] = {"request_ms": float(np.mean(ms)), "request_ms_all": ms, "prepare_ms": prep,
+                  "predict_raw_ms": raw, "forward_ms": fwd, "masks_ms": to_masks,
+                  "follow_ms_per_image": follow, "cluster_ms_per_image": cluster,
+                  "n_cells": out["n_cells"]}
+        clock = "device" if device == "cuda" else "host"
+        print(f"[{card}] cellpose infer {key}: {np.mean(ms):.3f} ms mean per request over {len(ms)} "
+              f"after a warm-up call ({[round(t, 3) for t in ms]}); host pre-processing {prep:.3f} ms, "
+              f"_predict_raw {raw:.3f} ms (forward {fwd:.3f} ms {clock}), predictions_to_masks "
+              f"{to_masks:.3f} ms for {len(imgs)} image(s): follow_flows {follow:.3f} ms {clock} and "
+              f"host clustering {cluster:.3f} ms per image; n_cells {out['n_cells']}")
+        if key == "2x512":
+            p_cpu = follow_flows(flow).numpy()
+            dist = np.sqrt(((p_dev - p_cpu) ** 2).sum(0))
+            share = float(np.mean(dist <= FOLLOW_POS_TOL))
+            agree = _matched_agreement(cluster_sinks(p_cpu, fg, 15), cluster_sinks(p_dev, fg, 15))
+            r["follow_vs_cpu"] = {"max_px": float(dist.max()), "share_within": share,
+                                  "mask_agreement": agree, "fg_pixels": int(fg.sum())}
+            print(f"[{card}] follow_flows card vs CPU, 512^2: max {dist.max():.3g} px, "
+                  f"{100 * share:.4f}% within {FOLLOW_POS_TOL} px (bound {100 * FOLLOW_POS_SHARE}%); "
+                  f"masks agree on {100 * agree:.4f}% of {int(fg.sum())} foreground pixels "
+                  f"(bound {100 * FOLLOW_MASK_AGREE}%)")
+            check(share >= FOLLOW_POS_SHARE, f"follow positions: {share} within {FOLLOW_POS_TOL} px")
+            check(agree >= FOLLOW_MASK_AGREE, f"follow masks agree on {agree}")
+    return r
+
+
+def time_cellpose_infer_3d(card: str, svc: CellposeFinetune, device: str) -> dict:
+    """``infer_3d`` per request (host clock, after a warm-up call), and
+    ``follow_flows_3d`` alone (device clock) on the field it followed."""
+    vol = synthetic_cell_volume(CELLPOSE_VOLUME, 40, SEED + 5)
+    session = svc.sessions["smoke"]
+    calls = {
+        a: (lambda a=a: svc.infer_3d(session_id="smoke", volumes=[vol], anisotropy=a))
+        for a in (1.0, 2.0)
+    }
+    timed = asyncio.run(_timed_requests(device, calls, 1))
+    r = {}
+    for anisotropy, (_, out, (ms,)) in timed.items():
+        m = out["masks"][0]
+        check(m.shape == CELLPOSE_VOLUME, f"infer_3d: masks {m.shape}")
+        check(out["n_cells"] == [int(m.max())], f"infer_3d: n_cells {out['n_cells']}")
+        # the follow alone, on the field the request followed
+        depth = max(1, int(round(vol.shape[0] * anisotropy)))
+        v = ndimage.zoom(vol, (depth / vol.shape[0], 1.0, 1.0), order=1) if anisotropy != 1.0 else vol
+        lo, hi = np.percentile(v, [1, 99])
+        v = (v - lo) / max(hi - lo, 1e-6)
+        state = svc._load_snapshot(session)
+        preds = []
+        for axes in ((0, 1, 2), (1, 0, 2), (2, 0, 1)):
+            s = np.ascontiguousarray(np.transpose(v, axes))
+            preds.append(svc._predict_raw(session, np.stack([s, np.zeros_like(s)], -1), state=state))
+        flow, _ = aggregate_orthogonal_flows(*preds)
+        flow_dev = torch.from_numpy(flow / FLOW_SCALE).to(device)
+        follow = _device_ms(device, lambda: follow_flows_3d(flow_dev), iters=1)
+        r[str(anisotropy)] = {"request_ms": ms, "follow_3d_ms": follow, "n_cells": out["n_cells"],
+                              "followed_shape": list(flow.shape[1:])}
+        print(f"[{card}] cellpose infer_3d {CELLPOSE_VOLUME} anisotropy {anisotropy}: {ms:.3f} ms "
+              f"(after a warm-up call); follow_flows_3d over {list(flow.shape[1:])} "
+              f"{follow:.3f} ms ({100 * follow / ms:.1f}% of the request); n_cells {out['n_cells']}")
+    return r
+
+
+def check_cellpose_export(card: str, svc: CellposeFinetune, field: np.ndarray, device: str) -> dict:
+    exported = asyncio.run(svc.export_model(session_id="smoke"))
+    x = svc._prepare_images([field])
+    dep = RuntimeDeployment(device=device)
+
+    async def serve():
+        try:
+            return await dep.predict(exported["model_path"], {"input0": x})
+        finally:
+            await dep.close()
+
+    t0 = time.perf_counter()
+    served = asyncio.run(serve())
+    t_serve = time.perf_counter() - t0
+    out = served["output0"]
+    raw = svc._predict_raw(svc.sessions["smoke"], x)
+    err = float(np.abs(out - raw).max())
+    span = float(raw.max() - raw.min())
+    print(f"[{card}] cellpose export served by RuntimeDeployment: output {out.shape}, max abs "
+          f"{err:.4g} against _predict_raw (bound {EXPORT_TOL} x range {span:.4g}); package load + "
+          f"first 512^2 request {t_serve:.3f} s")
+    check(served["_meta"]["backend"] == device, f"served on {served['_meta']}")
+    check(out.shape == (1, CELLPOSE_FIELD, CELLPOSE_FIELD, 3), f"served output {out.shape}")
+    check(bool(np.isfinite(out).all()), "served output not finite")
+    check(err <= EXPORT_TOL * span, f"served vs _predict_raw: {err} over {EXPORT_TOL * span}")
+    return {"served_vs_raw_max_abs": err, "output_range": span}
+
+
+def phase_cellpose(card: str, device: str = "cuda") -> dict:
+    """Slice 3 at full width: train, check the card against the CPU, infer
+    in 2D and 3D, export and serve; print the numbers beside the card."""
+    t0 = time.perf_counter()
+    images, masks = synthetic_cell_fields(CELLPOSE_FIELDS, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED)
+    big, _ = synthetic_cell_fields(1, 2 * CELLPOSE_FIELD, 4 * CELLPOSE_CELLS, SEED + 1)
+    print(f"cellpose: CellposeNet {CELLPOSE_FEATURES}, bf16, {CELLPOSE_FIELDS} synthetic "
+          f"{CELLPOSE_FIELD}^2 fields of ~{CELLPOSE_CELLS} cells drawn in "
+          f"{time.perf_counter() - t0:.2f} s; config {CELLPOSE_CFG}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as root:
+        svc = CellposeFinetune(sessions_root=root, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        attention.launch_count = 0
+        r = asyncio.run(drive_cellpose(svc, images, masks))
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        status = r["status"]
+        losses = status.get("losses", [])
+        print(f"cellpose: status {status['status']}, epochs {status.get('current_epoch')}, "
+              f"steps/epoch {status.get('steps_per_epoch')}, losses {losses}")
+        check(status["status"] == "completed", f"training ended {status}")
+        check(status["current_epoch"] == CELLPOSE_CFG["epochs"], f"epochs {status}")
+        want_steps = CELLPOSE_FIELDS * (CELLPOSE_FIELD // CELLPOSE_CFG["tile"]) ** 2 // CELLPOSE_CFG["batch_size"]
+        check(status["steps_per_epoch"] == want_steps, f"steps per epoch {status['steps_per_epoch']}")
+        check(len(losses) == CELLPOSE_CFG["epochs"] and np.isfinite(losses).all(), f"losses {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(r["sessions"][0]["snapshots"] == CELLPOSE_CFG["epochs"], f"sessions {r['sessions']}")
+        n_steps = CELLPOSE_CFG["epochs"] * status["steps_per_epoch"]
+        print(f"[{card}] cellpose training: data preparation (start_training, host) "
+              f"{r['t_prep']:.3f} s; {n_steps} steps + 3 snapshots {r['t_total'] - r['t_prep']:.3f} s "
+              f"host clock; peak device memory {peak / 2**30:.2f} GiB")
+        timed = time_cellpose_step(card, images, masks, device)
+        parity = cellpose_step_parity(card, images, masks, device)
+        infer = time_cellpose_infer(
+            card, svc, {"2x512": [images[0], images[1]], "1024": [big[0]]}, device)
+        infer_3d = time_cellpose_infer_3d(card, svc, device)
+        export = check_cellpose_export(card, svc, images[2], device)
+        launches = attention.launch_count
+    print(f"cellpose: flash_attn_fwd launches {launches} over the phase (CellposeNet runs no attention)")
+    line = {
+        "card": card, "features": list(CELLPOSE_FEATURES), **CELLPOSE_CFG,
+        "data_prep_s": r["t_prep"], "train_s": r["t_total"] - r["t_prep"], "losses": losses,
+        "train_peak_gib": peak / 2**30, **timed, "step_parity": parity,
+        "infer": infer, "infer_3d": infer_3d, "export": export,
+        "flash_attn_fwd_launches": launches,
+    }
+    print("cellpose " + json.dumps(line))
+    return {"launches": launches, **line}
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -689,6 +1100,7 @@ def main() -> int:
     launches = phase_main_path(card)
     forward = phase_forward(card)
     model_runner = phase_model_runner(card)
+    cellpose = phase_cellpose(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -696,9 +1108,10 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slice 2's path runs no attention: its count stays 0
+        # slices 2 and 3 run no attention: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
-                             "model_runner": model_runner["launches"]},
+                             "model_runner": model_runner["launches"],
+                             "cellpose": cellpose["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -5,9 +5,21 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from bioengine_tpu.runtime import convert as jax_convert
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Hold PyTorch to 2 CPU threads while a module runs: the suite runs
+    files side by side in several worker processes, and timing-bound tests
+    in other files share the cores. Import it into a test module to use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def seeded_flax_params(model, image_shape, seed=0):

@@ -4,18 +4,23 @@ package, and its entry points run on the card unless asked for the CPU."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
 from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeployment
+from bioengine_tpu_torch.models.cellpose import CellposeConfig, create_model_and_state
+from bioengine_tpu_torch.models.registry import list_models
 from bioengine_tpu_torch.models.unet import UNet2D
+from bioengine_tpu_torch.ops.flows import masks_from_flows
 from bioengine_tpu_torch.runtime.devices import resolve_device, resolve_devices
 from bioengine_tpu_torch.runtime.engine import InferenceEngine
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "bioengine_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu"}
 PORT_FILES = sorted((REPO / "bioengine_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
@@ -41,6 +46,9 @@ def test_port_files_exist():
         "unet.py", "unet3d.py", "registry.py", "convert.py", "devices.py",
         "engine.py", "rdf.py", "weight_stream.py", "runtime.py",
     } <= names
+    # slice 3: cellpose fine-tuning
+    assert {"flows.py", "cellpose.py"} <= names
+    assert (REPO / "bioengine_tpu_torch" / "apps" / "cellpose_finetuning" / "service.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "csrc" / "flash_attn_fwd.cu").is_file()
 
 
@@ -53,7 +61,7 @@ def test_imports_no_jax_and_nothing_of_the_jax_package(path):
 def test_import_walk_sees_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(
-        "import jax.numpy as jnp\nfrom flax import linen\n"
+        "import jax.numpy as jnp\nfrom flax import linen\nimport optax\n"
         "from bioengine_tpu.ops import knn\nimport bioengine_tpu_torch\n"
     )
     assert _imported_top_levels(probe) & FORBIDDEN == FORBIDDEN
@@ -94,3 +102,15 @@ def test_serving_entry_points_raise_without_cuda(no_cuda, tmp_path):
             resolve_devices([0], device)
     assert InferenceEngine("m", UNet2D(features=(4, 8)), device="cpu").device.type == "cpu"
     assert RuntimeDeployment(device="cpu").backend == "cpu"
+
+
+def test_finetuning_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model_and_state(CellposeConfig(features=(4, 8)), device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            masks_from_flows(np.zeros((2, 8, 8), np.float32), np.ones((8, 8), np.float32), device=device)
+    assert CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu").device.type == "cpu"
+    assert "cellpose" in list_models()
