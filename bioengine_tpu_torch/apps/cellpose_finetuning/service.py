@@ -1,17 +1,22 @@
 """Cellpose fine-tuning on PyTorch — training sessions, live inference, export.
 
 Counterpart of ``CellposeFinetune`` in ``apps/cellpose-finetuning/main.py``
-for the ``"unet"`` backbone (``models/cellpose.py`` ``CellposeNet``) on one
-device. The session protocol is the JAX app's: a directory per session
-with ``config.json``, ``status.json`` (written atomically), a ``STOP`` file
-checked per batch, per-epoch snapshots as flat npz in flax names (the
-``jax_params`` format either package serves), ``latest.npz`` swapped in by
-an atomic rename, and restart from the latest snapshot.
+for the cellpose family on one device: the ``"unet"`` backbone
+(``models/cellpose.py`` ``CellposeNet``), ``"sam"``
+(``models/cellpose_sam.py`` ``CellposeSAM``) and ``"cpsam"``
+(``models/sam.py`` ``CpSAM``, the SAM ViT-L encoder of the pretrained
+Cellpose-SAM model, fine-tuned from a checkpoint converted by
+``runtime.convert.convert_checkpoint``). The session protocol is the JAX
+app's: a directory per session with ``config.json``, ``status.json``
+(written atomically), a ``STOP`` file checked per batch, per-epoch
+snapshots as flat npz in flax names (the ``jax_params`` format either
+package serves), ``latest.npz`` swapped in by an atomic rename, and
+restart from the latest snapshot.
 
 - Training runs ``make_train_step`` (``torch.optim.AdamW``) in a thread on
-  the app's device, over batches drawn exactly as the JAX app draws them
-  from ``np.random.default_rng(seed)``; flow targets come from
-  ``ops.flows.masks_to_flows`` once per session.
+  the app's device, whatever the backbone, over batches drawn exactly as
+  the JAX app draws them from ``np.random.default_rng(seed)``; flow
+  targets come from ``ops.flows.masks_to_flows`` once per session.
 - The full train state (module, optimiser, step) goes to
   ``models/train_state.pt``; the JAX app's ``train_state.msgpack`` is flax
   serialisation, so a resume without the port's file starts a fresh
@@ -22,9 +27,11 @@ an atomic rename, and restart from the latest snapshot.
 - ``export_model`` writes a ``jax_params`` package that the port's
   ``RuntimeDeployment`` and the JAX model-runner both serve.
 
-The methods are plain ``async`` methods (no RPC plane yet). The
-``"sam"``, ``"cpsam"`` and ``"stardist"`` backbones are refused
-(ROADMAP A8). Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+cpsam is a 3-channel model: its batches get a zero third channel at the
+model boundary, in training, ``infer`` and ``infer_3d``; its export is
+served with 3-channel input. The methods are plain ``async`` methods (no
+RPC plane yet). The ``"stardist"`` backbone is refused (ROADMAP A8d).
+Entry points run on ``cuda:0`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -41,8 +48,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from bioengine_tpu_torch.models.cellpose import CellposeNet, TrainState, make_train_step
+from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
+from bioengine_tpu_torch.models.sam import CpSAM
 from bioengine_tpu_torch.ops.flows import (
     FLOW_SCALE,
     aggregate_orthogonal_flows,
@@ -65,7 +75,9 @@ _TERMINAL_STATES = ("completed", "failed", "stopped", "interrupted")
 
 # the JAX app's defaults, so both apps read one config the same way
 DEFAULT_CONFIG = {
-    # "unet" = CellposeNet, the one backbone ported so far
+    # "unet" = CellposeNet, "sam" = CellposeSAM, "cpsam" = CpSAM (set
+    # "pretrained_path" to a converted cpsam checkpoint); "stardist" is
+    # not ported yet
     "backbone": "unet",
     "features": [32, 64, 128, 256],      # unet/stardist backbones
     "patch_size": 8,                      # sam/cpsam backbones
@@ -83,7 +95,23 @@ DEFAULT_CONFIG = {
     "seed": 0,
 }
 
-_UNPORTED_BACKBONES = ("sam", "cpsam", "stardist")
+_UNPORTED_BACKBONES = ("stardist",)
+
+# cpsam-only architecture knobs, overridable in config; the defaults in
+# models/sam.py are the ViT-L checkpoint shape
+_CPSAM_KEYS = (
+    "window_size", "global_attn_indexes", "neck_dim", "pretrain_grid",
+    "mlp_ratio",
+)
+
+# the pretrained cpsam checkpoint shape (ViT-L @ patch 8): for backbone
+# "cpsam" these beat DEFAULT_CONFIG's small unet/sam sizes wherever the
+# caller did not set the key, so {"backbone": "cpsam", "pretrained_path":
+# ...} builds the model the checkpoint fits
+_CPSAM_ARCH_DEFAULTS = {
+    "patch_size": 8, "dim": 1024, "depth": 24, "num_heads": 16,
+    "tile": 256,
+}
 
 
 def _check_backbone(cfg: dict) -> None:
@@ -91,41 +119,136 @@ def _check_backbone(cfg: dict) -> None:
     if backbone in _UNPORTED_BACKBONES:
         raise NotImplementedError(
             f"backbone '{backbone}' is not ported to PyTorch yet (ROADMAP "
-            "A8); the port trains and serves 'unet' (CellposeNet)"
+            "A8d); the port trains and serves 'unet', 'sam' and 'cpsam'"
         )
 
 
 def _merge_config(config: Optional[dict]) -> dict:
-    cfg = {**DEFAULT_CONFIG, **dict(config or {})}
+    config = dict(config or {})
+    cfg = {**DEFAULT_CONFIG, **config}
+    if cfg.get("backbone") == "cpsam":
+        for k, v in _CPSAM_ARCH_DEFAULTS.items():
+            if k not in config:
+                cfg[k] = v
     _check_backbone(cfg)
     return cfg
 
 
-def build_model(cfg: dict) -> tuple[CellposeNet, int]:
-    """(model, divisor) for the configured backbone, on the CPU."""
+def _model_channels(cfg: dict) -> int:
+    """cpsam is a 3-channel model (its pretrained patch embedding is);
+    the app's prepared batches are [cyto, nucleus]."""
+    return 3 if cfg.get("backbone") == "cpsam" else 2
+
+
+def _to_model_channels(x: np.ndarray, cfg: dict) -> np.ndarray:
+    """Pad (..., 2) batches with zero channels up to the model's input."""
+    c = _model_channels(cfg)
+    if x.shape[-1] == c:
+        return x
+    pad = np.zeros((*x.shape[:-1], c - x.shape[-1]), x.dtype)
+    return np.concatenate([x, pad], axis=-1)
+
+
+def build_model(cfg: dict) -> tuple[nn.Module, int]:
+    """(model, divisor) for the configured backbone, on the CPU. The
+    cellpose family shares one output contract, (B, H, W, 3) flow and
+    cellprob logits, so the train step, loss and flow post-processing are
+    the same for every backbone."""
     _check_backbone(cfg)
-    model = CellposeNet(features=tuple(cfg["features"]), in_channels=2)
+    backbone = cfg.get("backbone", "unet")
+    if backbone == "cpsam":
+        kw = {k: cfg[k] for k in _CPSAM_KEYS if k in cfg}
+        model = CpSAM(
+            patch_size=int(cfg.get("patch_size", 8)),
+            dim=int(cfg.get("dim", 1024)),
+            depth=int(cfg.get("depth", 24)),
+            num_heads=int(cfg.get("num_heads", 16)),
+            **kw,
+        )
+    elif backbone == "sam":
+        model = CellposeSAM(
+            patch_size=int(cfg.get("patch_size", 8)),
+            dim=int(cfg.get("dim", 256)),
+            depth=int(cfg.get("depth", 8)),
+            num_heads=int(cfg.get("num_heads", 8)),
+            in_channels=2,
+        )
+    else:
+        model = CellposeNet(features=tuple(cfg["features"]), in_channels=2)
     return model, model.divisor
 
 
 def _arch_entry(cfg: dict) -> dict:
     """rdf.yaml architecture stanza: the registry name + kwargs the
     model-runner rebuilds the model from."""
+    backbone = cfg.get("backbone", "unet")
+    if backbone == "cpsam":
+        kw = {
+            "patch_size": int(cfg.get("patch_size", 8)),
+            "dim": int(cfg.get("dim", 1024)),
+            "depth": int(cfg.get("depth", 24)),
+            "num_heads": int(cfg.get("num_heads", 16)),
+        }
+        for k in _CPSAM_KEYS:
+            if k in cfg:
+                kw[k] = list(cfg[k]) if k == "global_attn_indexes" else cfg[k]
+        return {"name": "cpsam", "kwargs": kw}
+    if backbone == "sam":
+        return {
+            "name": "cellpose-sam",
+            "kwargs": {
+                "patch_size": int(cfg.get("patch_size", 8)),
+                "dim": int(cfg.get("dim", 256)),
+                "depth": int(cfg.get("depth", 8)),
+                "num_heads": int(cfg.get("num_heads", 8)),
+                "in_channels": 2,
+            },
+        }
     return {
         "name": "cellpose",
         "kwargs": {"features": list(cfg["features"]), "in_channels": 2},
     }
 
 
-def _load_pretrained(model: CellposeNet, path: str) -> None:
-    """Flat-npz ``jax_params`` into ``model``; a checkpoint that does not
-    fit the configured architecture is refused, naming the keys."""
-    try:
-        model.load_state_dict(state_dict_from_flax(load_params_npz(path)))
-    except RuntimeError as e:  # missing/unexpected keys, shape mismatches
+def _arch_key(cfg: dict) -> tuple:
+    """Everything in a session's config that shapes its model: the key of
+    live inference's module cache."""
+    return (
+        cfg.get("backbone", "unet"),
+        tuple(cfg["features"]),
+        cfg.get("patch_size"), cfg.get("dim"),
+        cfg.get("depth"), cfg.get("num_heads"),
+        cfg.get("n_rays"),
+        # cpsam-only knobs change the architecture too
+        *(
+            tuple(cfg[k]) if isinstance(cfg.get(k), (list, tuple)) else cfg.get(k)
+            for k in _CPSAM_KEYS
+        ),
+    )
+
+
+def _load_pretrained(model: nn.Module, path: str) -> None:
+    """Flat-npz ``jax_params`` into ``model``. Position and rel-pos tables
+    are declared at their checkpoint extent and resized at use, so every
+    leaf must match exactly; a checkpoint that does not is refused, naming
+    the missing, unexpected and mis-shaped keys."""
+    state = state_dict_from_flax(load_params_npz(path))
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    bad = [
+        f"{k}: checkpoint {got[k]} vs model {want[k]}"
+        for k in sorted(set(got) & set(want))
+        if got[k] != want[k]
+    ]
+    if missing or extra or bad:
         raise ValueError(
-            f"pretrained_path does not match the configured architecture: {e}"
-        ) from e
+            "pretrained_path does not match the configured architecture: "
+            f"missing={missing[:5]} unexpected={extra[:5]} "
+            f"shape_mismatch={bad[:5]}"
+        )
+    model.load_state_dict(state)
 
 
 def _dump_rdf(rdf: dict) -> str:
@@ -234,10 +357,10 @@ class CellposeFinetune:
         # value = [lock, refcount]; the entry is reclaimed when the last
         # holder/waiter leaves, so ids probed once don't accumulate
         self._locks: dict[str, list] = {}
-        # one inference module per architecture (features), never the one
+        # one inference module per architecture (_arch_key), never the one
         # being trained; the lock covers the cache, the weight copy and
         # the forward, so concurrent requests never mix snapshots
-        self._infer_models: dict[tuple, CellposeNet] = {}
+        self._infer_models: dict[tuple, nn.Module] = {}
         self._infer_lock = threading.Lock()
         self._recover_sessions()
 
@@ -384,7 +507,7 @@ class CellposeFinetune:
                     im, fl, cp = im[::-1], fl[::-1], cp[::-1]
                     fl = fl * np.array([-1.0, 1.0], np.float32)  # y-flow
                 bi[j], bf[j], bp[j] = im, fl, cp
-            return bi, bf, bp
+            return _to_model_channels(bi, cfg), bf, bp
 
         steps_per_epoch = max(1, n * max(H // tile, 1) * max(W // tile, 1) // batch)
         session.write_status(
@@ -615,8 +738,9 @@ class CellposeFinetune:
         cfg = session.config
         if state is None:
             state = self._load_snapshot(session)
+        x = _to_model_channels(x, cfg)
         H, W = x.shape[1:3]
-        key = tuple(cfg["features"])
+        key = _arch_key(cfg)
         with self._infer_lock:
             model = self._infer_models.get(key)
             if model is None:

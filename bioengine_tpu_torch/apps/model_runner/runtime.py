@@ -57,7 +57,7 @@ from bioengine_tpu_torch.runtime.weight_stream import (
 )
 from bioengine_tpu_torch.utils import tracing
 
-_FIRST_CONV = re.compile(r"\w+_0\.Conv_0\.weight")
+_FIRST_CONV = re.compile(r"\w+_0\.Conv_0\.weight|(encoder\.)?patch_embed\.weight")
 
 
 def _normalize_oom(e: Exception) -> Exception:
@@ -74,7 +74,8 @@ def _normalize_oom(e: Exception) -> Exception:
 
 def _input_channels(state: Mapping[str, torch.Tensor]) -> Optional[int]:
     """Input channels of a conv net from its first convolution's weight
-    (``ConvBlock_0.Conv_0``, ``ConvBlock3D_0.Conv_0``): flax infers them
+    (``ConvBlock_0.Conv_0``, ``ConvBlock3D_0.Conv_0``, ``ResBlock_0.Conv_0``,
+    a transformer's ``patch_embed`` or ``encoder.patch_embed``): flax infers them
     from the input at ``init``, the port's modules take them at
     construction. None for a model without one."""
     for key, value in state.items():

@@ -1,7 +1,8 @@
 """Builtin model registry: model-zoo style names -> ``nn.Module`` factories.
 
 Counterpart of ``bioengine_tpu/models/registry.py``. Names arrive here with
-their ported models; so far the U-Nets, the ViTs and ``cellpose``.
+their ported models; so far the U-Nets, the ViTs, ``cellpose``,
+``cellpose-sam`` and ``cpsam``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,23 @@ def _cellpose(**kw) -> nn.Module:
     from bioengine_tpu_torch.models.cellpose import CellposeNet
 
     return CellposeNet(**kw)
+
+
+@register_model("cellpose-sam")
+def _cellpose_sam(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
+
+    return CellposeSAM(**kw)
+
+
+@register_model("cpsam")
+def _cpsam(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.sam import CpSAM
+
+    # global_attn_indexes arrives as a list from YAML/JSON kwargs
+    if "global_attn_indexes" in kw:
+        kw["global_attn_indexes"] = tuple(kw["global_attn_indexes"])
+    return CpSAM(**kw)
 
 
 @register_model("vit-b14")

@@ -39,19 +39,25 @@ _MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with SAME padding and stride 1: f32 parameters,
-    product in ``dtype``, bias added after the product is rounded."""
+    product in ``dtype``, bias (unless ``use_bias=False``) added after the
+    product is rounded."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], dtype=torch.bfloat16):
+    def __init__(
+        self, in_ch: int, out_ch: int, kernel: Sequence[int], dtype=torch.bfloat16,
+        use_bias: bool = True,
+    ):
         super().__init__()
         self.kernel = tuple(kernel)
         self.padding = tuple(k // 2 for k in self.kernel)
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, *self.kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x):
         dt = self.dtype
         y = _CONV[len(self.kernel)](x.to(dt), self.weight.to(dt), padding=self.padding)
+        if self.bias is None:
+            return y
         return y + self.bias.to(dt).view(-1, *([1] * len(self.kernel)))
 
 
@@ -104,16 +110,17 @@ def reset_flax_scales(module: nn.Module, seed: int = 0) -> None:
     """Random weights from ``np.random.default_rng(seed)`` with flax's
     initialiser scales: kernels ~ N(0, 1/fan_in) (fan_in = input channels
     x window, for transposed kernels too; a Dense's input width), zero
-    biases, unit GroupNorm scales."""
+    biases and zero-initialised tables (``pos_embed``, ``rel_pos_*``), unit
+    norm scales and LayerScales."""
     rng = np.random.default_rng(seed)
     for name, p in module.named_parameters():
-        module_name, leaf = name.rsplit(".", 1)
-        if leaf == "bias":
+        module_name, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if leaf == "bias" or leaf.startswith(("pos_embed", "rel_pos_")):
             p.zero_()
-        elif p.dim() == 1:  # GroupNorm scale
+        elif p.dim() == 1:  # norm scale, LayerScale
             p.fill_(1.0)
         else:
-            is_t = module_name.rsplit(".", 1)[-1].startswith("ConvTranspose")
+            is_t = isinstance(module.get_submodule(module_name), ConvTranspose)
             fan_in = (p.shape[0] if is_t else p.shape[1]) * math.prod(p.shape[2:])
             std = 1.0 / math.sqrt(fan_in)
             p.copy_(torch.from_numpy(rng.normal(0.0, std, p.shape).astype(np.float32)))

@@ -138,6 +138,7 @@ class ViT(nn.Module):
         attn_fn: Optional[Callable] = None,
         softmax_dtype: Optional[torch.dtype] = None,
         img_size: int = 224,
+        in_channels: int = 3,
     ):
         super().__init__()
         if img_size % patch_size:
@@ -146,7 +147,7 @@ class ViT(nn.Module):
         self.dtype = dtype
         self.img_size = img_size
         n_patches = (img_size // patch_size) ** 2
-        self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size)
+        self.patch_embed = nn.Conv2d(in_channels, dim, patch_size, stride=patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, dim))
         for i in range(depth):

@@ -39,8 +39,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    on a 32 x 256^2 stack at anisotropy 1 and 2; ``export_model`` served by
    ``RuntimeDeployment`` against ``_predict_raw``; one ``cellpose`` JSON
    line of the numbers;
-8. one JSON line of the kernels' numbers;
-9. the result line ``{"ok": true, "device": {...}}``, printed last.
+8. the transformer backbones (slice 4): a torch-layout cpsam checkpoint at
+   the published ViT-L shape (~303 M parameters, seeded, scaled to flax's
+   initialiser scales) converted by ``convert_checkpoint``; ``CellposeFinetune``
+   fine-tunes ``"cpsam"`` from it at the app's defaults (8 x 256^2, bf16,
+   lr 1e-4) for 3 epochs on the 16 fields (loss must fall), then
+   ``"sam"`` (CellposeSAM, dim 256, depth 8, 8 heads, 8 x 128^2); for each:
+   a step timed and profiled, the f32 step on the card against the CPU
+   (cpsam: a depth-2 cut at full width, 2 x 128^2), ``infer`` on 2 x 512^2
+   and ``infer_3d`` on 32 x 256^2, the export served by
+   ``RuntimeDeployment`` against ``_predict_raw``; the attention kernel's
+   count stays 0; one ``cellpose_cpsam`` and one ``cellpose_sam`` JSON line;
+9. one JSON line of the kernels' numbers;
+10. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -70,6 +81,7 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
     make_synthetic_images,
 )
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
+from bioengine_tpu_torch.apps.cellpose_finetuning import service as finetune_service
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.models.cellpose import (
@@ -92,9 +104,17 @@ from bioengine_tpu_torch.ops.flows import (
     masks_to_flows,
     predictions_to_masks,
 )
+from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
+from bioengine_tpu_torch.models.sam import CpSAM
 from bioengine_tpu_torch.runtime.convert import (
+    convert_checkpoint,
+    convert_state_dict,
+    cpsam_name_map,
+    flatten_params,
     flax_params_from_state_dict,
     save_params_npz,
+    state_dict_from_flax,
+    synthetic_cpsam_state_dict,
     unflatten_params,
 )
 from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
@@ -808,26 +828,27 @@ def _matched_agreement(a: np.ndarray, b: np.ndarray) -> float:
     return sum(best.values()) / int(fg.sum())
 
 
-async def drive_cellpose(svc: CellposeFinetune, images, masks, timeout_s: float = 600) -> dict:
+async def drive_cellpose(svc: CellposeFinetune, images, masks, config: dict,
+                         session_id: str = "smoke", timeout_s: float = 600) -> dict:
     """The app as a user drives it: start, poll until done, list."""
     t0 = time.perf_counter()
     await svc.start_training(
-        train_images=list(images), train_labels=list(masks),
-        config={"features": list(CELLPOSE_FEATURES), "seed": SEED, **CELLPOSE_CFG},
-        session_id="smoke",
+        train_images=list(images), train_labels=list(masks), config=config,
+        session_id=session_id,
     )
     t_prep = time.perf_counter() - t0
     deadline = time.time() + timeout_s
     polls = 0
     while True:
-        status = await svc.get_training_status(session_id="smoke")
+        status = await svc.get_training_status(session_id=session_id)
         polls += 1
         if status["status"] in ("completed", "failed", "stopped"):
             break
         check(time.time() < deadline, f"training did not finish in {timeout_s} s: {status}")
         await asyncio.sleep(0.1)
+    sessions = [s for s in await svc.list_sessions() if s["session_id"] == session_id]
     return {"status": status, "t_prep": t_prep, "t_total": time.perf_counter() - t0,
-            "polls": polls, "sessions": await svc.list_sessions()}
+            "polls": polls, "sessions": sessions}
 
 
 def _train_batch(images, masks, n: int, tile: int, device: str):
@@ -846,12 +867,25 @@ def cellpose_step_parity(card: str, images, masks, device: str) -> dict:
     model = CellposeNet(features=CELLPOSE_FEATURES, dtype=torch.float32)
     model.reset_parameters(SEED + 2)
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    out = {}
-    for where, dtype in (("cpu", torch.float32), (device, torch.float32), (device, torch.bfloat16)):
+
+    def build(dtype):
         m = CellposeNet(features=CELLPOSE_FEATURES, dtype=dtype)
         m.load_state_dict(start)
+        return m
+
+    return train_step_parity(card, "cellpose train step, 2 x 128^2", build,
+                             lambda where: _train_batch(images, masks, 2, 128, where), device)
+
+
+def train_step_parity(card: str, what: str, build, batch, device: str) -> dict:
+    """One train step of ``build(torch.float32)`` (TF32 off) on the card and
+    on the CPU, same weights and ``batch(where)``; and the loss of the bf16
+    step ``build(torch.bfloat16)`` on the card against the f32 one."""
+    out = {}
+    for where, dtype in (("cpu", torch.float32), (device, torch.float32), (device, torch.bfloat16)):
+        m = build(dtype)
         state = TrainState.create(m.to(where), 1e-4, 1e-5)
-        _, metrics = make_train_step()(state, *_train_batch(images, masks, 2, 128, where))
+        _, metrics = make_train_step()(state, *batch(where))
         out[(where, dtype)] = (
             float(metrics["loss"]),
             {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
@@ -863,7 +897,7 @@ def cellpose_step_parity(card: str, images, masks, device: str) -> dict:
     grad_err = max((g_dev[k] - g_cpu[k]).abs().max().item() for k in g_cpu)
     loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     bf16_rel = abs(loss_bf16 - loss_dev) / abs(loss_dev)
-    print(f"[{card}] cellpose train step, 2 x 128^2, f32 (TF32 off): card loss {loss_dev!r}, CPU "
+    print(f"[{card}] {what}, f32 (TF32 off): card loss {loss_dev!r}, CPU "
           f"loss {loss_cpu!r} (rel {loss_rel:.3g}, bound {STEP_LOSS_RTOL}); gradients max abs "
           f"diff {grad_err:.3g} of largest {scale:.3g} (bound {STEP_GRAD_TOL} of it); bf16 step "
           f"loss {loss_bf16!r} (rel {bf16_rel:.3g} to f32, bound {STEP_BF16_RTOL})")
@@ -880,6 +914,14 @@ def time_cellpose_step(card: str, images, masks, device: str) -> dict:
     batch, tile = CELLPOSE_CFG["batch_size"], CELLPOSE_CFG["tile"]
     _, state = create_model_and_state(CellposeConfig(features=CELLPOSE_FEATURES), seed=SEED, device=device)
     tensors = _train_batch(images, masks, batch, tile, device)
+    return time_train_step(card, f"cellpose train step, {batch} x {tile}^2, bf16, CellposeNet "
+                           f"{CELLPOSE_FEATURES}", state, tensors, device)
+
+
+def time_train_step(card: str, what: str, state: TrainState, tensors, device: str) -> dict:
+    """ms per train step (CUDA events over CELLPOSE_TIMED_STEPS steps after
+    3 warm-up steps), peak device memory, and a profile of one step."""
+    batch = tensors[0].shape[0]
     step = make_train_step()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -887,12 +929,13 @@ def time_cellpose_step(card: str, images, masks, device: str) -> dict:
     ms = _device_ms(device, lambda: step(state, *tensors), iters=CELLPOSE_TIMED_STEPS, warmup=3)
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     r = {"step_ms": ms, "tiles_per_s": batch / (ms / 1e3), "step_peak_gib": peak / 2**30}
-    print(f"[{card}] cellpose train step, {batch} x {tile}^2, bf16, CellposeNet {CELLPOSE_FEATURES}: "
-          f"{ms:.3f} ms per step (mean of {CELLPOSE_TIMED_STEPS} after 3 warm-up), "
+    print(f"[{card}] {what}: {ms:.3f} ms per step (mean of {CELLPOSE_TIMED_STEPS} after 3 warm-up), "
           f"{r['tiles_per_s']:.1f} tiles/s, peak device memory {r['step_peak_gib']:.2f} GiB")
     if device == "cuda":
-        r["profile"] = print_profile(card, f"one train step at {batch} x {tile}^2",
-                                     lambda: step(state, *tensors))
+        r["profile"] = print_profile(card, f"one {what}", lambda: step(state, *tensors))
+        r["busy_share"] = r["profile"][0]["busy_ms"] / ms
+        print(f"[{card}] {what}: device busy {100 * r['busy_share']:.1f}% of a step "
+              f"(profiled busy ms over the CUDA-event step time)")
     return r
 
 
@@ -920,15 +963,16 @@ def _host_ms(fn) -> tuple[object, float]:
     return result, (time.perf_counter() - t0) * 1e3
 
 
-def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: str) -> dict:
+def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: str,
+                        session_id: str = "smoke", label: str = "cellpose") -> dict:
     """``infer`` per request (host clock), split into host pre-processing,
     ``_predict_raw`` (snapshot load, copy in, forward, copy out; its
     forward alone by device clock) and per image ``predictions_to_masks``
     (``follow_flows`` by device clock, host clustering); the card's follow
     held against the CPU's on the same raw prediction."""
-    session = svc.sessions["smoke"]
+    session = svc.sessions[session_id]
     calls = {
-        key: (lambda imgs=imgs: svc.infer(session_id="smoke", images=imgs))
+        key: (lambda imgs=imgs: svc.infer(session_id=session_id, images=imgs))
         for key, imgs in fields.items()
     }
     timed = asyncio.run(_timed_requests(device, calls, CELLPOSE_INFER_REPEATS))
@@ -941,8 +985,8 @@ def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: 
         check(out["n_cells"] == first["n_cells"], f"infer {key}: repeated calls disagree")
         x, prep = _host_ms(lambda: svc._prepare_images(imgs))
         pred, raw = _host_ms(lambda: svc._predict_raw(session, x))
-        model = svc._infer_models[tuple(CELLPOSE_FEATURES)]
-        xt = torch.from_numpy(x).to(device)
+        model = svc._infer_models[finetune_service._arch_key(session.config)]
+        xt = torch.from_numpy(finetune_service._to_model_channels(x, session.config)).to(device)
         with torch.inference_mode():
             fwd = _device_ms(device, lambda: model(xt), iters=5)
         _, to_masks = _host_ms(lambda: [predictions_to_masks(p, device=device) for p in pred])
@@ -957,7 +1001,7 @@ def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: 
                   "follow_ms_per_image": follow, "cluster_ms_per_image": cluster,
                   "n_cells": out["n_cells"]}
         clock = "device" if device == "cuda" else "host"
-        print(f"[{card}] cellpose infer {key}: {np.mean(ms):.3f} ms mean per request over {len(ms)} "
+        print(f"[{card}] {label} infer {key}: {np.mean(ms):.3f} ms mean per request over {len(ms)} "
               f"after a warm-up call ({[round(t, 3) for t in ms]}); host pre-processing {prep:.3f} ms, "
               f"_predict_raw {raw:.3f} ms (forward {fwd:.3f} ms {clock}), predictions_to_masks "
               f"{to_masks:.3f} ms for {len(imgs)} image(s): follow_flows {follow:.3f} ms {clock} and "
@@ -969,7 +1013,7 @@ def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: 
             agree = _matched_agreement(cluster_sinks(p_cpu, fg, 15), cluster_sinks(p_dev, fg, 15))
             r["follow_vs_cpu"] = {"max_px": float(dist.max()), "share_within": share,
                                   "mask_agreement": agree, "fg_pixels": int(fg.sum())}
-            print(f"[{card}] follow_flows card vs CPU, 512^2: max {dist.max():.3g} px, "
+            print(f"[{card}] {label} follow_flows card vs CPU, 512^2: max {dist.max():.3g} px, "
                   f"{100 * share:.4f}% within {FOLLOW_POS_TOL} px (bound {100 * FOLLOW_POS_SHARE}%); "
                   f"masks agree on {100 * agree:.4f}% of {int(fg.sum())} foreground pixels "
                   f"(bound {100 * FOLLOW_MASK_AGREE}%)")
@@ -978,14 +1022,15 @@ def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: 
     return r
 
 
-def time_cellpose_infer_3d(card: str, svc: CellposeFinetune, device: str) -> dict:
+def time_cellpose_infer_3d(card: str, svc: CellposeFinetune, device: str, session_id: str = "smoke",
+                           anisotropies=(1.0, 2.0), label: str = "cellpose") -> dict:
     """``infer_3d`` per request (host clock, after a warm-up call), and
     ``follow_flows_3d`` alone (device clock) on the field it followed."""
     vol = synthetic_cell_volume(CELLPOSE_VOLUME, 40, SEED + 5)
-    session = svc.sessions["smoke"]
+    session = svc.sessions[session_id]
     calls = {
-        a: (lambda a=a: svc.infer_3d(session_id="smoke", volumes=[vol], anisotropy=a))
-        for a in (1.0, 2.0)
+        a: (lambda a=a: svc.infer_3d(session_id=session_id, volumes=[vol], anisotropy=a))
+        for a in anisotropies
     }
     timed = asyncio.run(_timed_requests(device, calls, 1))
     r = {}
@@ -1008,15 +1053,18 @@ def time_cellpose_infer_3d(card: str, svc: CellposeFinetune, device: str) -> dic
         follow = _device_ms(device, lambda: follow_flows_3d(flow_dev), iters=1)
         r[str(anisotropy)] = {"request_ms": ms, "follow_3d_ms": follow, "n_cells": out["n_cells"],
                               "followed_shape": list(flow.shape[1:])}
-        print(f"[{card}] cellpose infer_3d {CELLPOSE_VOLUME} anisotropy {anisotropy}: {ms:.3f} ms "
+        print(f"[{card}] {label} infer_3d {CELLPOSE_VOLUME} anisotropy {anisotropy}: {ms:.3f} ms "
               f"(after a warm-up call); follow_flows_3d over {list(flow.shape[1:])} "
               f"{follow:.3f} ms ({100 * follow / ms:.1f}% of the request); n_cells {out['n_cells']}")
     return r
 
 
-def check_cellpose_export(card: str, svc: CellposeFinetune, field: np.ndarray, device: str) -> dict:
-    exported = asyncio.run(svc.export_model(session_id="smoke"))
-    x = svc._prepare_images([field])
+def check_cellpose_export(card: str, svc: CellposeFinetune, field: np.ndarray, device: str,
+                          session_id: str = "smoke", label: str = "cellpose") -> dict:
+    exported = asyncio.run(svc.export_model(session_id=session_id))
+    session = svc.sessions[session_id]
+    # the served model takes the model's channels (cpsam: a zero third one)
+    x = finetune_service._to_model_channels(svc._prepare_images([field]), session.config)
     dep = RuntimeDeployment(device=device)
 
     async def serve():
@@ -1029,10 +1077,10 @@ def check_cellpose_export(card: str, svc: CellposeFinetune, field: np.ndarray, d
     served = asyncio.run(serve())
     t_serve = time.perf_counter() - t0
     out = served["output0"]
-    raw = svc._predict_raw(svc.sessions["smoke"], x)
+    raw = svc._predict_raw(session, x)
     err = float(np.abs(out - raw).max())
     span = float(raw.max() - raw.min())
-    print(f"[{card}] cellpose export served by RuntimeDeployment: output {out.shape}, max abs "
+    print(f"[{card}] {label} export served by RuntimeDeployment: output {out.shape}, max abs "
           f"{err:.4g} against _predict_raw (bound {EXPORT_TOL} x range {span:.4g}); package load + "
           f"first 512^2 request {t_serve:.3f} s")
     check(served["_meta"]["backend"] == device, f"served on {served['_meta']}")
@@ -1057,7 +1105,8 @@ def phase_cellpose(card: str, device: str = "cuda") -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         attention.launch_count = 0
-        r = asyncio.run(drive_cellpose(svc, images, masks))
+        r = asyncio.run(drive_cellpose(
+            svc, images, masks, {"features": list(CELLPOSE_FEATURES), "seed": SEED, **CELLPOSE_CFG}))
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         status = r["status"]
         losses = status.get("losses", [])
@@ -1093,6 +1142,210 @@ def phase_cellpose(card: str, device: str = "cuda") -> dict:
     return {"launches": launches, **line}
 
 
+# ---- slice 4: the transformer backbones (cpsam, CellposeSAM) ------------------
+
+# the published cpsam checkpoint shape: the app's "cpsam" defaults
+# (apps/cellpose-finetuning/main.py:83-86) and models/sam.py's for the rest
+CPSAM_ARCH = {
+    "patch_size": 8, "dim": 1024, "depth": 24, "num_heads": 16, "window_size": 14,
+    "global_attn_indexes": (5, 11, 17, 23), "neck_dim": 256, "pretrain_grid": 32,
+}
+# the f32 card-vs-CPU step: a depth-2 cut at full width, block 1 global
+CPSAM_PARITY_ARCH = {**CPSAM_ARCH, "depth": 2, "global_attn_indexes": (1,)}
+# config keys set beside the backbone; empty on the card, so both run at
+# the app's defaults (cpsam: ViT-L, tile 256; sam: dim 256, depth 8, heads
+# 8, patch 8, tile 128; both batch 8, lr 1e-4). A CPU rehearsal narrows
+# them (and CPSAM_ARCH to match).
+CPSAM_OVERRIDES: dict = {}
+SAM_OVERRIDES: dict = {}
+TRANSFORMER_EPOCHS = 3
+
+
+def scaled_cpsam_state_dict(seed: int, **arch) -> dict[str, np.ndarray]:
+    """``synthetic_cpsam_state_dict`` at flax's initialiser scales: weights
+    by 1/sqrt(fan_in) (a transposed kernel's fan_in is its input channels x
+    window), biases 0, norm scales 1, ``pos_embed`` and ``rel_pos_*`` by
+    0.02. Unscaled standard-normal weights blow up a 24-block model."""
+    sd = synthetic_cpsam_state_dict(**arch, seed=seed)
+    for key, w in sd.items():
+        if key.endswith("bias"):
+            w[...] = 0.0
+        elif key.endswith(("pos_embed", "rel_pos_h", "rel_pos_w")):
+            w *= 0.02
+        elif w.ndim == 1:  # LayerNorm scales
+            w[...] = 1.0
+        else:
+            fan_in = (w.shape[0] if key == "out.weight" else w.shape[1]) * int(np.prod(w.shape[2:]))
+            w *= fan_in ** -0.5
+    return sd
+
+
+def write_cpsam_checkpoint(card: str, root: str) -> tuple[str, dict]:
+    """A torch-layout cpsam checkpoint at CPSAM_ARCH, written as a .pth and
+    converted by the port's ``convert_checkpoint``; returns the npz path."""
+    t0 = time.perf_counter()
+    sd = scaled_cpsam_state_dict(SEED + 10, **CPSAM_ARCH)
+    t_draw = time.perf_counter() - t0
+    pth, npz = f"{root}/cpsam.pth", f"{root}/cpsam_jax_params.npz"
+    t0 = time.perf_counter()
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = convert_checkpoint("cpsam", pth, npz)
+    t_convert = time.perf_counter() - t0
+    flat = flatten_params(params)
+    n_params = sum(int(v.size) for v in flat.values())
+    check(len(flat) == len(sd) and n_params == sum(int(v.size) for v in sd.values()),
+          f"converted {len(flat)} leaves of {len(sd)}")
+    info = {"n_params": n_params, "pth_bytes": os.path.getsize(pth), "draw_s": t_draw,
+            "torch_save_s": t_save, "convert_s": t_convert}
+    print(f"[{card}] cpsam checkpoint: {n_params} parameters, {info['pth_bytes']} bytes; drawn in "
+          f"{t_draw:.2f} s, torch.save {t_save:.2f} s, convert_checkpoint {t_convert:.2f} s")
+    return npz, info
+
+
+def _model_batch(images, masks, n: int, tile: int, cfg: dict, device: str):
+    """``_train_batch`` with the model's input channels."""
+    bi, bf, bp = _train_batch(images, masks, n, tile, "cpu")
+    bi = torch.from_numpy(finetune_service._to_model_channels(bi.numpy(), cfg))
+    return [t.to(device) for t in (bi, bf, bp)]
+
+
+def _check_training(label: str, r: dict, cfg: dict, fields: int, field: int) -> list:
+    status = r["status"]
+    losses = status.get("losses", [])
+    print(f"{label}: status {status['status']}, epochs {status.get('current_epoch')}, "
+          f"steps/epoch {status.get('steps_per_epoch')}, losses {losses}")
+    check(status["status"] == "completed", f"{label}: training ended {status}")
+    check(status["current_epoch"] == TRANSFORMER_EPOCHS, f"{label}: epochs {status}")
+    want_steps = fields * (field // cfg["tile"]) ** 2 // cfg["batch_size"]
+    check(status["steps_per_epoch"] == want_steps, f"{label}: steps per epoch {status['steps_per_epoch']}")
+    check(len(losses) == TRANSFORMER_EPOCHS and np.isfinite(losses).all(), f"{label}: losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(r["sessions"][0]["snapshots"] == TRANSFORMER_EPOCHS, f"{label}: sessions {r['sessions']}")
+    return losses
+
+
+def run_transformer_backbone(card: str, svc: CellposeFinetune, label: str, config: dict,
+                             images, masks, device: str, build_parity, parity_tile: int) -> dict:
+    """One backbone through the user's path: train, time a step, the f32
+    card-vs-CPU step, infer, infer_3d, export served by RuntimeDeployment."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    r = asyncio.run(drive_cellpose(svc, images, masks, config, session_id=label))
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    cfg = svc.sessions[label].config
+    fields, field = images.shape[0], images.shape[1]
+    losses = _check_training(label, r, cfg, fields, field)
+    n_steps = TRANSFORMER_EPOCHS * r["status"]["steps_per_epoch"]
+    print(f"[{card}] {label} training: data preparation (start_training, host) {r['t_prep']:.3f} s; "
+          f"{n_steps} steps + {TRANSFORMER_EPOCHS} snapshots {r['t_total'] - r['t_prep']:.3f} s host "
+          f"clock; peak device memory {peak / 2**30:.2f} GiB")
+
+    # c. one train step at the app's batch and tile, from the session's
+    # starting point (the converted checkpoint, or the seed)
+    model, _ = finetune_service.build_model(cfg)
+    if cfg.get("pretrained_path"):
+        finetune_service._load_pretrained(model, cfg["pretrained_path"])
+    else:
+        model.reset_parameters(cfg["seed"])
+    state = TrainState.create(model.to(device), cfg["learning_rate"], cfg["weight_decay"])
+    batch, tile = cfg["batch_size"], cfg["tile"]
+    timed = time_train_step(
+        card, f"{label} train step, {batch} x {tile}^2, bf16", state,
+        _model_batch(images, masks, batch, tile, cfg, device), device)
+    del model, state
+    _release(device)
+
+    # d. f32 on the card against the CPU, 2 x parity_tile^2
+    parity = train_step_parity(
+        card, f"{label} train step, 2 x {parity_tile}^2", build_parity,
+        lambda where: _model_batch(images, masks, 2, parity_tile, cfg, where), device)
+
+    # e. live inference; f. the export served
+    infer = time_cellpose_infer(card, svc, {"2x512": [images[0], images[1]]}, device,
+                                session_id=label, label=label)
+    infer_3d = time_cellpose_infer_3d(card, svc, device, session_id=label, anisotropies=(1.0,), label=label)
+    export = check_cellpose_export(card, svc, images[2], device, session_id=label, label=label)
+    svc._infer_models.clear()
+    _release(device)
+    return {
+        "card": card, "backbone": cfg["backbone"], "arch": finetune_service._arch_entry(cfg)["kwargs"],
+        "tile": tile, "batch_size": batch,
+        "learning_rate": cfg["learning_rate"], "epochs": TRANSFORMER_EPOCHS,
+        "data_prep_s": r["t_prep"], "train_s": r["t_total"] - r["t_prep"], "losses": losses,
+        "train_peak_gib": peak / 2**30, **timed, "step_parity": parity,
+        "infer": infer, "infer_3d": infer_3d, "export": export,
+    }
+
+
+def _release(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def phase_cellpose_transformers(card: str, device: str = "cuda") -> dict:
+    """Slice 4 at full width: a cpsam checkpoint converted and fine-tuned
+    (ViT-L, 8 x 256^2), then CellposeSAM at the app's defaults; each
+    checked against the CPU, inferred in 2D and 3D, exported and served;
+    one JSON line per backbone."""
+    images, masks = synthetic_cell_fields(CELLPOSE_FIELDS, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED)
+    print(f"cellpose transformers: cpsam {CPSAM_ARCH} from a converted synthetic checkpoint, "
+          f"then CellposeSAM at the app's defaults; {CELLPOSE_FIELDS} synthetic {CELLPOSE_FIELD}^2 "
+          f"fields, {TRANSFORMER_EPOCHS} epochs each")
+    lines = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as root:
+        attention.launch_count = 0
+        npz, ckpt = write_cpsam_checkpoint(card, root)
+        svc = CellposeFinetune(sessions_root=f"{root}/sessions", device=device)
+
+        parity_sd = scaled_cpsam_state_dict(SEED + 11, **CPSAM_PARITY_ARCH)
+        parity_state = state_dict_from_flax(convert_state_dict(
+            parity_sd, cpsam_name_map(CPSAM_PARITY_ARCH["depth"])))
+
+        def build_cpsam(dtype):
+            m = CpSAM(**CPSAM_PARITY_ARCH, dtype=dtype)
+            m.load_state_dict(parity_state)
+            return m
+
+        cpsam_cfg = {"backbone": "cpsam", "pretrained_path": npz, "epochs": TRANSFORMER_EPOCHS,
+                     "seed": SEED, **CPSAM_OVERRIDES}
+        lines["cpsam"] = run_transformer_backbone(
+            card, svc, "cpsam", cpsam_cfg, images, masks, device, build_cpsam, 128)
+        # the session loaded the checkpoint leaf by leaf at exact shapes;
+        # its config is the ViT-L one
+        widths = ("patch_size", "dim", "depth", "num_heads")
+        cfg = svc.sessions["cpsam"].config
+        check([cfg[k] for k in widths] == [CPSAM_ARCH[k] for k in widths],
+              f"cpsam session config {cfg} is not the checkpoint's {CPSAM_ARCH}")
+        lines["cpsam"]["checkpoint"] = ckpt
+
+        sam_cfg = {"backbone": "sam", "epochs": TRANSFORMER_EPOCHS, "seed": SEED, **SAM_OVERRIDES}
+        sam_start = finetune_service.build_model(finetune_service._merge_config(sam_cfg))[0]
+        sam_start.reset_parameters(SEED + 12)
+        sam_state = {k: v.clone() for k, v in sam_start.state_dict().items()}
+
+        def build_sam(dtype):
+            cfg = finetune_service._merge_config(sam_cfg)
+            m = CellposeSAM(patch_size=cfg["patch_size"], dim=cfg["dim"], depth=cfg["depth"],
+                            num_heads=cfg["num_heads"], in_channels=2, dtype=dtype)
+            m.load_state_dict(sam_state)
+            return m
+
+        lines["sam"] = run_transformer_backbone(
+            card, svc, "sam", sam_cfg, images, masks, device, build_sam, 128)
+        launches = attention.launch_count
+    print(f"cellpose transformers: flash_attn_fwd launches {launches} over the phase "
+          "(SAMAttention adds a rel-pos bias before its softmax; CellposeSAM's blocks take the "
+          "inline attention, as the JAX app builds them)")
+    check(launches == 0, f"the transformer backbones launched flash_attn_fwd {launches} times")
+    for label, line in lines.items():
+        print(f"cellpose_{label} " + json.dumps(line))
+    return {"launches": launches, **lines}
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -1101,6 +1354,7 @@ def main() -> int:
     forward = phase_forward(card)
     model_runner = phase_model_runner(card)
     cellpose = phase_cellpose(card)
+    transformers = phase_cellpose_transformers(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -1108,10 +1362,11 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slices 2 and 3 run no attention: their counts stay 0
+        # slices 2-4 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "model_runner": model_runner["launches"],
-                             "cellpose": cellpose["launches"]},
+                             "cellpose": cellpose["launches"],
+                             "cellpose_transformers": transformers["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -1,19 +1,23 @@
 """The port's ``CellposeFinetune`` on the CPU, through the cases of
 ``tests/test_bundled_apps.py`` (``TestCellposeFinetune``,
-``TestCellposeSettled``) with its ``FAST_CFG`` and synthetic cells, and
-against the JAX app (``apps/cellpose-finetuning/main.py``) and the JAX
-model-runner.
+``TestCellposeSettled``, and for the transformer backbones
+``TestCellposeSamBackbone`` and ``TestCellposeCpsamPretrained``) with its
+configs and synthetic cells, and against the JAX app
+(``apps/cellpose-finetuning/main.py``) and the JAX model-runner.
 
 Tolerances: started from the same ``pretrained_path`` with the same seed,
 the two apps train on identical tiles; their per-epoch mean losses agree
-to 2% (relative; measured 0.07% and 0.3% over two epochs). Both compute
+to 2% (relative; measured over two epochs 0.07% and 0.3% for ``unet``,
+0.11% and 0.16% for ``sam``, 0.008% for ``cpsam``). Both compute
 in bf16, where XLA's fused CPU program and PyTorch round at other places
 (~1% of a forward's range), and AdamW's m/sqrt(v) turns rounding noise
 on near-zero gradients into full-size updates. A port export served by
 the port's ``RuntimeDeployment`` and by the JAX ``Pipeline`` agrees to 10%
-of the output's range (bf16, as the U-Nets are held); served by the port
-it equals ``_predict_raw`` at a size that is its own bucket (64^2) to
-1e-5.
+of the output's range (bf16, as the U-Nets are held), and so do the
+transformer exports against the JAX registry model on their weights;
+served by the port an export equals ``_predict_raw`` at a size that is its
+own bucket (64^2) to 1e-5. A cpsam session with lr = 0 keeps the converted
+checkpoint bit for bit.
 """
 
 import asyncio
@@ -31,6 +35,8 @@ import pytest
 
 from _torch_parity import few_torch_threads  # noqa: F401
 from bioengine_tpu.models.cellpose import CellposeNet as JaxCellposeNet
+from bioengine_tpu.models.cellpose_sam import CellposeSAM as JaxCellposeSAM
+from bioengine_tpu.models import get_model as jax_get_model
 from bioengine_tpu.runtime import convert as jax_convert
 from bioengine_tpu_torch.apps.cellpose_finetuning import service
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import (
@@ -389,7 +395,7 @@ def test_readopted_session_deletable(tmp_path):
 # ---- backbones not ported yet ----------------------------------------------------
 
 
-@pytest.mark.parametrize("backbone", ["sam", "cpsam", "stardist"])
+@pytest.mark.parametrize("backbone", ["stardist"])
 def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, monkeypatch):
     app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu")
 
@@ -398,7 +404,7 @@ def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, 
 
     monkeypatch.setattr(app, "_prepare_training_data", prepared)
     images, masks = _synthetic_cells(n=1)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8d"):
         asyncio.run(app.start_training(
             train_images=images, train_labels=masks,
             config={"backbone": backbone}, session_id="refused",
@@ -417,7 +423,7 @@ def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, 
         app.export_model(session_id="adopted"),
         app.restart_training(session_id="adopted"),
     ):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A8d"):
             asyncio.run(call)
 
 
@@ -458,3 +464,217 @@ def test_jax_app_and_port_train_alike(tmp_path):
     x = np.random.default_rng(0).normal(size=(1, 32, 32, 2)).astype(np.float32)
     out = np.asarray(jax_model.apply({"params": params}, jnp.asarray(x)))
     assert out.shape == (1, 32, 32, 3) and np.isfinite(out).all()
+
+
+# ---- the transformer backbones: TestCellposeSamBackbone and -----------------------
+# ---- TestCellposeCpsamPretrained's cases, and the JAX app beside the port ---------
+
+SAM_CFG = {
+    "backbone": "sam",
+    "patch_size": 4,
+    "dim": 64,
+    "depth": 2,
+    "num_heads": 4,
+    "epochs": 2,
+    "batch_size": 4,
+    "tile": 32,
+    "learning_rate": 1e-3,
+}
+CPSAM_TINY = {
+    "patch_size": 8,
+    "dim": 32,
+    "depth": 2,
+    "num_heads": 2,
+    "window_size": 2,
+    "global_attn_indexes": [1],
+    "neck_dim": 16,
+    "pretrain_grid": 4,
+}
+
+
+def _converted_cpsam(tmp_path):
+    """A synthetic torch-layout cpsam checkpoint at CPSAM_TINY, converted
+    by the port into a flat npz; returns (path, flat params)."""
+    sd = convert.synthetic_cpsam_state_dict(
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in CPSAM_TINY.items()}
+    )
+    params = convert.convert_state_dict(sd, convert.cpsam_name_map(depth=2), strict=True)
+    path = tmp_path / "cpsam_tiny.npz"
+    convert.save_params_npz(str(path), params)
+    return path, convert.flatten_params(params)
+
+
+def _served(export_dir, x):
+    """(port RuntimeDeployment's output, the JAX registry model's output on
+    the exported weights) for one input."""
+    rdf = load_model_rdf(Path(export_dir) / "rdf.yaml")
+    deployment = RuntimeDeployment(device="cpu")
+
+    async def drive():
+        try:
+            return await deployment.predict(str(Path(export_dir) / "rdf.yaml"), {"input0": x})
+        finally:
+            await deployment.close()
+
+    port = asyncio.run(drive())["output0"]
+    arch = rdf.weights["jax_params"]["architecture"]
+    jax_model = jax_get_model(arch["name"], **arch["kwargs"])
+    params = jax_convert.load_params_npz(str(Path(export_dir) / "weights.npz"))
+    ref = np.asarray(jax.jit(jax_model.apply)({"params": params}, jnp.asarray(x)))
+    return port, ref
+
+
+@pytest.fixture(scope="module")
+def sam_trained(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cellpose_sam") / "sessions"
+    app = CellposeFinetune(sessions_root=str(root), device="cpu")
+    final = asyncio.run(_train(app, "sam-run", config=SAM_CFG))
+    return SimpleNamespace(app=app, root=root, final=final)
+
+
+def test_sam_session_train_infer_export(sam_trained):
+    app, final = sam_trained.app, sam_trained.final
+    assert final["status"] == "completed", final.get("error")
+    assert final["losses"][-1] < final["losses"][0]
+
+    async def drive():
+        out = await app.infer(session_id="sam-run", images=_synthetic_cells()[0][:1])
+        exported = await app.export_model(session_id="sam-run", model_name="sam-export")
+        return out, exported
+
+    out, exported = asyncio.run(drive())
+    assert out["masks"][0].shape == (64, 64)
+    rdf = load_model_rdf(Path(exported["model_path"]) / "rdf.yaml")
+    arch = rdf.weights["jax_params"]["architecture"]
+    assert arch == {"name": "cellpose-sam", "kwargs": {
+        "patch_size": 4, "dim": 64, "depth": 2, "num_heads": 4, "in_channels": 2}}
+
+    img = _synthetic_cells()[0][0]
+    x = np.stack([np.stack([img, np.zeros_like(img)], -1)])
+    port, ref = _served(exported["model_path"], x)
+    assert port.shape == ref.shape == (1, 64, 64, 3)
+    np.testing.assert_allclose(port, app._predict_raw(app.sessions["sam-run"], x), rtol=0, atol=1e-5)
+    assert np.abs(port - ref).max() <= 0.1 * np.ptp(ref)
+
+
+def test_sam_infer_3d(sam_trained):
+    vol = np.full((8, 32, 32), 0.1, np.float32)
+    vol[2:6, 10:22, 10:22] = 1.0
+    out = asyncio.run(sam_trained.app.infer_3d(session_id="sam-run", volumes=[vol]))
+    m = np.asarray(out["masks"][0])
+    assert m.shape == (8, 32, 32) and out["n_cells"] == [int(m.max())]
+
+
+def _cpsam_cfg(path, **over):
+    return {
+        **CPSAM_TINY, "backbone": "cpsam", "pretrained_path": str(path),
+        "epochs": 1, "batch_size": 2, "tile": 16, **over,
+    }
+
+
+def test_cpsam_session_starts_from_converted_weights(tmp_path):
+    """lr = 0 freezes training: the snapshot equals the converted
+    checkpoint bit for bit, proof the session started from it."""
+    path, converted = _converted_cpsam(tmp_path)
+    app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu")
+    cfg = _cpsam_cfg(path, learning_rate=0.0, weight_decay=0.0)
+    final = asyncio.run(_train(app, "cpsam-pre", config=cfg))
+    assert final["status"] == "completed", final.get("error")
+
+    async def drive():
+        out = await app.infer(session_id="cpsam-pre", images=_synthetic_cells()[0][:1])
+        vol = np.full((8, 32, 32), 0.1, np.float32)
+        vol[2:6, 10:22, 10:22] = 1.0
+        out3d = await app.infer_3d(session_id="cpsam-pre", volumes=[vol])
+        exported = await app.export_model(session_id="cpsam-pre", model_name="cpsam-pre-export")
+        return out, out3d, exported
+
+    out, out3d, exported = asyncio.run(drive())
+    got = convert.flatten_params(convert.load_params_npz(str(Path(exported["model_path"]) / "weights.npz")))
+    assert set(got) == set(converted)
+    for k in converted:
+        np.testing.assert_array_equal(got[k], converted[k])
+    assert out["masks"][0].shape == (64, 64)
+    assert np.asarray(out3d["masks"][0]).shape == (8, 32, 32)
+
+    # the export is a 3-channel model, served by the port within 10% of
+    # the range of the JAX model on the same weights
+    rdf = load_model_rdf(Path(exported["model_path"]) / "rdf.yaml")
+    assert rdf.weights["jax_params"]["architecture"] == {"name": "cpsam", "kwargs": {
+        "patch_size": 8, "dim": 32, "depth": 2, "num_heads": 2, **{
+            k: CPSAM_TINY[k] for k in service._CPSAM_KEYS if k in CPSAM_TINY}}}
+    img = _synthetic_cells()[0][0]
+    x = service._to_model_channels(np.stack([np.stack([img, np.zeros_like(img)], -1)]), cfg)
+    assert x.shape == (1, 64, 64, 3) and not x[..., 2].any()
+    port, ref = _served(exported["model_path"], x)
+    assert port.shape == ref.shape == (1, 64, 64, 3)
+    assert np.abs(port - ref).max() <= 0.1 * np.ptp(ref)
+
+
+def test_cpsam_wrong_architecture_checkpoint_fails_loudly(tmp_path):
+    path, _ = _converted_cpsam(tmp_path)
+    app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu")
+    final = asyncio.run(_train(app, "cpsam-bad", config=_cpsam_cfg(path, dim=64)))
+    assert final["status"] == "failed"
+    assert "does not match the configured architecture" in final["error"]
+    assert "shape_mismatch=['encoder.block0" in final["error"]
+
+
+@pytest.fixture(scope="module")
+def jax_app_module():
+    return _load_by_path("jax_cellpose_app_helpers", REPO_APPS / "cellpose-finetuning" / "main.py")
+
+
+@pytest.mark.parametrize("config", [
+    {"backbone": "cpsam"},
+    {"backbone": "cpsam", "dim": 64, "tile": 64, "global_attn_indexes": [1], "window_size": 2},
+    {"backbone": "sam", "patch_size": 4},
+    {"backbone": "unet", "features": [8, 16]},
+], ids=["cpsam_defaults", "cpsam_set", "sam", "unet"])
+def test_config_helpers_are_the_jax_apps(config, jax_app_module):
+    """Defaults fill only the keys the caller did not set; the rdf
+    architecture stanza and the channel padding are the JAX app's."""
+    cfg = service._merge_config(config)
+    assert cfg == jax_app_module._merge_config(config)
+    assert service._arch_entry(cfg) == jax_app_module._arch_entry(cfg)
+    assert service._model_channels(cfg) == jax_app_module._model_channels(cfg)
+    x = np.ones((1, 8, 8, 2), np.float32)
+    np.testing.assert_array_equal(service._to_model_channels(x, cfg), jax_app_module._to_model_channels(x, cfg))
+    if config == {"backbone": "cpsam"}:
+        assert (cfg["dim"], cfg["depth"], cfg["num_heads"], cfg["tile"]) == (1024, 24, 16, 256)
+    else:  # the defaults would build ViT-L
+        _, divisor = service.build_model(cfg)
+        assert divisor == {"sam": 4, "cpsam": 8, "unet": 2}[cfg["backbone"]]
+
+
+def test_infer_cache_keys_the_cpsam_knobs():
+    base = service._merge_config({"backbone": "cpsam"})
+    assert service._arch_key(base) != service._arch_key({**base, "window_size": 7})
+    assert service._arch_key(base) == service._arch_key(dict(base))
+
+
+@pytest.mark.parametrize("backbone", ["sam", "cpsam"])
+def test_jax_app_and_port_train_alike_transformers(backbone, tmp_path):
+    """Both apps, started from one ``pretrained_path`` with one seed, train
+    on identical tiles; their per-epoch losses agree to LOSS_RTOL."""
+    if backbone == "sam":
+        jax_model = JaxCellposeSAM(patch_size=4, dim=64, depth=2, num_heads=4)
+        init = jax.jit(jax_model.init)(jax.random.key(7), jnp.zeros((1, 32, 32, 2), jnp.float32))["params"]
+        pretrained = tmp_path / "pretrained.npz"
+        jax_convert.save_params_npz(str(pretrained), init)
+        cfg = {**SAM_CFG, "pretrained_path": str(pretrained), "seed": 3}
+    else:
+        pretrained, _ = _converted_cpsam(tmp_path)
+        cfg = _cpsam_cfg(pretrained, epochs=2, batch_size=4, tile=32, learning_rate=1e-3, seed=3)
+
+    jax_app_mod = _load_by_path(f"jax_cellpose_app_{backbone}", REPO_APPS / "cellpose-finetuning" / "main.py")
+    jax_app = jax_app_mod.CellposeFinetune(sessions_root=str(tmp_path / "jax"))
+    port_app = CellposeFinetune(sessions_root=str(tmp_path / "port"), device="cpu")
+
+    async def drive():
+        return await _train(jax_app, "parity", config=cfg), await _train(port_app, "parity", config=cfg)
+
+    jax_final, port_final = asyncio.run(drive())
+    assert jax_final["status"] == port_final["status"] == "completed", (jax_final, port_final)
+    assert len(port_final["losses"]) == 2
+    np.testing.assert_allclose(port_final["losses"], jax_final["losses"], rtol=LOSS_RTOL)

@@ -48,6 +48,8 @@ def test_port_files_exist():
     } <= names
     # slice 3: cellpose fine-tuning
     assert {"flows.py", "cellpose.py"} <= names
+    # slice 4: the transformer backbones
+    assert {"sam.py", "cellpose_sam.py"} <= names
     assert (REPO / "bioengine_tpu_torch" / "apps" / "cellpose_finetuning" / "service.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "csrc" / "flash_attn_fwd.cu").is_file()
 

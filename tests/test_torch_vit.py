@@ -143,12 +143,14 @@ def test_reset_parameters_is_seeded():
 
 
 def test_registry():
-    assert registry.list_models() == ["cellpose", "unet2d", "unet3d", "vit-b14", "vit-s14"]
+    assert registry.list_models() == [
+        "cellpose", "cellpose-sam", "cpsam", "unet2d", "unet3d", "vit-b14", "vit-s14",
+    ]
     small = registry.get_model("vit-s14", depth=1, img_size=28)
     assert small.dim == 384 and small.block0.attn.num_heads == 6
     assert registry.get_model("vit-b14", depth=1, img_size=28).dim == 768
     with pytest.raises(KeyError):
-        registry.get_model("cellpose-sam")  # not ported yet (ROADMAP A8b)
+        registry.get_model("stardist2d")  # not ported yet (ROADMAP A8d)
 
 
 def test_rejects_other_image_sizes():
