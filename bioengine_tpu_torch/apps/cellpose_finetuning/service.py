@@ -1,22 +1,25 @@
 """Cellpose fine-tuning on PyTorch — training sessions, live inference, export.
 
 Counterpart of ``CellposeFinetune`` in ``apps/cellpose-finetuning/main.py``
-for the cellpose family on one device: the ``"unet"`` backbone
+on one device, for every backbone the JAX app trains: ``"unet"``
 (``models/cellpose.py`` ``CellposeNet``), ``"sam"``
-(``models/cellpose_sam.py`` ``CellposeSAM``) and ``"cpsam"``
+(``models/cellpose_sam.py`` ``CellposeSAM``), ``"cpsam"``
 (``models/sam.py`` ``CpSAM``, the SAM ViT-L encoder of the pretrained
 Cellpose-SAM model, fine-tuned from a checkpoint converted by
-``runtime.convert.convert_checkpoint``). The session protocol is the JAX
-app's: a directory per session with ``config.json``, ``status.json``
-(written atomically), a ``STOP`` file checked per batch, per-epoch
-snapshots as flat npz in flax names (the ``jax_params`` format either
-package serves), ``latest.npz`` swapped in by an atomic rename, and
-restart from the latest snapshot.
+``runtime.convert.convert_checkpoint``) and ``"stardist"``
+(``models/stardist.py`` ``StarDist2D``, star-convex polygons). The
+session protocol is the JAX app's: a directory per session with
+``config.json``, ``status.json`` (written atomically), a ``STOP`` file
+checked per batch, per-epoch snapshots as flat npz in flax names (the
+``jax_params`` format either package serves), ``latest.npz`` swapped in
+by an atomic rename, and restart from the latest snapshot.
 
-- Training runs ``make_train_step`` (``torch.optim.AdamW``) in a thread on
-  the app's device, whatever the backbone, over batches drawn exactly as
-  the JAX app draws them from ``np.random.default_rng(seed)``; flow
-  targets come from ``ops.flows.masks_to_flows`` once per session.
+- Training runs ``make_train_step`` (``make_stardist_train_step`` for
+  stardist; ``torch.optim.AdamW``) in a thread on the app's device, over
+  batches drawn exactly as the JAX app draws them from
+  ``np.random.default_rng(seed)``, flips included (for stardist they
+  permute the rays). Targets come once per session from
+  ``ops.flows.masks_to_flows``, or ``ops.stardist.masks_to_stardist``.
 - The full train state (module, optimiser, step) goes to
   ``models/train_state.pt``; the JAX app's ``train_state.msgpack`` is flax
   serialisation, so a resume without the port's file starts a fresh
@@ -24,14 +27,14 @@ restart from the latest snapshot.
 - ``infer`` / ``infer_3d`` keep one module per architecture on the device,
   apart from the one being trained, and copy each request's snapshot into
   it with ``load_state_dict``; flow following runs on the device.
+  Stardist reconstructs polygons on the host and refuses ``infer_3d``.
 - ``export_model`` writes a ``jax_params`` package that the port's
   ``RuntimeDeployment`` and the JAX model-runner both serve.
 
 cpsam is a 3-channel model: its batches get a zero third channel at the
 model boundary, in training, ``infer`` and ``infer_3d``; its export is
 served with 3-channel input. The methods are plain ``async`` methods (no
-RPC plane yet). The ``"stardist"`` backbone is refused (ROADMAP A8d).
-Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+RPC plane yet). Entry points run on ``cuda:0`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import os
 import shutil
 import threading
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -53,6 +58,7 @@ from torch import nn
 from bioengine_tpu_torch.models.cellpose import CellposeNet, TrainState, make_train_step
 from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
 from bioengine_tpu_torch.models.sam import CpSAM
+from bioengine_tpu_torch.models.stardist import StarDist2D, make_stardist_train_step
 from bioengine_tpu_torch.ops.flows import (
     FLOW_SCALE,
     aggregate_orthogonal_flows,
@@ -61,6 +67,7 @@ from bioengine_tpu_torch.ops.flows import (
     masks_to_flows,
     predictions_to_masks,
 )
+from bioengine_tpu_torch.ops.stardist import masks_to_stardist, predictions_to_masks_stardist
 from bioengine_tpu_torch.runtime.buckets import bucket_shape, crop_to, pad_to
 from bioengine_tpu_torch.runtime.convert import (
     flax_params_from_state_dict,
@@ -76,8 +83,8 @@ _TERMINAL_STATES = ("completed", "failed", "stopped", "interrupted")
 # the JAX app's defaults, so both apps read one config the same way
 DEFAULT_CONFIG = {
     # "unet" = CellposeNet, "sam" = CellposeSAM, "cpsam" = CpSAM (set
-    # "pretrained_path" to a converted cpsam checkpoint); "stardist" is
-    # not ported yet
+    # "pretrained_path" to a converted cpsam checkpoint), "stardist" =
+    # StarDist2D (prob + ray-distance heads, star-convex polygons)
     "backbone": "unet",
     "features": [32, 64, 128, 256],      # unet/stardist backbones
     "patch_size": 8,                      # sam/cpsam backbones
@@ -85,7 +92,7 @@ DEFAULT_CONFIG = {
     "depth": 8,
     "num_heads": 8,
     "n_rays": 32,                         # stardist backbone (even)
-    "max_dist": 64,
+    "max_dist": 64,                       # stardist ray-length cap (px)
     "pretrained_path": None,              # flat-npz jax_params to start from
     "learning_rate": 1e-4,
     "weight_decay": 1e-5,
@@ -94,8 +101,6 @@ DEFAULT_CONFIG = {
     "tile": 128,
     "seed": 0,
 }
-
-_UNPORTED_BACKBONES = ("stardist",)
 
 # cpsam-only architecture knobs, overridable in config; the defaults in
 # models/sam.py are the ViT-L checkpoint shape
@@ -114,15 +119,6 @@ _CPSAM_ARCH_DEFAULTS = {
 }
 
 
-def _check_backbone(cfg: dict) -> None:
-    backbone = cfg.get("backbone", "unet")
-    if backbone in _UNPORTED_BACKBONES:
-        raise NotImplementedError(
-            f"backbone '{backbone}' is not ported to PyTorch yet (ROADMAP "
-            "A8d); the port trains and serves 'unet', 'sam' and 'cpsam'"
-        )
-
-
 def _merge_config(config: Optional[dict]) -> dict:
     config = dict(config or {})
     cfg = {**DEFAULT_CONFIG, **config}
@@ -130,7 +126,14 @@ def _merge_config(config: Optional[dict]) -> dict:
         for k, v in _CPSAM_ARCH_DEFAULTS.items():
             if k not in config:
                 cfg[k] = v
-    _check_backbone(cfg)
+    if cfg.get("backbone") == "stardist":
+        # refused here, before target derivation, and 8.9 is not 8
+        n_rays = float(cfg["n_rays"])
+        if not n_rays.is_integer() or n_rays < 2 or int(n_rays) % 2:
+            raise ValueError(
+                f"n_rays must be an even integer >= 2, got {cfg['n_rays']}"
+            )
+        cfg["n_rays"] = int(n_rays)
     return cfg
 
 
@@ -151,10 +154,10 @@ def _to_model_channels(x: np.ndarray, cfg: dict) -> np.ndarray:
 
 def build_model(cfg: dict) -> tuple[nn.Module, int]:
     """(model, divisor) for the configured backbone, on the CPU. The
-    cellpose family shares one output contract, (B, H, W, 3) flow and
-    cellprob logits, so the train step, loss and flow post-processing are
-    the same for every backbone."""
-    _check_backbone(cfg)
+    cellpose family (unet, sam, cpsam) shares one output contract, (B, H,
+    W, 3) flow and cellprob logits; stardist emits (B, H, W, 1 + n_rays)
+    probability logit and rays, and has its own targets, step, flips and
+    post-processing."""
     backbone = cfg.get("backbone", "unet")
     if backbone == "cpsam":
         kw = {k: cfg[k] for k in _CPSAM_KEYS if k in cfg}
@@ -172,6 +175,12 @@ def build_model(cfg: dict) -> tuple[nn.Module, int]:
             depth=int(cfg.get("depth", 8)),
             num_heads=int(cfg.get("num_heads", 8)),
             in_channels=2,
+        )
+    elif backbone == "stardist":
+        # n_rays is even (_merge_config): the horizontal flip maps ray r
+        # to (n_rays/2 - r) mod n_rays, a bijection only then
+        model = StarDist2D(
+            n_rays=int(cfg["n_rays"]), features=tuple(cfg["features"]), in_channels=2,
         )
     else:
         model = CellposeNet(features=tuple(cfg["features"]), in_channels=2)
@@ -201,6 +210,15 @@ def _arch_entry(cfg: dict) -> dict:
                 "dim": int(cfg.get("dim", 256)),
                 "depth": int(cfg.get("depth", 8)),
                 "num_heads": int(cfg.get("num_heads", 8)),
+                "in_channels": 2,
+            },
+        }
+    if backbone == "stardist":
+        return {
+            "name": "stardist2d",
+            "kwargs": {
+                "n_rays": int(cfg["n_rays"]),
+                "features": list(cfg["features"]),
                 "in_channels": 2,
             },
         }
@@ -433,7 +451,8 @@ class CellposeFinetune:
     def _prepare_training_data(
         self, session: TrainingSession, images: list, labels: list
     ) -> None:
-        """Normalize images, derive flow targets from the masks, persist
+        """Normalize images, derive the backbone's targets from the masks
+        (flow fields, or edt-prob and ray distances for stardist), persist
         to the session's data dir (restart_training reuses them)."""
         x = self._prepare_images(images)
         masks = np.stack([np.asarray(m) for m in labels]).astype(np.int32)
@@ -441,21 +460,39 @@ class CellposeFinetune:
             raise ValueError(
                 f"images {x.shape[:3]} and labels {masks.shape[:3]} disagree"
             )
-        flows = np.stack([masks_to_flows(m) for m in masks])
-        np.savez(
-            session.data_dir / "train.npz",
-            images=x,
-            flows=np.moveaxis(flows, 1, -1),                # (N, H, W, 2)
-            cellprob=(masks > 0).astype(np.float32),        # (N, H, W)
-        )
+        cfg = session.config
+        if cfg.get("backbone") == "stardist":
+            # one mask per thread: the stepped gathers are numpy passes
+            # that release the GIL; the arrays are the loop's
+            n_rays, max_dist = int(cfg["n_rays"]), int(cfg["max_dist"])
+            workers = max(1, min(len(masks), os.cpu_count() or 1, 8))
+            with ThreadPoolExecutor(workers) as pool:
+                pairs = list(pool.map(
+                    lambda m: masks_to_stardist(m, n_rays=n_rays, max_dist=max_dist), masks))
+            targets = {
+                "prob": np.stack([p for p, _ in pairs]),        # (N, H, W)
+                "dist": np.stack([d for _, d in pairs]),        # (N, H, W, R)
+            }
+        else:
+            flows = np.stack([masks_to_flows(m) for m in masks])
+            targets = {
+                "flows": np.moveaxis(flows, 1, -1),             # (N, H, W, 2)
+                "cellprob": (masks > 0).astype(np.float32),     # (N, H, W)
+            }
+        np.savez(session.data_dir / "train.npz", images=x, **targets)
 
     # ---- the train loop (runs in a thread) ---------------------------------------
 
     def _train_loop(self, session: TrainingSession, resume: bool) -> None:
         cfg = session.config
         dev = self.device
+        stardist = cfg.get("backbone") == "stardist"
         with np.load(session.data_dir / "train.npz") as data:
-            images, t_flows, t_prob = data["images"], data["flows"], data["cellprob"]
+            images = data["images"]
+            if stardist:
+                t_a, t_b = data["prob"], data["dist"]          # (N,H,W), (N,H,W,R)
+            else:
+                t_a, t_b = data["flows"], data["cellprob"]     # (N,H,W,2), (N,H,W)
         n, H, W = images.shape[:3]
         model, divisor = build_model(cfg)
         # tile must divide through the encoder or the decoder misaligns
@@ -487,7 +524,16 @@ class CellposeFinetune:
         if saved is not None:
             state.optimizer.load_state_dict(saved["optimizer"])
             state.step = int(saved["step"])
-        step = make_train_step()
+        if stardist:
+            step = make_stardist_train_step()
+            R = t_b.shape[-1]
+            # flips permute ray indices: rays live at angles 2*pi*r/R with
+            # direction (sin, cos); x -> -x maps theta to pi - theta (index
+            # R/2 - r), y -> -y maps theta to -theta (index -r)
+            h_perm = (R // 2 - np.arange(R)) % R
+            v_perm = (-np.arange(R)) % R
+        else:
+            step = make_train_step()
 
         def sample_batch():
             # the JAX app's draws, in its order, so both apps see one stream
@@ -495,19 +541,25 @@ class CellposeFinetune:
             ys = rng.integers(0, H - tile + 1, size=batch)
             xs = rng.integers(0, W - tile + 1, size=batch)
             bi = np.empty((batch, tile, tile, 2), np.float32)
-            bf = np.empty((batch, tile, tile, 2), np.float32)
-            bp = np.empty((batch, tile, tile), np.float32)
+            ba = np.empty((batch, tile, tile, *t_a.shape[3:]), np.float32)
+            bb = np.empty((batch, tile, tile, *t_b.shape[3:]), np.float32)
             for j, (i, y0, x0) in enumerate(zip(idx, ys, xs)):
                 sl = np.s_[y0 : y0 + tile, x0 : x0 + tile]
-                im, fl, cp = images[i][sl], t_flows[i][sl], t_prob[i][sl]
+                im, ta, tb = images[i][sl], t_a[i][sl], t_b[i][sl]
                 if rng.random() < 0.5:  # horizontal flip
-                    im, fl, cp = im[:, ::-1], fl[:, ::-1], cp[:, ::-1]
-                    fl = fl * np.array([1.0, -1.0], np.float32)  # x-flow
+                    im, ta, tb = im[:, ::-1], ta[:, ::-1], tb[:, ::-1]
+                    if stardist:
+                        tb = tb[..., h_perm]
+                    else:
+                        ta = ta * np.array([1.0, -1.0], np.float32)  # x-flow
                 if rng.random() < 0.5:  # vertical flip
-                    im, fl, cp = im[::-1], fl[::-1], cp[::-1]
-                    fl = fl * np.array([-1.0, 1.0], np.float32)  # y-flow
-                bi[j], bf[j], bp[j] = im, fl, cp
-            return _to_model_channels(bi, cfg), bf, bp
+                    im, ta, tb = im[::-1], ta[::-1], tb[::-1]
+                    if stardist:
+                        tb = tb[..., v_perm]
+                    else:
+                        ta = ta * np.array([-1.0, 1.0], np.float32)  # y-flow
+                bi[j], ba[j], bb[j] = im, ta, tb
+            return _to_model_channels(bi, cfg), ba, bb
 
         steps_per_epoch = max(1, n * max(H // tile, 1) * max(W // tile, 1) // batch)
         session.write_status(
@@ -630,7 +682,6 @@ class CellposeFinetune:
         snapshot."""
         async with self._lifecycle_lock(session_id):
             session = self._get_session(session_id)
-            _check_backbone(session.config)
             if await self._busy(session):
                 raise RuntimeError(f"session '{session_id}' is still running")
             if not (session.data_dir / "train.npz").exists():
@@ -706,7 +757,6 @@ class CellposeFinetune:
         inference against a training run works because snapshots are
         written atomically per epoch."""
         session = self._get_session(session_id)
-        _check_backbone(session.config)
         if not session.latest_path.exists():
             raise RuntimeError(
                 f"session '{session_id}' has no snapshot yet"
@@ -730,8 +780,9 @@ class CellposeFinetune:
         return state_dict_from_flax(load_params_npz(str(session.latest_path)))
 
     def _predict_raw(self, session, x: np.ndarray, state=None) -> np.ndarray:
-        """(N, H, W, 2) prepared batch -> raw network output (N, H, W, 3)
-        (dy, dx, cellprob logits). ``state`` preloaded via
+        """(N, H, W, 2) prepared batch -> raw network output: (N, H, W, 3)
+        (dy, dx, cellprob logits), or (N, H, W, 1 + n_rays) (probability
+        logit, ray distances) for stardist. ``state`` preloaded via
         ``_load_snapshot`` keeps multi-pass callers (infer_3d's three
         orientations) on ONE snapshot even while training is writing new
         ones; None loads the latest."""
@@ -755,6 +806,14 @@ class CellposeFinetune:
 
     def _infer(self, session, images, cellprob_threshold, min_size):
         pred = self._predict_raw(session, self._prepare_images(images))
+        if session.config.get("backbone") == "stardist":
+            # the caller's threshold is a logit for both families (0.0 =
+            # probability 0.5); stardist's NMS takes a probability
+            prob_threshold = float(1.0 / (1.0 + np.exp(-cellprob_threshold)))
+            return [
+                predictions_to_masks_stardist(p, prob_threshold=prob_threshold, min_size=min_size)
+                for p in pred
+            ]
         return [
             predictions_to_masks(
                 p, cellprob_threshold=cellprob_threshold, min_size=min_size,
@@ -780,7 +839,12 @@ class CellposeFinetune:
         so cells appear isotropic to the 2D network, and the masks are
         resampled back."""
         session = self._get_session(session_id)
-        _check_backbone(session.config)
+        if session.config.get("backbone") == "stardist":
+            raise RuntimeError(
+                "infer_3d needs flow-field outputs (the cellpose do_3D "
+                "recipe); the stardist backbone predicts 2D polygons — "
+                "use infer per z-slice instead"
+            )
         if not session.latest_path.exists():
             raise RuntimeError(f"session '{session_id}' has no snapshot yet")
         if anisotropy <= 0:
@@ -865,10 +929,11 @@ class CellposeFinetune:
         ``jax_params`` model directory (rdf.yaml + weights.npz)."""
         session = self._get_session(session_id)
         cfg = session.config
-        _check_backbone(cfg)
         if not session.latest_path.exists():
             raise RuntimeError(f"session '{session_id}' has no snapshot")
-        name = model_name or f"cellpose-{session_id}"
+        stardist = cfg.get("backbone") == "stardist"
+        family = "stardist" if stardist else "cellpose"
+        name = model_name or f"{family}-{session_id}"
         export_dir = self.sessions_root / "exports" / name
         export_dir.mkdir(parents=True, exist_ok=True)
         await asyncio.to_thread(
@@ -878,10 +943,14 @@ class CellposeFinetune:
             "type": "model",
             "name": name,
             "description": (
-                f"Cellpose flow-field model fine-tuned in BioEngine "
+                f"StarDist star-convex polygon model (prob + "
+                f"{cfg.get('n_rays')} ray distances) fine-tuned in "
+                f"BioEngine session {session_id}"
+                if stardist
+                else f"Cellpose flow-field model fine-tuned in BioEngine "
                 f"session {session_id}"
             ),
-            "tags": ["cellpose", "segmentation", "fine-tuned"],
+            "tags": [family, "segmentation", "fine-tuned"],
             "inputs": [{"name": "input0", "axes": "byxc"}],
             "outputs": [{"name": "output0", "axes": "byxc"}],
             "weights": {

@@ -2,22 +2,26 @@
 
 Counterpart of ``apps/model-runner/runtime_deployment.py``:
 
-- a ``Pipeline`` wraps the RDF's axes and pre-/post-processing around the
-  port's ``InferenceEngine`` (buckets, per-bucket CUDA graphs, overlap-
-  tiled stitching of large images);
+- a ``Pipeline`` wraps the RDF's axes and pre-/post-processing around an
+  execution backend;
 - ``jax_params`` packages (a flat npz in flax names + a registry
-  architecture) load through the registry and the weight bridge; with a
-  ``<weights>.manifest.json`` beside the npz the weights stream in while
-  the engine builds;
+  architecture) load through the registry and the weight bridge into the
+  port's ``InferenceEngine`` (buckets, per-bucket CUDA graphs, overlap-
+  tiled stitching of large images); with a ``<weights>.manifest.json``
+  beside the npz the weights stream in while the engine builds;
+- ``pytorch_state_dict`` packages (the RDF's architecture source executed
+  in its own namespace, the state loaded with ``weights_only=True``) and
+  ``torchscript`` packages run through ``runtime.torch_runner.TorchRunner``
+  on the same device, whole arrays at a time in f32 with TF32 off (the
+  reference runs them on the host CPU); their backend is ``"torch"``;
 - ``RuntimeDeployment`` keeps the pipeline LRU and the test-report cache
   keyed on weight mtimes, and reports CUDA out-of-memory the way the
   reference does.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``. Not ported
-yet: ``pytorch_state_dict`` and ``torchscript`` weights (ROADMAP A6) and
-the continuous batcher (``serving/batching.py``, with the serving plane
-of ROADMAP A12): ``predict`` goes straight to the pipeline's async front
-door.
+yet: the continuous batcher (``serving/batching.py``, with the serving
+plane of ROADMAP A12): ``predict`` goes straight to the pipeline's async
+front door.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from bioengine_tpu_torch.runtime.rdf import (
     load_model_rdf,
     to_nhwc,
 )
+from bioengine_tpu_torch.runtime.torch_runner import PRECISION, TorchRunner
 from bioengine_tpu_torch.runtime.weight_stream import (
     StreamedWeightLoader,
     load_manifest,
@@ -85,7 +90,8 @@ def _input_channels(state: Mapping[str, torch.Tensor]) -> Optional[int]:
 
 
 class Pipeline:
-    """One loaded model: RDF bookkeeping + the inference engine."""
+    """One loaded model: RDF bookkeeping + an execution backend, the
+    inference engine or (zoo torch formats) a ``TorchRunner``."""
 
     def __init__(
         self,
@@ -95,7 +101,6 @@ class Pipeline:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        self.backend = self.device.type
         self.package_path = Path(package_path)
         # how this pipeline's weights landed (eager vs streamed, seconds)
         self.load_info: dict = {}
@@ -110,7 +115,7 @@ class Pipeline:
             # tile-1, stride-1 tiling; only that degenerate case rescales
             if config.tile_overlap >= config.tile:
                 config.tile_overlap = max(config.tile // 8, 1)
-        self.engine = self._build_engine(config)
+        self.backend, self.engine = self._build_backend(config)
 
     # ---- weights selection --------------------------------------------------
 
@@ -136,17 +141,61 @@ class Pipeline:
 
     # ---- engine construction ------------------------------------------------
 
-    def _build_engine(self, config: EngineConfig) -> InferenceEngine:
+    def _build_backend(self, config: EngineConfig):
+        """(backend name, engine): (the device type, ``InferenceEngine``)
+        for ``jax_params``, ("torch", ``TorchRunner``) for the zoo's torch
+        formats."""
         if self.weights_format in ("pytorch_state_dict", "torchscript"):
-            raise NotImplementedError(
-                f"weights format '{self.weights_format}' is not ported to "
-                "the PyTorch runtime yet (ROADMAP A6); serve jax_params"
-            )
+            t_load = time.perf_counter()
+            if self.weights_format == "torchscript":
+                runner = TorchRunner(
+                    torchscript_path=str(self._resolve(self.weights_entry["source"])),
+                    device=self.device,
+                )
+            else:
+                runner = TorchRunner(module=self._torch_module_from_rdf(), device=self.device)
+            self.load_info = {
+                "streamed": False,
+                "weights_seconds": round(time.perf_counter() - t_load, 4),
+            }
+            return "torch", runner
         if self.weights_format != "jax_params":
             raise NotImplementedError(
                 f"weights format '{self.weights_format}' is not supported "
-                f"(supported: jax_params)"
+                f"(supported: jax_params, pytorch_state_dict, torchscript)"
             )
+        return self.device.type, self._build_engine(config)
+
+    def _torch_module_from_rdf(self) -> torch.nn.Module:
+        """RDF 0.4 (``"file.py:Callable"``) or 0.5 (``{source, callable,
+        kwargs}``) pytorch architecture: execute the package's source in
+        a namespace of its own, build the named callable and load the
+        state dict into it."""
+        entry = self.weights_entry
+        arch = entry.get("architecture")
+        if isinstance(arch, str):
+            src, _, callable_name = arch.partition(":")
+            arch_kwargs = entry.get("kwargs", {}) or {}
+        elif isinstance(arch, dict):
+            callable_name = arch.get("callable", "")
+            src = (arch.get("source") or "").partition(":")[0]
+            arch_kwargs = arch.get("kwargs", {}) or {}
+        else:
+            raise ValueError("pytorch_state_dict weights without architecture")
+        src_path = self._resolve(src)
+        namespace: dict = {"__name__": f"bioengine_model_{src_path.stem}"}
+        exec(compile(src_path.read_text(), str(src_path), "exec"), namespace)
+        factory = namespace.get(callable_name)
+        if factory is None:
+            raise ValueError(f"architecture callable '{callable_name}' not found in {src}")
+        module = factory(**arch_kwargs)
+        state = torch.load(self._resolve(entry["source"]), map_location="cpu", weights_only=True)
+        if isinstance(state, dict) and "state_dict" in state:
+            state = state["state_dict"]
+        module.load_state_dict(state)
+        return module
+
+    def _build_engine(self, config: EngineConfig) -> InferenceEngine:
         entry = self.weights_entry
         arch = entry.get("architecture") or {}
         source = self._resolve(entry["source"])
@@ -245,11 +294,15 @@ class Pipeline:
         return await asyncio.wrap_future(self.engine.submit(fn, inputs))
 
     def pipeline_stats(self) -> dict:
+        if isinstance(self.engine, TorchRunner):
+            return {}
         return self.engine.pipeline_stats.as_dict()
 
     def cold_start_info(self) -> dict:
         """How the weights landed and what the program builds cost."""
         info = dict(self.load_info)
+        if isinstance(self.engine, TorchRunner):
+            return info
         if self._weight_loader is not None:
             st = self._weight_loader.stats()
             info["weights_seconds"] = st["seconds"]
@@ -351,11 +404,15 @@ class RuntimeDeployment:
         weights formats or blocksizes is two pipelines."""
         return f"{p._model_key()}#{key[:8]}"
 
+    def _engine_pipelines(self):
+        """(key, pipeline) of the pipelines on the inference engine."""
+        return [(k, p) for k, p in self._pipelines.items() if p.backend != "torch"]
+
     def pipeline_stats(self) -> dict:
-        return {self._status_key(k, p): p.pipeline_stats() for k, p in self._pipelines.items()}
+        return {self._status_key(k, p): p.pipeline_stats() for k, p in self._engine_pipelines()}
 
     def cold_start_info(self) -> dict:
-        return {self._status_key(k, p): p.cold_start_info() for k, p in self._pipelines.items()}
+        return {self._status_key(k, p): p.cold_start_info() for k, p in self._engine_pipelines()}
 
     def mesh_info(self) -> dict:
         """The device group and each loaded engine's describe()."""
@@ -505,6 +562,7 @@ class RuntimeDeployment:
                     "model": p._model_key(),
                     "backend": p.backend,
                     "weights_format": p.weights_format,
+                    **({"precision": PRECISION} if p.backend == "torch" else {}),
                 }
                 for p in self._pipelines.values()
             ],

@@ -140,10 +140,13 @@ def cellpose_loss(pred: torch.Tensor, flows: torch.Tensor, cellprob: torch.Tenso
     cellprob: (B, H, W) binary target. Returns (loss, {"flow_loss",
     "bce_loss"})."""
     flow_loss = 0.5 * torch.mean((pred[..., :2] - FLOW_SCALE * flows) ** 2)
-    # optax.sigmoid_binary_cross_entropy's form
-    logits = pred[..., 2]
-    bce = torch.mean(-cellprob * F.logsigmoid(logits) - (1 - cellprob) * F.logsigmoid(-logits))
+    bce = torch.mean(sigmoid_binary_cross_entropy(pred[..., 2], cellprob))
     return flow_loss + bce, {"flow_loss": flow_loss, "bce_loss": bce}
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise, in ``optax.sigmoid_binary_cross_entropy``'s form."""
+    return -labels * F.logsigmoid(logits) - (1 - labels) * F.logsigmoid(-logits)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Builtin model registry: model-zoo style names -> ``nn.Module`` factories.
 
-Counterpart of ``bioengine_tpu/models/registry.py``. Names arrive here with
-their ported models; so far the U-Nets, the ViTs, ``cellpose``,
-``cellpose-sam`` and ``cpsam``.
+Counterpart of ``bioengine_tpu/models/registry.py``, with every name it
+registers: the U-Nets, the ViTs, ``cellpose``, ``cellpose-sam``, ``cpsam``
+and ``stardist2d``.
 """
 
 from __future__ import annotations
@@ -70,6 +70,13 @@ def _cpsam(**kw) -> nn.Module:
     if "global_attn_indexes" in kw:
         kw["global_attn_indexes"] = tuple(kw["global_attn_indexes"])
     return CpSAM(**kw)
+
+
+@register_model("stardist2d")
+def _stardist2d(**kw) -> nn.Module:
+    from bioengine_tpu_torch.models.stardist import StarDist2D
+
+    return StarDist2D(**kw)
 
 
 @register_model("vit-b14")

@@ -12,7 +12,8 @@ Counterpart of ``bioengine_tpu/models/unet.py`` with the same arithmetic:
   2x2 max pool;
 - a 2x2, stride-2 transposed convolution, then ``[up, skip]`` on
   channels;
-- the final 1x1 convolution runs in f32 (``unet.py:61``).
+- the final 1x1 convolution runs in f32 (``unet.py:61``); a subclass
+  replaces it through ``_add_head`` and ``_head`` (``models/stardist.py``).
 
 Submodules carry flax's names in flax's creation order (``ConvBlock_0``
 .. ``ConvBlock_{2n}``, ``ConvTranspose_i``, ``Conv_0``, and
@@ -183,7 +184,15 @@ class UNet(nn.Module):
             self.add_module(f"{self.block_prefix}_{i}", block)
         for i, up in enumerate(ups):
             self.add_module(f"ConvTranspose_{i}", up)
+        self._add_head(ch, out_channels)
+
+    def _add_head(self, ch: int, out_channels: int) -> None:
+        """The f32 1x1 output convolution, created after the decoder."""
         self.Conv_0 = Conv(ch, out_channels, (1,) * self.ndim, torch.float32)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Decoder features (B, C, *spatial) in ``dtype`` -> f32 output."""
+        return self.Conv_0(x.float())
 
     def _block(self, i: int) -> ConvBlock:
         return getattr(self, f"{self.block_prefix}_{i}")
@@ -211,7 +220,7 @@ class UNet(nn.Module):
         for j, skip in enumerate(reversed(skips)):
             x = getattr(self, f"ConvTranspose_{j}")(x)
             x = self._block(n + 1 + j)(torch.cat([x, skip], dim=1))
-        y = self.Conv_0(x.float())
+        y = self._head(x)
         back = (0, *range(2, y.dim()), 1)
         return y.permute(back).contiguous()
 

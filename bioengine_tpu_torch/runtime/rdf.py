@@ -75,7 +75,7 @@ def _tensor_spec(entry: dict) -> TensorSpec:
     )
 
 
-def _parse_rdf_text(text: str, where: str = "rdf") -> dict:
+def parse_rdf_text(text: str, where: str = "rdf") -> dict:
     """YAML through PyYAML where it imports; else the text as JSON."""
     try:
         import yaml
@@ -95,7 +95,7 @@ def _parse_rdf_text(text: str, where: str = "rdf") -> dict:
 
 def load_model_rdf(source: str | Path | dict) -> ModelRDF:
     if isinstance(source, (str, Path)):
-        raw = _parse_rdf_text(Path(source).read_text(), str(source))
+        raw = parse_rdf_text(Path(source).read_text(), str(source))
     else:
         raw = dict(source)
     if raw.get("type") not in (None, "model"):

@@ -50,8 +50,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and ``infer_3d`` on 32 x 256^2, the export served by
    ``RuntimeDeployment`` against ``_predict_raw``; the attention kernel's
    count stays 0; one ``cellpose_cpsam`` and one ``cellpose_sam`` JSON line;
-9. one JSON line of the kernels' numbers;
-10. the result line ``{"ok": true, "device": {...}}``, printed last.
+9. StarDist and the zoo's torch formats (slice 5): ``CellposeFinetune``
+   trains ``"stardist"`` (StarDist2D (32, 64, 128, 256), 32 rays, bf16, lr
+   1e-4) for 3 epochs at 8 x 256^2 on the 16 fields (loss must fall); a
+   step timed and profiled; the f32 step on the card against the CPU;
+   ``infer`` on 2 x 512^2 split into forward and host polygon NMS and
+   rendering; the export served by ``RuntimeDeployment`` against
+   ``_predict_raw``. Then a zoo package whose own ``arch.py`` is a
+   plain-torch UNet2D (32, 64, 128, 256), seeded, with a
+   ``pytorch_state_dict`` entry and a traced ``torchscript`` twin, served
+   by ``EntryDeployment`` over a ``LocalCollectionSource``: ``test`` for
+   both formats, a 512^2 request and a batch of 4 at 1024^2 in each,
+   held against the module on the CPU (f32, TF32 off inside the runner);
+   request ms, load s and peak memory; the attention kernel's count
+   stays 0; one ``zoo`` JSON line;
+10. one JSON line of the kernels' numbers;
+11. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -83,6 +97,7 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning import service as finetune_service
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
+from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.models.cellpose import (
     CellposeConfig,
@@ -106,6 +121,8 @@ from bioengine_tpu_torch.ops.flows import (
 )
 from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
 from bioengine_tpu_torch.models.sam import CpSAM
+from bioengine_tpu_torch.models.stardist import StarDist2D, make_stardist_train_step
+from bioengine_tpu_torch.ops.stardist import predictions_to_masks_stardist
 from bioengine_tpu_torch.runtime.convert import (
     convert_checkpoint,
     convert_state_dict,
@@ -877,15 +894,17 @@ def cellpose_step_parity(card: str, images, masks, device: str) -> dict:
                              lambda where: _train_batch(images, masks, 2, 128, where), device)
 
 
-def train_step_parity(card: str, what: str, build, batch, device: str) -> dict:
-    """One train step of ``build(torch.float32)`` (TF32 off) on the card and
-    on the CPU, same weights and ``batch(where)``; and the loss of the bf16
-    step ``build(torch.bfloat16)`` on the card against the f32 one."""
+def train_step_parity(card: str, what: str, build, batch, device: str,
+                      make_step=make_train_step) -> dict:
+    """One train step (``make_step()``) of ``build(torch.float32)`` (TF32
+    off) on the card and on the CPU, same weights and ``batch(where)``; and
+    the loss of the bf16 step ``build(torch.bfloat16)`` on the card against
+    the f32 one."""
     out = {}
     for where, dtype in (("cpu", torch.float32), (device, torch.float32), (device, torch.bfloat16)):
         m = build(dtype)
         state = TrainState.create(m.to(where), 1e-4, 1e-5)
-        _, metrics = make_train_step()(state, *batch(where))
+        _, metrics = make_step()(state, *batch(where))
         out[(where, dtype)] = (
             float(metrics["loss"]),
             {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
@@ -918,11 +937,12 @@ def time_cellpose_step(card: str, images, masks, device: str) -> dict:
                            f"{CELLPOSE_FEATURES}", state, tensors, device)
 
 
-def time_train_step(card: str, what: str, state: TrainState, tensors, device: str) -> dict:
+def time_train_step(card: str, what: str, state: TrainState, tensors, device: str,
+                    make_step=make_train_step) -> dict:
     """ms per train step (CUDA events over CELLPOSE_TIMED_STEPS steps after
     3 warm-up steps), peak device memory, and a profile of one step."""
     batch = tensors[0].shape[0]
-    step = make_train_step()
+    step = make_step()
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1084,7 +1104,8 @@ def check_cellpose_export(card: str, svc: CellposeFinetune, field: np.ndarray, d
           f"{err:.4g} against _predict_raw (bound {EXPORT_TOL} x range {span:.4g}); package load + "
           f"first 512^2 request {t_serve:.3f} s")
     check(served["_meta"]["backend"] == device, f"served on {served['_meta']}")
-    check(out.shape == (1, CELLPOSE_FIELD, CELLPOSE_FIELD, 3), f"served output {out.shape}")
+    check(out.shape == raw.shape and out.shape[:3] == (1, CELLPOSE_FIELD, CELLPOSE_FIELD),
+          f"served output {out.shape}, _predict_raw {raw.shape}")
     check(bool(np.isfinite(out).all()), "served output not finite")
     check(err <= EXPORT_TOL * span, f"served vs _predict_raw: {err} over {EXPORT_TOL * span}")
     return {"served_vs_raw_max_abs": err, "output_range": span}
@@ -1346,6 +1367,334 @@ def phase_cellpose_transformers(card: str, device: str = "cuda") -> dict:
     return {"launches": launches, **lines}
 
 
+# ---- slice 5: StarDist and the zoo's torch formats ---------------------------
+
+# the app's stardist defaults (features, n_rays 32, max_dist 64, lr 1e-4)
+# at the cellpose phase's batch and tile; the CPU rehearsal narrows them
+STARDIST_CFG = {"backbone": "stardist", "features": [32, 64, 128, 256], "n_rays": 32, **CELLPOSE_CFG}
+STARDIST_PARITY_TILE = 128
+# a zoo package whose own architecture file is a plain-torch 2D U-Net at
+# the registry UNet2D's widths; requests in its axes (bcyx)
+ZOO_FEATURES = (32, 64, 128, 256)
+ZOO_TEST_SHAPE = (1, 1, 256, 256)
+ZOO_REQUESTS = {"512": (1, 1, 512, 512), "4x1024": (4, 1, 1024, 1024)}
+ZOO_REPEATS = 5
+# the card (f32, TF32 off) against the CPU, as a share of the output's range
+ZOO_CARD_VS_CPU = 1e-4
+
+ZOO_UNET_SOURCE = '''\
+"""A plain-torch 2D U-Net, as a BioImage Model Zoo package ships its
+architecture: NCHW, (conv 3x3, GroupNorm, SiLU) twice per level, 2x2 max
+pool, 2x2 transposed convolution, [up, skip] on channels, 1x1 head."""
+import torch
+from torch import nn
+
+
+class Block(nn.Sequential):
+    def __init__(self, cin, cout):
+        super().__init__(
+            nn.Conv2d(cin, cout, 3, padding=1), nn.GroupNorm(min(32, cout), cout), nn.SiLU(),
+            nn.Conv2d(cout, cout, 3, padding=1), nn.GroupNorm(min(32, cout), cout), nn.SiLU(),
+        )
+
+
+class UNet2D(nn.Module):
+    def __init__(self, in_channels=1, out_channels=1, features=(32, 64, 128, 256)):
+        super().__init__()
+        ch = in_channels
+        self.down = nn.ModuleList()
+        for f in features[:-1]:
+            self.down.append(Block(ch, f))
+            ch = f
+        self.bottom = Block(ch, features[-1])
+        ch = features[-1]
+        self.up = nn.ModuleList()
+        self.dec = nn.ModuleList()
+        for f in reversed(features[:-1]):
+            self.up.append(nn.ConvTranspose2d(ch, f, 2, stride=2))
+            self.dec.append(Block(2 * f, f))
+            ch = f
+        self.head = nn.Conv2d(ch, out_channels, 1)
+
+    def forward(self, x):
+        skips = []
+        for block in self.down:
+            x = block(x)
+            skips.append(x)
+            x = nn.functional.max_pool2d(x, 2)
+        x = self.bottom(x)
+        for up, dec, skip in zip(self.up, self.dec, skips[::-1]):
+            x = dec(torch.cat([up(x), skip], 1))
+        return self.head(x)
+'''
+
+
+def zoo_unet(features, seed: int) -> torch.nn.Module:
+    """``ZOO_UNET_SOURCE``'s U-Net with weights from ``np.random.default_rng
+    (seed)``: kernels ~ N(0, 1/fan_in), zero biases, unit norm scales."""
+    namespace: dict = {}
+    exec(ZOO_UNET_SOURCE, namespace)
+    module = namespace["UNet2D"](features=tuple(features)).eval()
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() == 1:
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+            else:
+                transposed = isinstance(module.get_submodule(name.rsplit(".", 1)[0]), torch.nn.ConvTranspose2d)
+                fan_in = (p.shape[0] if transposed else p.shape[1]) * int(np.prod(p.shape[2:]))
+                p.copy_(torch.from_numpy(rng.normal(0.0, fan_in ** -0.5, p.shape).astype(np.float32)))
+    return module
+
+
+def write_zoo_collection(root: str, features, seed: int) -> tuple[str, torch.nn.Module]:
+    """A one-model collection under ``root``: ``zoo-unet`` with its own
+    ``arch.py``, a ``pytorch_state_dict`` entry, a ``torchscript`` twin
+    (the same module, traced) and test tensors computed by the module on
+    the CPU in f32; ``rdf.yaml`` and ``collection.yaml`` as JSON text.
+    Returns the package dir and the module."""
+    d = f"{root}/zoo-unet"
+    os.makedirs(d)
+    module = zoo_unet(features, seed)
+    with open(f"{d}/arch.py", "w") as f:
+        f.write(ZOO_UNET_SOURCE)
+    torch.save(module.state_dict(), f"{d}/weights.pt")
+    x = np.random.default_rng(seed + 1).standard_normal(ZOO_TEST_SHAPE, np.float32)
+    with torch.no_grad():
+        torch.jit.trace(module, torch.from_numpy(x)).save(f"{d}/weights_torchscript.pt")
+        y = module(torch.from_numpy(x)).numpy()
+    np.save(f"{d}/test_input.npy", x)
+    np.save(f"{d}/test_output.npy", y)
+    rdf = {
+        "type": "model", "format_version": "0.5.3", "name": "zoo-unet",
+        "description": "plain-torch 2D U-Net, seeded weights", "tags": ["segmentation"],
+        "inputs": [{"name": "raw", "axes": "bcyx", "test_tensor": {"source": "test_input.npy"}}],
+        "outputs": [{"name": "mask", "axes": "bcyx", "test_tensor": {"source": "test_output.npy"}}],
+        "weights": {
+            "pytorch_state_dict": {
+                "source": "weights.pt",
+                "architecture": {"source": "arch.py", "callable": "UNet2D",
+                                 "kwargs": {"features": list(features)}},
+            },
+            "torchscript": {"source": "weights_torchscript.pt"},
+        },
+    }
+    with open(f"{d}/rdf.yaml", "w") as f:
+        f.write(json.dumps(rdf, indent=1))
+    with open(f"{root}/collection.yaml", "w") as f:
+        f.write(json.dumps({"bioengine_inference": {"zoo-unet": {"status": "passed"}}}))
+    return d, module
+
+
+def _stardist_batch(session, n: int, tile: int, device: str):
+    """The first ``n`` fields' top-left tiles with the targets the session
+    derived, as device tensors (images, prob, dist)."""
+    with np.load(session.data_dir / "train.npz") as data:
+        arrays = [np.ascontiguousarray(data[k][:n, :tile, :tile]) for k in ("images", "prob", "dist")]
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def time_stardist_infer(card: str, svc: CellposeFinetune, imgs, device: str, session_id: str) -> dict:
+    """``infer`` per request (host clock, mean after a warm-up call on one
+    event loop), split into host pre-processing, ``_predict_raw`` (its
+    forward alone by device clock) and host polygon NMS and rendering."""
+    session = svc.sessions[session_id]
+    timed = asyncio.run(_timed_requests(
+        device, {"2x512": lambda: svc.infer(session_id=session_id, images=imgs)}, CELLPOSE_INFER_REPEATS))
+    first, out, ms = timed["2x512"]
+    for img, m, n in zip(imgs, out["masks"], out["n_cells"]):
+        check(m.shape == img.shape[:2] and m.dtype == np.int32, f"stardist infer: mask {m.shape}")
+        check(n == int(m.max()), f"stardist infer: n_cells {n} vs max {m.max()}")
+    check(out["n_cells"] == first["n_cells"], "stardist infer: repeated calls disagree")
+    x, prep = _host_ms(lambda: svc._prepare_images(imgs))
+    pred, raw = _host_ms(lambda: svc._predict_raw(session, x))
+    model = svc._infer_models[finetune_service._arch_key(session.config)]
+    xt = torch.from_numpy(x).to(device)
+    with torch.inference_mode():
+        fwd = _device_ms(device, lambda: model(xt), iters=5)
+    masks, nms = _host_ms(lambda: [predictions_to_masks_stardist(p) for p in pred])
+    check([int(m.max()) for m in masks] == out["n_cells"], "stardist infer: host split disagrees")
+    n_cand = [int((p[..., 0] > 0.0).sum()) for p in pred]
+    clock = "device" if device == "cuda" else "host"
+    print(f"[{card}] stardist infer 2x512: {np.mean(ms):.3f} ms mean per request over {len(ms)} after a "
+          f"warm-up call ({[round(t, 3) for t in ms]}); host pre-processing {prep:.3f} ms, _predict_raw "
+          f"{raw:.3f} ms (forward {fwd:.3f} ms {clock}), polygon NMS + rendering {nms:.3f} ms host for "
+          f"{len(imgs)} images ({n_cand} candidates above probability 0.5); n_cells {out['n_cells']}")
+    return {"request_ms": float(np.mean(ms)), "request_ms_all": ms, "prepare_ms": prep,
+            "predict_raw_ms": raw, "forward_ms": fwd, "nms_render_ms": nms,
+            "candidates": n_cand, "n_cells": out["n_cells"]}
+
+
+def run_stardist(card: str, root: str, images, masks, device: str) -> dict:
+    """StarDist through the app: train at the app's defaults, time and
+    profile a step, the f32 step on the card against the CPU, infer, and
+    the export served by RuntimeDeployment."""
+    svc = CellposeFinetune(sessions_root=f"{root}/sessions", device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    label = "stardist"
+    r = asyncio.run(drive_cellpose(svc, images, masks, {**STARDIST_CFG, "seed": SEED}, session_id=label))
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    session = svc.sessions[label]
+    cfg = session.config
+    losses = _check_training(label, r, cfg, images.shape[0], images.shape[1])
+    n_steps = cfg["epochs"] * r["status"]["steps_per_epoch"]
+    print(f"[{card}] stardist training: data preparation (start_training, host; masks_to_stardist on "
+          f"{images.shape[0]} fields) {r['t_prep']:.3f} s; {n_steps} steps + {cfg['epochs']} snapshots "
+          f"{r['t_total'] - r['t_prep']:.3f} s host clock; peak device memory {peak / 2**30:.2f} GiB")
+
+    model, _ = finetune_service.build_model(cfg)
+    model.reset_parameters(cfg["seed"])
+    state = TrainState.create(model.to(device), cfg["learning_rate"], cfg["weight_decay"])
+    batch, tile = cfg["batch_size"], cfg["tile"]
+    timed = time_train_step(
+        card, f"stardist train step, {batch} x {tile}^2, bf16, StarDist2D {cfg['features']} "
+        f"n_rays {cfg['n_rays']}", state, _stardist_batch(session, batch, tile, device), device,
+        make_step=make_stardist_train_step)
+    del model, state
+    _release(device)
+
+    start = finetune_service.build_model(cfg)[0]
+    start.reset_parameters(SEED + 20)
+    start_state = {k: v.clone() for k, v in start.state_dict().items()}
+
+    def build(dtype):
+        m = StarDist2D(n_rays=cfg["n_rays"], features=tuple(cfg["features"]), in_channels=2, dtype=dtype)
+        m.load_state_dict(start_state)
+        return m
+
+    parity = train_step_parity(
+        card, f"stardist train step, 2 x {STARDIST_PARITY_TILE}^2", build,
+        lambda where: _stardist_batch(session, 2, STARDIST_PARITY_TILE, where), device,
+        make_step=make_stardist_train_step)
+    infer = time_stardist_infer(card, svc, [images[0], images[1]], device, label)
+    export = check_cellpose_export(card, svc, images[2], device, session_id=label, label=label)
+    svc._infer_models.clear()
+    _release(device)
+    return {
+        "card": card, "arch": finetune_service._arch_entry(cfg)["kwargs"], "tile": tile,
+        "batch_size": batch, "learning_rate": cfg["learning_rate"], "epochs": cfg["epochs"],
+        "data_prep_s": r["t_prep"], "train_s": r["t_total"] - r["t_prep"], "losses": losses,
+        "train_peak_gib": peak / 2**30, **timed, "step_parity": parity, "infer": infer, "export": export,
+    }
+
+
+async def drive_zoo(entry: EntryDeployment, package: str, inputs: dict) -> dict:
+    """The zoo package as a user drives it: ``test`` for each format, then
+    each request (a warm-up call, then ZOO_REPEATS timed calls) in each
+    format through ``EntryDeployment.infer``."""
+    await entry.async_init()
+    r: dict = {"ms": {}, "first_s": {}}
+    r["test"] = {"pytorch_state_dict": await entry.test("zoo-unet", skip_cache=True)}
+    # EntryDeployment.test serves the preferred format; the twin is tested
+    # on the cached package through the runtime
+    r["test"]["torchscript"] = await entry.runtime_deployment.test(
+        package, weights_format="torchscript", skip_cache=True)
+    for fmt in ("pytorch_state_dict", "torchscript"):
+        for key, x in inputs.items():
+            def call(fmt=fmt, x=x):
+                return entry.infer(model_id="zoo-unet", inputs={"raw": x}, weights_format=fmt)
+
+            t0 = time.perf_counter()
+            await call()
+            r["first_s"][f"{fmt}/{key}"] = time.perf_counter() - t0
+            out, ms = await _timed(entry.runtime_deployment.backend, ZOO_REPEATS, call)
+            r[f"{fmt}/{key}"], r["ms"][f"{fmt}/{key}"] = out, ms
+    r["status"] = await entry.runtime_deployment.get_status()
+    r["load"] = {p.weights_format: p.load_info for p in entry.runtime_deployment._pipelines.values()}
+    return r
+
+
+def run_zoo(card: str, root: str, device: str) -> dict:
+    """Both zoo torch formats served on the card through EntryDeployment
+    over a LocalCollectionSource, held against the module on the CPU."""
+    collection = f"{root}/collection"
+    os.makedirs(collection)
+    package, module = write_zoo_collection(collection, ZOO_FEATURES, SEED + 30)
+    rng = np.random.default_rng(SEED + 31)
+    inputs = {key: rng.standard_normal(shape, np.float32) for key, shape in ZOO_REQUESTS.items()}
+    os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = collection
+    # PyTorch's default lets cuDNN use TF32: the runner turns it off itself
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    entry = EntryDeployment(cache_dir=f"{root}/model-cache", device=device)
+    try:
+        r = asyncio.run(drive_zoo(entry, str(entry.model_cache._package_dir("zoo-unet", False)), inputs))
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    finally:
+        asyncio.run(entry.close())
+        torch.backends.cudnn.allow_tf32 = tf32_before
+        del os.environ["BIOENGINE_LOCAL_MODEL_PATH"]
+
+    for fmt, rep in r["test"].items():
+        check(rep["status"] == "passed" and rep.get("output_matches_expected") and rep["backend"] == "torch"
+              and rep["weights_format"] == fmt, f"zoo test {fmt}: {rep}")
+    # the card against the module on the CPU: the 512^2 request and the
+    # first image of the batch (GroupNorm is per sample)
+    with torch.no_grad():
+        want = {"512": module(torch.from_numpy(inputs["512"])).numpy(),
+                "4x1024": module(torch.from_numpy(inputs["4x1024"][:1])).numpy()}
+    errs = {}
+    for fmt in ("pytorch_state_dict", "torchscript"):
+        for key, x in inputs.items():
+            out = r[f"{fmt}/{key}"]
+            check(out["_meta"]["backend"] == "torch" and out["_meta"]["weights_format"] == fmt,
+                  f"zoo {fmt} {key}: {out['_meta']}")
+            y = out["mask"]
+            check(y.shape == x.shape and bool(np.isfinite(y).all()), f"zoo {fmt} {key}: output {y.shape}")
+            ref = want[key]
+            err = float(np.abs(y[: len(ref)] - ref).max())
+            span = float(ref.max() - ref.min())
+            errs[f"{fmt}/{key}"] = {"max_abs": err, "range": span}
+            check(err <= ZOO_CARD_VS_CPU * span, f"zoo {fmt} {key}: card vs CPU {err} over "
+                  f"{ZOO_CARD_VS_CPU} x range {span}")
+    status = r["status"]
+    check({p["weights_format"] for p in status["loaded_pipelines"]} == {"pytorch_state_dict", "torchscript"}
+          and all(p["backend"] == "torch" and "TF32 off" in p["precision"] for p in status["loaded_pipelines"]),
+          f"zoo status {status}")
+    print(f"zoo: plain-torch UNet2D {ZOO_FEATURES} in f32, its own arch.py; cuDNN TF32 allowed around the "
+          f"requests (PyTorch's default), turned off by the runner; test: "
+          + ", ".join(f"{fmt} {rep['status']} ({rep['duration_seconds']} s)" for fmt, rep in r["test"].items()))
+    mp = {key: float(np.prod(shape)) / shape[1] / 1e6 for key, shape in ZOO_REQUESTS.items()}
+    for name, ms in r["ms"].items():
+        fmt, key = name.split("/")
+        ms = np.array(ms)
+        print(f"[{card}] zoo {fmt} {key}: {ms.mean():.3f} ms mean per request over {len(ms)} after a "
+              f"warm-up call (min {ms.min():.3f}, max {ms.max():.3f}); {mp[key] / (ms.mean() / 1e3):.2f} MP/s; "
+              f"first call {r['first_s'][name]:.3f} s; card vs CPU max abs {errs[name]['max_abs']:.3g} of "
+              f"range {errs[name]['range']:.4g}")
+    for fmt, info in r["load"].items():
+        print(f"[{card}] zoo {fmt} load (build + weights onto the card): {info['weights_seconds']} s")
+    print(f"[{card}] zoo peak device memory {peak / 2**30:.2f} GiB")
+    return {"card": card, "features": list(ZOO_FEATURES), "precision": status["loaded_pipelines"][0]["precision"],
+            "request_ms": {k: float(np.mean(v)) for k, v in r["ms"].items()}, "request_ms_all": r["ms"],
+            "first_request_s": r["first_s"], "load_s": {k: v["weights_seconds"] for k, v in r["load"].items()},
+            "test": {k: v["status"] for k, v in r["test"].items()}, "card_vs_cpu": errs,
+            "peak_gib": peak / 2**30}
+
+
+def phase_zoo(card: str, device: str = "cuda") -> dict:
+    """Slice 5 at full width: StarDist2D through the app, then the zoo's
+    torch formats through the entry deployment; one ``zoo`` JSON line."""
+    images, masks = synthetic_cell_fields(CELLPOSE_FIELDS, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED)
+    print(f"zoo phase: StarDist2D {STARDIST_CFG['features']} n_rays {STARDIST_CFG['n_rays']}, bf16, on "
+          f"{CELLPOSE_FIELDS} synthetic {CELLPOSE_FIELD}^2 fields, config {STARDIST_CFG}; then a zoo "
+          f"package (plain-torch UNet2D {ZOO_FEATURES}) in pytorch_state_dict and torchscript")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
+        attention.launch_count = 0
+        stardist = run_stardist(card, root, images, masks, device)
+        zoo = run_zoo(card, root, device)
+        launches = attention.launch_count
+    print(f"zoo phase: flash_attn_fwd launches {launches} (StarDist2D and the zoo U-Net run no attention)")
+    check(launches == 0, f"the zoo phase launched flash_attn_fwd {launches} times")
+    print("zoo " + json.dumps({"stardist": stardist, "zoo": zoo, "flash_attn_fwd_launches": launches}))
+    return {"launches": launches, "stardist": stardist, "zoo": zoo}
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -1355,6 +1704,7 @@ def main() -> int:
     model_runner = phase_model_runner(card)
     cellpose = phase_cellpose(card)
     transformers = phase_cellpose_transformers(card)
+    zoo = phase_zoo(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -1362,11 +1712,12 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slices 2-4 launch no attention kernel: their counts stay 0
+        # slices 2-5 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
-                             "cellpose_transformers": transformers["launches"]},
+                             "cellpose_transformers": transformers["launches"],
+                             "zoo": zoo["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

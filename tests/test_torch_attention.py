@@ -17,7 +17,7 @@ from bioengine_tpu.ops.pallas.attention import (
 )
 from bioengine_tpu.ops.pallas.attention import flash_attention as jax_flash
 from bioengine_tpu.ops.pallas.attention import make_attn_fn as jax_make_attn_fn
-from _torch_parity import emulate_wgmma_attention, seeded_flax_params
+from _torch_parity import emulate_wgmma_attention, few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu_torch.ops import attention
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import seeded_flax_params
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu.models.vit import ViT as JaxViT
 from bioengine_tpu.ops.knn import topk_inner_product as jax_topk_inner_product
 from bioengine_tpu.ops.pallas.attention import make_attn_fn as jax_make_attn_fn

@@ -392,11 +392,16 @@ def test_readopted_session_deletable(tmp_path):
     assert asyncio.run(app.delete_session(session_id="s1")) == {"deleted": "s1"}
 
 
-# ---- backbones not ported yet ----------------------------------------------------
+# ---- stardist's refusals: a bad ray count, and infer_3d ---------------------------
 
 
 @pytest.mark.parametrize("backbone", ["stardist"])
 def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, monkeypatch):
+    """Every backbone of the JAX app is ported; what stardist still refuses,
+    it refuses before any work, as the JAX app does: an odd or fractional
+    ``n_rays`` in ``start_training`` (before data preparation), and
+    ``infer_3d`` on a session whose config names it (before reading a
+    snapshot)."""
     app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu")
 
     def prepared(*_):
@@ -404,10 +409,10 @@ def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, 
 
     monkeypatch.setattr(app, "_prepare_training_data", prepared)
     images, masks = _synthetic_cells(n=1)
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(ValueError, match="n_rays must be an even integer"):
         asyncio.run(app.start_training(
             train_images=images, train_labels=masks,
-            config={"backbone": backbone}, session_id="refused",
+            config={"backbone": backbone, "n_rays": 7}, session_id="refused",
         ))
     assert app.sessions == {} and not (tmp_path / "sessions" / "refused").exists()
 
@@ -417,14 +422,8 @@ def test_unported_backbones_refused_before_data_preparation(backbone, tmp_path, 
     other.write_status(status="completed")
     other.latest_path.write_bytes(b"")
     app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu")
-    for call in (
-        app.infer(session_id="adopted", images=images),
-        app.infer_3d(session_id="adopted", volumes=[np.zeros((4, 32, 32))]),
-        app.export_model(session_id="adopted"),
-        app.restart_training(session_id="adopted"),
-    ):
-        with pytest.raises(NotImplementedError, match="A8d"):
-            asyncio.run(call)
+    with pytest.raises(RuntimeError, match="do_3D"):
+        asyncio.run(app.infer_3d(session_id="adopted", volumes=[np.zeros((4, 32, 32))]))
 
 
 def test_default_config_is_the_jax_apps():
@@ -630,7 +629,8 @@ def jax_app_module():
     {"backbone": "cpsam", "dim": 64, "tile": 64, "global_attn_indexes": [1], "window_size": 2},
     {"backbone": "sam", "patch_size": 4},
     {"backbone": "unet", "features": [8, 16]},
-], ids=["cpsam_defaults", "cpsam_set", "sam", "unet"])
+    {"backbone": "stardist", "features": [8, 16], "n_rays": 8.0},
+], ids=["cpsam_defaults", "cpsam_set", "sam", "unet", "stardist"])
 def test_config_helpers_are_the_jax_apps(config, jax_app_module):
     """Defaults fill only the keys the caller did not set; the rdf
     architecture stanza and the channel padding are the JAX app's."""
@@ -644,7 +644,7 @@ def test_config_helpers_are_the_jax_apps(config, jax_app_module):
         assert (cfg["dim"], cfg["depth"], cfg["num_heads"], cfg["tile"]) == (1024, 24, 16, 256)
     else:  # the defaults would build ViT-L
         _, divisor = service.build_model(cfg)
-        assert divisor == {"sam": 4, "cpsam": 8, "unet": 2}[cfg["backbone"]]
+        assert divisor == {"sam": 4, "cpsam": 8, "unet": 2, "stardist": 2}[cfg["backbone"]]
 
 
 def test_infer_cache_keys_the_cpsam_knobs():

@@ -20,7 +20,7 @@ from bioengine_tpu.models import get_model as jax_get_model
 from bioengine_tpu.runtime.engine import EngineConfig as JaxEngineConfig
 from bioengine_tpu.runtime.engine import InferenceEngine as JaxEngine
 from bioengine_tpu.runtime.program_cache import CompiledProgramCache as JaxCache
-from _torch_parity import seeded_flax_params
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu_torch.models import registry
 from bioengine_tpu_torch.runtime import convert
 from bioengine_tpu_torch.runtime.buckets import (

@@ -29,7 +29,7 @@ import yaml
 from bioengine_tpu.models.unet import UNet2D as JaxUNet2D
 from bioengine_tpu.models.unet3d import UNet3D as JaxUNet3D
 from bioengine_tpu.runtime.convert import flatten_params, save_params_npz
-from _torch_parity import seeded_flax_params
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu_torch.apps.model_runner.runtime import (
     Pipeline,
     RuntimeDeployment,
@@ -242,17 +242,42 @@ def test_test_report_is_cached_on_weight_mtimes(packages):
 
 
 def test_torch_weight_formats_are_not_ported_yet(tmp_path):
+    """The zoo's torch formats are served now (``tests/test_torch_model_zoo.py``
+    holds them against the JAX runtime): a ``pytorch_state_dict`` entry
+    without an architecture is refused by name, and ``test`` reports it;
+    with one, the package is served on the ``"torch"`` backend."""
     (tmp_path / "weights.pt").write_bytes(b"")
-    (tmp_path / "rdf.yaml").write_text(yaml.safe_dump({
+    rdf = {
         "type": "model", "name": "Torch Square",
         "inputs": [{"name": "input0", "axes": "byxc"}],
         "outputs": [{"name": "output0", "axes": "byxc"}],
         "weights": {"pytorch_state_dict": {"source": "weights.pt"}},
-    }))
-    with pytest.raises(NotImplementedError, match="A6"):
+    }
+    (tmp_path / "rdf.yaml").write_text(yaml.safe_dump(rdf))
+    with pytest.raises(ValueError, match="without architecture"):
         Pipeline(tmp_path, device="cpu")
     report = asyncio.run(RuntimeDeployment(device="cpu").test(str(tmp_path)))
-    assert report["status"] == "failed" and "A6" in report["error"]
+    assert report["status"] == "failed" and "without architecture" in report["error"]
+
+    (tmp_path / "arch.py").write_text(
+        "import torch\n"
+        "class SquareNet(torch.nn.Module):\n"
+        "    def __init__(self, scale=1.0):\n"
+        "        super().__init__()\n"
+        "        self.scale = torch.nn.Parameter(torch.tensor(float(scale)))\n"
+        "    def forward(self, x):\n"
+        "        return x * x * self.scale\n"
+    )
+    torch.save({"scale": torch.tensor(2.0)}, tmp_path / "weights.pt")
+    rdf["weights"]["pytorch_state_dict"]["architecture"] = "arch.py:SquareNet"
+    (tmp_path / "rdf.yaml").write_text(yaml.safe_dump(rdf))
+    pipe = Pipeline(tmp_path, device="cpu")
+    try:
+        assert pipe.backend == "torch" and pipe.weights_format == "pytorch_state_dict"
+        out = pipe.predict(np.full((1, 8, 8, 1), 3.0, np.float32))["output0"]
+        np.testing.assert_array_equal(out, np.full((1, 8, 8, 1), 18.0, np.float32))
+    finally:
+        pipe.close()
 
 
 def test_normalize_oom():

@@ -11,6 +11,7 @@ import torch
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
+from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeployment
 from bioengine_tpu_torch.models.cellpose import CellposeConfig, create_model_and_state
 from bioengine_tpu_torch.models.registry import list_models
@@ -18,6 +19,7 @@ from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.ops.flows import masks_from_flows
 from bioengine_tpu_torch.runtime.devices import resolve_device, resolve_devices
 from bioengine_tpu_torch.runtime.engine import InferenceEngine
+from bioengine_tpu_torch.runtime.torch_runner import TorchRunner
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu"}
@@ -50,6 +52,10 @@ def test_port_files_exist():
     assert {"flows.py", "cellpose.py"} <= names
     # slice 4: the transformer backbones
     assert {"sam.py", "cellpose_sam.py"} <= names
+    # slice 5: StarDist, the zoo's torch formats, the entry deployment
+    assert {"stardist.py", "torch_runner.py", "entry.py"} <= names
+    assert (REPO / "bioengine_tpu_torch" / "ops" / "stardist.py").is_file()
+    assert (REPO / "bioengine_tpu_torch" / "models" / "stardist.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "apps" / "cellpose_finetuning" / "service.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "csrc" / "flash_attn_fwd.cu").is_file()
 
@@ -116,3 +122,19 @@ def test_finetuning_entry_points_raise_without_cuda(no_cuda, tmp_path):
             masks_from_flows(np.zeros((2, 8, 8), np.float32), np.ones((8, 8), np.float32), device=device)
     assert CellposeFinetune(sessions_root=str(tmp_path / "sessions"), device="cpu").device.type == "cpu"
     assert "cellpose" in list_models()
+
+
+def test_zoo_entry_points_raise_without_cuda(no_cuda, tmp_path, monkeypatch):
+    monkeypatch.setenv("BIOENGINE_LOCAL_MODEL_PATH", str(tmp_path))
+    module = torch.nn.Identity()
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TorchRunner(module=module, device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            EntryDeployment(cache_dir=str(tmp_path / "cache"), device=device)
+    runner = TorchRunner(module=module, device="cpu")
+    assert runner.device.type == "cpu"
+    runner.close()
+    entry = EntryDeployment(cache_dir=str(tmp_path / "cache"), device="cpu")
+    assert entry.runtime_deployment.backend == "cpu"
+    assert "stardist2d" in list_models()

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from bioengine_tpu.models import get_model as jax_get_model
 from bioengine_tpu.runtime import convert as jax_convert
-from _torch_parity import seeded_flax_params
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu_torch.models import registry
 from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.models.unet3d import UNet3D

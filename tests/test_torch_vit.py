@@ -16,7 +16,7 @@ import torch
 from bioengine_tpu.models.vit import ViT as JaxViT
 from bioengine_tpu.ops.pallas.attention import make_attn_fn as jax_make_attn_fn
 from bioengine_tpu.runtime import convert as jax_convert
-from _torch_parity import seeded_flax_params
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu_torch.models import registry
 from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops.attention import make_attn_fn
@@ -143,14 +143,16 @@ def test_reset_parameters_is_seeded():
 
 
 def test_registry():
+    # every name of the JAX registry
     assert registry.list_models() == [
-        "cellpose", "cellpose-sam", "cpsam", "unet2d", "unet3d", "vit-b14", "vit-s14",
+        "cellpose", "cellpose-sam", "cpsam", "stardist2d", "unet2d", "unet3d", "vit-b14", "vit-s14",
     ]
     small = registry.get_model("vit-s14", depth=1, img_size=28)
     assert small.dim == 384 and small.block0.attn.num_heads == 6
     assert registry.get_model("vit-b14", depth=1, img_size=28).dim == 768
-    with pytest.raises(KeyError):
-        registry.get_model("stardist2d")  # not ported yet (ROADMAP A8d)
+    assert registry.get_model("stardist2d").n_rays == 32
+    with pytest.raises(KeyError, match="Available"):
+        registry.get_model("no-such-model")
 
 
 def test_rejects_other_image_sizes():
