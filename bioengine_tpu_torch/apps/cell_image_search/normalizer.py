@@ -4,8 +4,8 @@ A copy of ``apps/cell-image-search/normalizer.py``: uint8/uint16/float
 inputs, 1-5 channel fluorescence, percentile stretch, 5-channel Cell
 Painting → RGB composite, ImageNet scaling. Pure numpy on the host; the
 model consumes the (B, 224, 224, 3) float32 output (NHWC, as the JAX
-model takes it). A resize needs Pillow, which the main path's 224² crops
-never call for.
+model takes it). A resize and ``decode_image_bytes`` need Pillow, which the
+main path's 224² crops never call for; without it they raise a clear error.
 """
 
 from __future__ import annotations
@@ -100,3 +100,18 @@ def to_model_input(img: np.ndarray, size: int = 224) -> np.ndarray:
     rgb = resize_rgb(to_rgb_uint8(img), size)
     x = rgb.astype(np.float32) / 255.0
     return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """PNG/JPEG/TIFF bytes → numpy array (any dtype/channels)."""
+    import io
+
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise RuntimeError(
+            "decoding image bytes needs Pillow, which is not installed; "
+            "pass the image as an array"
+        ) from exc
+
+    return np.asarray(Image.open(io.BytesIO(data)))

@@ -15,9 +15,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    synthetic fields, builds a FlatIP index and answers ping,
    get_index_stats and 8 searches, with the kernels' launch counts read
    around it and the embeddings held against the plain attention path;
-5. the device time of one bucket forward through the kernel and through
+5. cell-image-search at corpus scale (slice 6), ``phase_index``: the app
+   at the same width registers a synthetic dataset of 8 896^2 fields,
+   ingests it in a background session (FlatIP), stops a second session of
+   64 fields, lists sessions and datasets, removes one, computes the 2-D
+   map, projects a query and answers 8 searches with their
+   ``query_projection`` (a corpus crop must come back first); then a seeded
+   1M x 768 mixture of 10,000 components with 64 perturbed queries and
+   exact f32 top-10 on the card: ``build_index`` IVFFlat over 200K (nlist
+   447; k-means, sort and save seconds, npz size) reloaded and served by
+   the app, IVFFlat nlist 1000 and IVFPQ nlist 4096 over 1M (training
+   seconds on the card, host search ms at Q = 1 and 64, recall@10 held
+   to floors), the card's nearest-centroid assignment and one Lloyd update
+   against the CPU's on a 20K-row sample and two k-means fits on the card
+   bit for bit, ``build_index`` of the 1M rows
+   for a 20M-cell target and of 5M real rows, which must both pick
+   ``PQFlatTPU`` on the card with the same peak device memory (training
+   takes 1M rows, encoding streams chunks); the 1M build's codes plus
+   seeded uniform ones make 20M codes (1.92 GB) on the card: scan ms at
+   Q = 1 and per 26-query chunk against the bytes bound, scores against
+   the numpy ADC sums within 1e-5, self ranks, recall floor, peak memory;
+   the attention kernel's count read around the phase;
+6. the device time of one bucket forward through the kernel and through
    the plain attention, in turns;
-6. the model-runner path (slice 2): ``jax_params`` packages written here
+7. the model-runner path (slice 2): ``jax_params`` packages written here
    from seeded weights (UNet2D at the registry's width (32, 64, 128, 256),
    UNet3D (16, 32, 64) with z strides (1, 2)) served through
    ``RuntimeDeployment`` on the card: ``test``, a 512^2 request, a batch
@@ -29,7 +50,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    request builds none, and that a streamed-weights package gives the
    eager one's output; prints request times, megapixels/s, graph-capture
    seconds, pipeline stage seconds, peak memory and a profiler top-10;
-7. the cellpose fine-tuning path (slice 3): ``CellposeFinetune`` trains
+8. the cellpose fine-tuning path (slice 3): ``CellposeFinetune`` trains
    ``CellposeNet`` (32, 64, 128, 256) in bf16 for 3 epochs at 8 x 256^2 on
    16 synthetic 512^2 fields of ellipse cells (loss must fall); a train
    step timed with CUDA events and profiled; one f32 step (TF32 off) on
@@ -39,7 +60,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    on a 32 x 256^2 stack at anisotropy 1 and 2; ``export_model`` served by
    ``RuntimeDeployment`` against ``_predict_raw``; one ``cellpose`` JSON
    line of the numbers;
-8. the transformer backbones (slice 4): a torch-layout cpsam checkpoint at
+9. the transformer backbones (slice 4): a torch-layout cpsam checkpoint at
    the published ViT-L shape (~303 M parameters, seeded, scaled to flax's
    initialiser scales) converted by ``convert_checkpoint``; ``CellposeFinetune``
    fine-tunes ``"cpsam"`` from it at the app's defaults (8 x 256^2, bf16,
@@ -50,7 +71,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and ``infer_3d`` on 32 x 256^2, the export served by
    ``RuntimeDeployment`` against ``_predict_raw``; the attention kernel's
    count stays 0; one ``cellpose_cpsam`` and one ``cellpose_sam`` JSON line;
-9. StarDist and the zoo's torch formats (slice 5): ``CellposeFinetune``
+10. StarDist and the zoo's torch formats (slice 5): ``CellposeFinetune``
    trains ``"stardist"`` (StarDist2D (32, 64, 128, 256), 32 rays, bf16, lr
    1e-4) for 3 epochs at 8 x 256^2 on the 16 fields (loss must fall); a
    step timed and profiled; the f32 step on the card against the CPU;
@@ -64,8 +85,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    held against the module on the CPU (f32, TF32 off inside the runner);
    request ms, load s and peak memory; the attention kernel's count
    stays 0; one ``zoo`` JSON line;
-10. one JSON line of the kernels' numbers;
-11. the result line ``{"ok": true, "device": {...}}``, printed last.
+11. one JSON line of the kernels' numbers;
+12. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -89,7 +110,14 @@ import torch.nn.functional as F
 from scipy import ndimage
 
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
-from bioengine_tpu_torch.apps.cell_image_search.index import build_index
+from bioengine_tpu_torch.apps.cell_image_search.index import (
+    IVFFLAT_MAX_CELLS,
+    IVFFlatIndex,
+    IVFPQIndex,
+    PQFlatIndex,
+    build_index,
+    load_index,
+)
 from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
     extract_cell_crops,
     make_synthetic_images,
@@ -110,6 +138,8 @@ from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.models.unet3d import UNet3D
 from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops import _build, attention
+from bioengine_tpu_torch.ops import kmeans
+from bioengine_tpu_torch.ops.knn import pq_scan_topk, topk_inner_product
 from bioengine_tpu_torch.ops.flows import (
     FLOW_SCALE,
     aggregate_orthogonal_flows,
@@ -325,9 +355,9 @@ def phase_kernels(card: str) -> dict:
     return main
 
 
-def synthetic_crops(seed: int, n_fields: int) -> list[np.ndarray]:
+def synthetic_crops(seed: int, n_fields: int, size: int = 896) -> list[np.ndarray]:
     crops = []
-    for _, field in make_synthetic_images(n_images=n_fields, size=896, seed=seed):
+    for _, field in make_synthetic_images(n_images=n_fields, size=size, seed=seed):
         crops += extract_cell_crops(field, crop_size=224, n_crops=50)
     return crops
 
@@ -429,6 +459,440 @@ def phase_main_path(card: str) -> int:
           f"(min {ms.min():.2f}, max {ms.max():.2f}); service embed/search ms {svc_ms}")
     print(f"[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+# ---- slice 6: cell-image-search at corpus scale ------------------------------
+
+INGEST_IMAGES = 8  # synthetic 896^2 fields of the ingested dataset
+INGEST_IMAGE_SIZE = 896
+STOP_IMAGES = 64  # the dataset whose session is stopped
+INDEX_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
+INDEX_N = 1_000_000  # corpus vectors, 768 wide
+INDEX_DIM = 768
+INDEX_CLUSTERS = 10_000  # mixture components the corpus is drawn from
+INDEX_SPREAD = 1.0  # noise norm around a component's unit centre
+INDEX_QUERIES = 64
+QUERY_SPREAD = 0.1  # noise norm of a query around its corpus vector
+INDEX_IVF_ROWS = 200_000  # the build_index IVFFlat corpus (nlist 447)
+IVFFLAT_NLIST, IVFFLAT_NPROBE = 1000, 16
+IVFPQ_NLIST = 4096
+PQ_TOTAL = 20_000_000  # codes on the card: the real ones plus seeded uniform codes
+PQ_SELF_QUERIES = 8
+RECALL_K = 10
+# the card's PQ scan against the numpy ADC sums of the JAX class's search
+PQ_SCORE_TOL = 1e-5
+# recall@10 floors on the 1M mixture, set under the first readings on the
+# card (0.905, 0.416-0.419, 0.498-0.500; PERF.md): a wrong assignment or
+# update in training shows as lost recall
+RECALL_FLOOR = {"ivfflat": 0.85, "ivfpq": 0.35, "pqflat": 0.45}
+# the card's k-means against the CPU's: sample rows, seeded centres among
+# them, two nearest squared distances closer than KMEANS_TIE_TOL are a
+# tie, updated centres within KMEANS_TOL
+KMEANS_ROWS, KMEANS_CENTRES = 20_000, 1000
+KMEANS_TIE_TOL, KMEANS_TOL = 1e-6, 1e-5
+# build_index of PQ_BUILD_ROWS real rows, the least corpus whose codes stay
+# on the card; its peak device memory may exceed the 1M build's (both train
+# on 1M rows) by PQ_MEMORY_SLACK at most: every row on the card in f32
+# twice with its labels and distances would add ~7 KB a row, 28 GB
+PQ_BUILD_ROWS = IVFFLAT_MAX_CELLS
+PQ_MEMORY_SLACK = 64 << 20
+INDEX_TIMEOUT_S = 900
+
+
+def mixture_corpus(n: int, d: int, n_clusters: int, seed: int, device: str) -> torch.Tensor:
+    """(n, d) f32 unit rows, each a unit centre of one of ``n_clusters``
+    seeded components plus isotropic noise of norm ~INDEX_SPREAD, drawn on
+    ``device`` from a seeded generator: neighbours exist, so recall means
+    something."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    centres = torch.randn((n_clusters, d), generator=g, device=device)
+    centres /= centres.norm(dim=1, keepdim=True)
+    which = torch.randint(n_clusters, (n,), generator=g, device=device)
+    x = centres[which]
+    x += torch.randn((n, d), generator=g, device=device) * (INDEX_SPREAD / d ** 0.5)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def recall_at_k(found: np.ndarray, truth: np.ndarray) -> float:
+    k = truth.shape[1]
+    return float(np.mean([len(set(f[:k]) & set(t)) / k for f, t in zip(found, truth)]))
+
+
+async def _poll_session(svc: CellImageSearch, sid: str, until) -> dict:
+    deadline = time.time() + INDEX_TIMEOUT_S
+    while True:
+        status = await svc.get_ingestion_status(session_id=sid)
+        if until(status):
+            return status
+        check(time.time() < deadline, f"session {sid}: {status}")
+        await asyncio.sleep(0.1)
+
+
+async def drive_index_service(svc: CellImageSearch, queries) -> dict:
+    """The app's own flow: register, ingest in the background, stop a second
+    session, list, map, search; returns what the checks need."""
+    r: dict = {}
+    done = ("completed", "failed", "stopped")
+    await svc.async_init()
+    await svc.add_dataset("demo", source="synthetic", n_images=INGEST_IMAGES,
+                          image_size=INGEST_IMAGE_SIZE)
+    t0 = time.perf_counter()
+    await svc.start_ingestion("demo", session_id="demo")
+    r["demo"] = await _poll_session(svc, "demo", lambda s: s["status"] in done)
+    r["t_ingest"] = time.perf_counter() - t0
+    r["stats"] = await svc.get_index_stats()
+
+    await svc.add_dataset("stopme", source="synthetic", n_images=STOP_IMAGES,
+                          image_size=INGEST_IMAGE_SIZE)
+    await svc.start_ingestion("stopme", session_id="stopme")
+    r["before_stop"] = await _poll_session(
+        svc, "stopme", lambda s: s["status"] in done or s.get("n_embedded", 0) > 0)
+    r["stop"] = await svc.stop_ingestion("stopme")
+    r["stopped"] = await _poll_session(svc, "stopme", lambda s: s["status"] in done)
+    r["sessions"] = await svc.get_active_sessions()
+    r["datasets"] = await svc.list_datasets()
+    r["removed"] = await svc.remove_dataset("stopme")
+    r["datasets_after"] = await svc.list_datasets()
+
+    t0 = time.perf_counter()
+    r["preview"] = await svc.get_umap_preview()
+    r["t_preview"] = time.perf_counter() - t0
+    r["projected"] = await svc.project_query_onto_umap(queries[0])
+    r["found"], r["search_ms"] = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        r["found"].append(await svc.search(image=q, top_k=TOP_K))
+        r["search_ms"].append((time.perf_counter() - t0) * 1e3)
+    return r
+
+
+def check_index_service(card: str, r: dict, crops, probe: int) -> None:
+    demo, stats = r["demo"], r["stats"]
+    check(demo["status"] == "completed", f"ingestion session: {demo}")
+    check(demo["n_embedded"] == len(crops), f"{demo['n_embedded']} embedded, {len(crops)} crops")
+    check(stats["loaded"] and stats["index_type"] == "FlatIP" and stats["n_cells"] == len(crops),
+          f"stats {stats}")
+    before = r["before_stop"]
+    check(before["status"] == "running" and before["n_embedded"] > 0,
+          f"the second session before its stop: {before}")
+    check(r["stop"]["stop_requested"], f"stop_ingestion: {r['stop']}")
+    check(r["stopped"]["status"] == "stopped", f"stopped session: {r['stopped']}")
+    check(set(r["sessions"]) == {"demo", "stopme"}, f"sessions {sorted(r['sessions'])}")
+    check({d["name"] for d in r["datasets"]["registered"]} == {"demo", "stopme"}, "registry")
+    check(r["removed"] == {"removed": True}, f"remove_dataset: {r['removed']}")
+    check([d["name"] for d in r["datasets_after"]["registered"]] == ["demo"], "registry after remove")
+    preview = r["preview"]
+    check(preview["n_total"] == len(crops) and len(preview["x"]) == len(crops)
+          and np.isfinite(preview["x"]).all() and np.isfinite(preview["y"]).all(),
+          f"preview of {preview['n_total']} cells")
+    check(set(r["projected"]) == {"x", "y"}, f"projection {r['projected']}")
+    for i, found in enumerate(r["found"]):
+        scores = [x["score"] for x in found["results"]]
+        check(found["n_results"] == TOP_K and scores == sorted(scores, reverse=True),
+              f"search {i}: {found['n_results']} results")
+        proj = found["query_projection"]
+        check(proj is not None and np.isfinite([proj["x"], proj["y"]]).all(),
+              f"search {i}: query_projection {proj}")
+    top = r["found"][0]["results"][0]
+    check(top["index_id"] == probe and top["image"] == "synthetic_0000" and top["crop"] == probe
+          and top["score"] >= 0.99, f"corpus crop {probe} came back as {top}")
+    pos, first = r["projected"], r["found"][0]["query_projection"]
+    check(abs(pos["x"] - first["x"]) + abs(pos["y"] - first["y"]) <= 1e-3,
+          f"project_query_onto_umap {pos} vs search {first}")
+    ms = np.array(r["search_ms"])
+    print(f"[{card}] index service: ingested {demo['n_embedded']} crops of {INGEST_IMAGES} "
+          f"{INGEST_IMAGE_SIZE}^2 fields in {r['t_ingest']:.3f} s (session {demo['elapsed_seconds']} s, "
+          f"{demo['throughput_per_sec']} crops/s, FlatIP); stopped session at "
+          f"{r['stopped']['n_embedded']} of ~{STOP_IMAGES * 50} crops; preview "
+          f"{r['t_preview']:.3f} s; search {ms.mean():.2f} ms mean over {len(ms)} "
+          f"(min {ms.min():.2f}, max {ms.max():.2f}) with query_projection")
+
+
+def index_corpus_scale(card: str, svc: CellImageSearch, workspace: str, query_image,
+                       device: str) -> dict:
+    """The four index kinds over a seeded 1M x 768 mixture: builds timed,
+    searches timed against exact f32 top-10 on the device, the PQ scan held
+    against the numpy ADC and read at 20M codes."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    emb_dev = mixture_corpus(INDEX_N, INDEX_DIM, INDEX_CLUSTERS, SEED, device)
+    emb = emb_dev.cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    qids = rng.choice(INDEX_N, size=INDEX_QUERIES, replace=False)
+    q = emb[qids] + QUERY_SPREAD * rng.standard_normal((INDEX_QUERIES, INDEX_DIM)).astype(
+        np.float32) / INDEX_DIM ** 0.5
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    _, truth = topk_inner_product(emb_dev, torch.from_numpy(q).to(device), RECALL_K)
+    truth = truth.cpu().numpy()
+    del emb_dev
+    out["t_data"] = time.perf_counter() - t0
+    check(np.mean(truth[:, 0] == qids) >= 0.99, "perturbed queries lost their own vector")
+    print(f"[{card}] index corpus: {INDEX_N} x {INDEX_DIM} f32 unit vectors from {INDEX_CLUSTERS} "
+          f"seeded components, {INDEX_QUERIES} perturbed queries, exact top-{RECALL_K} on the "
+          f"device; {out['t_data']:.3f} s")
+
+    # IVFFlat through build_index, served by the app after a reload
+    n_ivf = min(INDEX_IVF_ROWS, INDEX_N)
+    rows = [{"crop": j} for j in range(n_ivf)]
+    stats = build_index(emb[:n_ivf], rows, workspace, n_cells_total=INDEX_IVF_ROWS, device=device)
+    check(stats["index_type"] == "IVFFlat", f"build_index at {INDEX_IVF_ROWS}: {stats}")
+
+    async def reload_and_search():
+        await svc.async_init()
+        return await svc.get_index_stats(), await svc.search(image=query_image, top_k=TOP_K)
+
+    served_stats, served = asyncio.run(reload_and_search())
+    check(served_stats["index_type"] == "IVFFlat" and served_stats["n_cells"] == n_ivf,
+          f"served stats {served_stats}")
+    check(served["n_results"] == TOP_K, f"served search: {served['n_results']} results")
+    out["build_index_ivfflat"] = {k: stats[k] for k in ("build_seconds", "index_size_mb",
+                                                        "build_split_seconds")}
+    print(f"[{card}] build_index IVFFlat over {n_ivf}: nlist "
+          f"{len(svc._index.centroids)}, {stats['build_seconds']:.3f} s "
+          f"{json.dumps(stats['build_split_seconds'])}, npz {stats['index_size_mb']:.1f} MB; "
+          f"served search {served['search_ms']} ms (embed {served['embed_ms']} ms)")
+
+    # IVFFlat over the whole corpus
+    ivf = IVFFlatIndex.build(emb, IVFFLAT_NLIST, nprobe=IVFFLAT_NPROBE, device=device)
+    _, ms1 = _host_ms(lambda: [ivf.search(qq, RECALL_K) for qq in q])
+    (_, ids), ms64 = _host_ms(lambda: ivf.search(q, RECALL_K))
+    out["ivfflat"] = {**ivf.build_info, "search_ms_q1": ms1 / INDEX_QUERIES,
+                      "search_ms_q64": ms64, "recall_at_10": recall_at_k(ids, truth)}
+    del ivf
+    print(f"[{card}] IVFFlat nlist {IVFFLAT_NLIST} nprobe {IVFFLAT_NPROBE} over {INDEX_N}: "
+          f"{json.dumps(out['ivfflat'])}")
+    check_recall("ivfflat", out["ivfflat"]["recall_at_10"])
+
+    # IVFPQ over the whole corpus
+    ivfpq = IVFPQIndex.build(emb, IVFPQ_NLIST, device=device)
+    _, ms1 = _host_ms(lambda: [ivfpq.search(qq, RECALL_K) for qq in q])
+    (_, ids), ms64 = _host_ms(lambda: ivfpq.search(q, RECALL_K))
+    out["ivfpq"] = {**ivfpq.build_info, "search_ms_q1": ms1 / INDEX_QUERIES,
+                    "search_ms_q64": ms64, "recall_at_10": recall_at_k(ids, truth)}
+    del ivfpq
+    print(f"[{card}] IVFPQ nlist {IVFPQ_NLIST} nprobe 32, 96 x 8 bits over {INDEX_N}: "
+          f"{json.dumps(out['ivfpq'])}")
+    check_recall("ivfpq", out["ivfpq"]["recall_at_10"])
+    out["kmeans_vs_cpu"] = kmeans_card_vs_cpu(card, emb, device)
+    out["pqflat"] = pqflat_at_scale(card, emb, q, qids, truth, workspace, device)
+    return out
+
+
+def check_recall(kind: str, recall: float) -> None:
+    check(recall >= RECALL_FLOOR[kind], f"{kind} recall@10 {recall} under {RECALL_FLOOR[kind]}")
+
+
+def _clear_of_ties(x: np.ndarray, centres: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(nearest centre of each row, whether its two nearest squared
+    distances differ by more than KMEANS_TIE_TOL), in float64 on the host."""
+    x64, c64 = x.astype(np.float64), centres.astype(np.float64)
+    d2 = (x64 * x64).sum(1)[:, None] - 2 * x64 @ c64.T + (c64 * c64).sum(1)[None]
+    two = np.partition(d2, 1, axis=1)[:, :2]
+    return d2.argmin(1), two[:, 1] - two[:, 0] > KMEANS_TIE_TOL
+
+
+def kmeans_card_vs_cpu(card: str, emb: np.ndarray, device: str) -> dict:
+    """The card's nearest-centroid labels against float64 argmins, one
+    Lloyd update from the same seeded centres against the CPU's, ties
+    aside, and two k-means fits on the card bit for bit: what the builds'
+    training runs on, checked directly."""
+    rng = np.random.default_rng(SEED + 3)
+    x = emb[np.sort(rng.choice(len(emb), size=KMEANS_ROWS, replace=False))]
+    centres = x[np.sort(rng.choice(KMEANS_ROWS, size=KMEANS_CENTRES, replace=False))]
+    want, clear = _clear_of_ties(x, centres)
+    got = {}
+    for where in (device, "cpu"):
+        xt = torch.from_numpy(x).to(where)[None]
+        ct = torch.from_numpy(centres).to(where)[None]
+        labels = kmeans.nearest_centroids(xt, ct)[0][0].cpu().numpy()
+        got[where] = labels, kmeans.lloyd_step(xt, ct)[0].cpu().numpy()
+    labels, new = got[device]
+    cpu_labels, cpu_new = got["cpu"]
+    # a build is the same on every run: k-means twice on the device
+    xt = torch.from_numpy(x).to(device)[None]
+    fits = [kmeans.fit(xt, KMEANS_CENTRES, [SEED]).cpu().numpy() for _ in range(2)]
+    check(np.array_equal(*fits), f"k-means on {device} differs between two runs")
+    del xt
+    wrong = int((labels[clear] != want[clear]).sum())
+    check(clear.mean() > 0.99 and wrong == 0,
+          f"nearest_centroids on {device}: {wrong} of {int(clear.sum())} clear rows off the argmin")
+    check(np.array_equal(cpu_labels[clear], want[clear]), "nearest_centroids on the CPU")
+    # clusters no tied row joins have the same members on both sides
+    touched = np.zeros(KMEANS_CENTRES, bool)
+    touched[labels[~clear]] = touched[cpu_labels[~clear]] = True
+    err = float(np.abs(new[~touched] - cpu_new[~touched]).max())
+    check(err <= KMEANS_TOL, f"Lloyd update on {device} vs the CPU: {err}")
+    r = {"rows": KMEANS_ROWS, "centres": KMEANS_CENTRES, "ties": int((~clear).sum()),
+         "label_mismatches": wrong, "lloyd_max_abs_err": err}
+    print(f"[{card}] k-means on {device} vs the CPU over {KMEANS_ROWS} x {INDEX_DIM} rows and "
+          f"{KMEANS_CENTRES} seeded centres: {json.dumps(r)}")
+    return r
+
+
+def _build_peak(device: str, build) -> tuple[dict, int]:
+    """(build(), its peak device bytes above what was allocated before)."""
+    _release(device)
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    stats = build()
+    _sync(device)
+    return stats, (torch.cuda.max_memory_allocated() - base if device == "cuda" else 0)
+
+
+def build_index_at_threshold(card: str, emb: np.ndarray, workspace: str, device: str,
+                             peak_1m: int) -> dict:
+    """build_index of PQ_BUILD_ROWS real rows (the corpus's, then seeded
+    mixture parts drawn on the device): the kind, the split and a peak
+    device memory no larger than the 1M build's, since both train on 1M
+    rows and the encoding streams chunks."""
+    n = max(PQ_BUILD_ROWS, len(emb))
+    t0 = time.perf_counter()
+    big = np.empty((n, INDEX_DIM), np.float32)
+    big[: len(emb)] = emb
+    for i, r0 in enumerate(range(len(emb), n, len(emb))):
+        r1 = min(n, r0 + len(emb))
+        big[r0:r1] = mixture_corpus(r1 - r0, INDEX_DIM, INDEX_CLUSTERS, SEED + 10 + i,
+                                    device).cpu().numpy()
+    rows = [{"crop": j} for j in range(n)]
+    t_data = time.perf_counter() - t0
+    # n itself at full size; the smallest target that selects a PQ kind
+    target = max(n, IVFFLAT_MAX_CELLS)
+    stats, peak = _build_peak(device, lambda: build_index(
+        big, rows, os.path.join(workspace, "pq_threshold"), n_cells_total=target, device=device))
+    del big, rows
+    want = "PQFlatTPU" if device == "cuda" else "IVFPQ"
+    check(stats["index_type"] == want and stats["n_cells"] == n,
+          f"build_index of {n} rows on {device}: {stats}")
+    check(peak - peak_1m <= PQ_MEMORY_SLACK,
+          f"build_index peak {peak} B at {n} rows, {peak_1m} B at {len(emb)}")
+    r = {"rows": n, "data_s": t_data, "build_seconds": stats["build_seconds"],
+         "build_split_seconds": stats["build_split_seconds"], "npz_mb": stats["index_size_mb"],
+         "peak_bytes": peak, "peak_bytes_1m": peak_1m}
+    print(f"[{card}] build_index of {n} real rows ({t_data:.3f} s to draw): "
+          f"{stats['index_type']}, {stats['build_seconds']:.3f} s "
+          f"{json.dumps(stats['build_split_seconds'])}, npz {stats['index_size_mb']:.1f} MB; "
+          f"peak device memory {peak / 2**30:.3f} GiB above the baseline against "
+          f"{peak_1m / 2**30:.3f} GiB at {len(emb)} rows ({peak - peak_1m} B more)")
+    return r
+
+
+def pqflat_at_scale(card: str, emb, q, qids, truth, workspace: str, device: str) -> dict:
+    """build_index of the corpus's rows for a 20M-cell target (the card
+    keeps the codes), then the scan over those codes padded to 20M."""
+    rows = [{"crop": j} for j in range(len(emb))]
+    pq_ws = os.path.join(workspace, "pq")
+    stats, peak = _build_peak(device, lambda: build_index(
+        emb, rows, pq_ws, n_cells_total=PQ_TOTAL, device=device))
+    want = "PQFlatTPU" if device == "cuda" else "IVFPQ"
+    check(stats["index_type"] == want, f"build_index at {PQ_TOTAL} on {device}: {stats}")
+    out = {"build_index": stats["build_split_seconds"], "build_index_seconds": stats["build_seconds"],
+           "npz_mb": stats["index_size_mb"], "build_index_rows": stats["n_cells"],
+           "build_peak_bytes": peak}
+    print(f"[{card}] build_index of {stats['n_cells']} rows for {PQ_TOTAL} cells: "
+          f"{stats['index_type']}, {stats['build_seconds']:.3f} s "
+          f"{json.dumps(stats['build_split_seconds'])}, npz {stats['index_size_mb']:.1f} MB, "
+          f"peak device memory {peak / 2**30:.3f} GiB above the baseline")
+    out["threshold"] = build_index_at_threshold(card, emb, workspace, device, peak)
+    if device == "cuda":
+        real, _, _ = load_index(pq_ws, device)
+        out.update(pqflat_scan(card, real, emb, q, qids, truth, device))
+    return out
+
+
+def pqflat_scan(card: str, real: PQFlatIndex, emb, q, qids, truth, device: str) -> dict:
+    """The PQ scan over ``real``'s codes padded with seeded uniform codes to
+    PQ_TOTAL: scores against the numpy ADC sums, self ranks, times against
+    the bytes bound, peak memory."""
+    n_real = real.ntotal
+    rng = np.random.default_rng(SEED + 7)
+    fill = np.frombuffer(rng.bytes((PQ_TOTAL - n_real) * real.M), np.uint8)
+    codes = np.concatenate([real.codes, fill.reshape(-1, real.M)])
+    big = PQFlatIndex(real.codebooks, codes, device=device)
+    del fill, codes
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes_t = big.codes_on_device()
+    _sync(device)
+    t_upload = time.perf_counter() - t0
+
+    # the card's scores on the real codes against the numpy ADC sums
+    s, ids = big.search(q[:2], RECALL_K)
+    offs = np.arange(real.M) * real.KSUB
+    for row in range(2):
+        lut = np.einsum("mkd,md->mk", real.codebooks, q[row].reshape(real.M, real.dsub)).ravel()
+        adc = lut[real.codes.astype(np.int32) + offs].sum(axis=1)
+        check(bool((ids[row] < n_real).all()), f"query {row}: a uniform code in the top {RECALL_K}")
+        err = float(np.abs(s[row] - adc[ids[row]]).max())
+        check(err <= PQ_SCORE_TOL, f"query {row}: card vs numpy ADC {err}")
+        ref = -np.sort(-adc)[:RECALL_K]
+        check(float(np.abs(s[row] - ref).max()) <= PQ_SCORE_TOL,
+              f"query {row}: top scores {s[row]} vs {ref}")
+    # a corpus vector's own code ranks first among all of them
+    selves = qids[:PQ_SELF_QUERIES]
+    _, own = big.search(emb[selves], 1)
+    check(np.array_equal(own[:, 0], selves), f"self ranks: {own[:, 0]} for {selves}")
+
+    _, host_q1 = _host_ms(lambda: big.search(q[:1], RECALL_K), repeats=5)
+    (_, ids64), host_q64 = _host_ms(lambda: big.search(q, RECALL_K), repeats=2)
+    q_chunk = min(len(q), max(1, int(big.SCORE_BUDGET_BYTES // (big.ntotal * 4))))
+    luts = torch.from_numpy(np.einsum("mkd,qmd->qmk", big.codebooks,
+                                      q.reshape(len(q), big.M, big.dsub))).to(device)
+    dev_q1 = _device_ms(device, lambda: pq_scan_topk(luts[:1], codes_t, RECALL_K), iters=5)
+    dev_chunk = _device_ms(device, lambda: pq_scan_topk(luts[:q_chunk], codes_t, RECALL_K), iters=3)
+    n_chunks = -(-len(q) // q_chunk)
+    code_bytes = big.ntotal * big.M
+    bound_q1 = code_bytes / PEAK_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    r = {
+        "codes": big.ntotal, "code_bytes": code_bytes, "upload_s": t_upload, "q_chunk": q_chunk,
+        "host_ms_q1": host_q1, "host_ms_q64": host_q64, "host_ms_per_query_q64": host_q64 / len(q),
+        "device_ms_q1": dev_q1, "device_ms_chunk": dev_chunk,
+        "device_ms_per_query_chunked": dev_chunk / q_chunk,
+        "bound_ms_q1": bound_q1, "bound_ms_q64": n_chunks * bound_q1, "bound_by": "bytes",
+        "recall_at_10": recall_at_k(ids64, truth), "peak_gib": peak / 2**30,
+    }
+    print(f"[{card}] PQFlat scan over {big.ntotal} codes ({code_bytes / 1e9:.2f} GB on the device; "
+          f"{n_real} real + seeded uniform): {json.dumps(r)}")
+    print(f"[{card}] PQFlat scan bound: the codes read once per query chunk at "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s = {bound_q1:.4f} ms per chunk; Q=1 device "
+          f"{dev_q1:.3f} ms ({dev_q1 / bound_q1:.1f}x the bound), {q_chunk}-query chunk "
+          f"{dev_chunk:.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
+    check_recall("pqflat", r["recall_at_10"])
+    return r
+
+
+def phase_index(card: str, device: str = "cuda") -> dict:
+    """Slice 6: the app's ingestion sessions, registry, map and search at
+    ViT-B/14 width, then the four index kinds at corpus scale; the attention
+    kernel's count read around the whole phase."""
+    crops = synthetic_crops(SEED, INGEST_IMAGES, INGEST_IMAGE_SIZE)
+    probe = 5
+    queries = [crops[probe]] + synthetic_crops(SEED + 1, 1)[: N_SEARCHES - 1]
+    print(f"index phase: ViT {INDEX_VIT} (768 wide, 12 heads, 224^2, bf16), bucket {BUCKET}; "
+          f"ingestion of {INGEST_IMAGES} synthetic {INGEST_IMAGE_SIZE}^2 fields "
+          f"({len(crops)} crops); corpus {INDEX_N} x {INDEX_DIM}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_index_") as workspace:
+        svc = CellImageSearch(workspace_dir=workspace, batch_bucket=BUCKET, device=device,
+                              seed=SEED, model_overrides=INDEX_VIT)
+        attention.launch_count = 0
+        r = asyncio.run(drive_index_service(svc, queries))
+        check_index_service(card, r, crops, probe)
+        scale = index_corpus_scale(card, svc, workspace, queries[1], device)
+        launches = attention.launch_count
+        forwards = svc.embedder.forward_count
+    print(f"index phase: {forwards} bucket forwards, flash_attn_fwd launches {launches}")
+    if device == "cuda":
+        check(launches > 0, "the index phase launched no flash_attn_fwd kernel")
+        check(launches == svc.embedder.model_overrides.get("depth", VIT_DEPTH) * forwards,
+              f"{launches} launches for {forwards} forwards")
+    line = {"service_search_ms": r["search_ms"], "ingest_s": r["t_ingest"],
+            "ingested": r["demo"]["n_embedded"], "forwards": forwards,
+            "flash_attn_fwd_launches": launches, **scale, "card": card}
+    print("index " + json.dumps(line))
+    return {"launches": launches, **line}
 
 
 def phase_forward(card: str) -> dict:
@@ -977,10 +1441,12 @@ async def _timed_requests(device: str, calls: dict, repeats: int) -> dict:
     return out
 
 
-def _host_ms(fn) -> tuple[object, float]:
+def _host_ms(fn, repeats: int = 1) -> tuple[object, float]:
+    """(result of the last call, mean host ms) over ``repeats`` calls."""
     t0 = time.perf_counter()
-    result = fn()
-    return result, (time.perf_counter() - t0) * 1e3
+    for _ in range(repeats):
+        result = fn()
+    return result, (time.perf_counter() - t0) * 1e3 / repeats
 
 
 def time_cellpose_infer(card: str, svc: CellposeFinetune, fields: dict, device: str,
@@ -1700,6 +2166,7 @@ def main() -> int:
     ptxas = phase_build(card)
     main_case = phase_kernels(card)
     launches = phase_main_path(card)
+    index = phase_index(card)
     forward = phase_forward(card)
     model_runner = phase_model_runner(card)
     cellpose = phase_cellpose(card)
@@ -1714,6 +2181,7 @@ def main() -> int:
         "launches": launches,
         # slices 2-5 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
+                             "index": index["launches"],
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
                              "cellpose_transformers": transformers["launches"],

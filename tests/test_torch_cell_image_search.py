@@ -198,8 +198,12 @@ def test_index_persistence(tmp_path):
     assert results[0]["index_id"] == 42 and results[0]["score"] > 0.99
     assert results[0]["compound"] == "c0"
     assert len(port_index.search_index(idx, meta, emb[0], top_k=80)) == 50
-    with pytest.raises(NotImplementedError):
-        port_index.build_index(emb, rows, tmp_path, n_cells_total=200_000)
+    # 200K cells select IVFFlat, nlist capped at the 50 rows there are
+    stats = port_index.build_index(emb, rows, tmp_path, n_cells_total=200_000, device="cpu")
+    assert stats["index_type"] == "IVFFlat"
+    idx, meta, _ = port_index.load_index(tmp_path, device="cpu")
+    assert len(idx.centroids) == 50 and meta == rows
+    assert port_index.search_index(idx, meta, emb[42], top_k=5)[0]["index_id"] == 42
     with pytest.raises(ValueError):
         port_index.build_index(emb, rows[:-1], tmp_path)
     with pytest.raises(FileNotFoundError):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from bioengine_tpu_torch.apps.cell_image_search import index
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
@@ -16,13 +17,14 @@ from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeplo
 from bioengine_tpu_torch.models.cellpose import CellposeConfig, create_model_and_state
 from bioengine_tpu_torch.models.registry import list_models
 from bioengine_tpu_torch.models.unet import UNet2D
+from bioengine_tpu_torch.ops import kmeans
 from bioengine_tpu_torch.ops.flows import masks_from_flows
 from bioengine_tpu_torch.runtime.devices import resolve_device, resolve_devices
 from bioengine_tpu_torch.runtime.engine import InferenceEngine
 from bioengine_tpu_torch.runtime.torch_runner import TorchRunner
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu", "sklearn", "pandas"}
 PORT_FILES = sorted((REPO / "bioengine_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
@@ -58,6 +60,9 @@ def test_port_files_exist():
     assert (REPO / "bioengine_tpu_torch" / "models" / "stardist.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "apps" / "cellpose_finetuning" / "service.py").is_file()
     assert (REPO / "bioengine_tpu_torch" / "csrc" / "flash_attn_fwd.cu").is_file()
+    # slice 6: cell-image-search at corpus scale
+    assert {"kmeans.py", "knn.py", "index.py", "ingestion.py", "normalizer.py"} <= names
+    assert (REPO / "bioengine_tpu_torch" / "ops" / "kmeans.py").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -71,6 +76,7 @@ def test_import_walk_sees_forbidden_imports(tmp_path):
     probe.write_text(
         "import jax.numpy as jnp\nfrom flax import linen\nimport optax\n"
         "from bioengine_tpu.ops import knn\nimport bioengine_tpu_torch\n"
+        "from sklearn.cluster import MiniBatchKMeans\nimport pandas as pd\n"
     )
     assert _imported_top_levels(probe) & FORBIDDEN == FORBIDDEN
 
@@ -96,6 +102,43 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CellImageSearch(workspace_dir=str(tmp_path))
     assert ViTEmbedder(device="cpu").device.type == "cpu"
+
+
+def test_index_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """Every path that trains or searches on the device: k-means, the IVF
+    and PQ builds, build_index above the FlatIP size, the PQ scan's first
+    search, and through them the service's ingestion."""
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(64, 768)).astype(np.float32)
+    rows = [{"crop": j} for j in range(64)]
+    for device in (None, "cuda"):
+        calls = [
+            lambda: kmeans.kmeans(emb, 4, device=device),
+            lambda: index.IVFFlatIndex.build(emb, 4, device=device),
+            lambda: index.IVFPQIndex.build(emb, 4, device=device),
+            lambda: index.PQFlatIndex.build(emb, device=device),
+            lambda: index.build_index(emb, rows, tmp_path, 200_000, device=device),
+            lambda: index.build_index(emb, rows, tmp_path, 5_000_000, device=device),
+            lambda: index.select_index(5_000_000, 64, device),
+            lambda: index.PQFlatIndex(np.zeros((96, 256, 8), np.float32),
+                                      np.zeros((4, 96), np.uint8), device=device).search(emb[0], 1),
+            lambda: index.FlatIPIndex(emb, device=device).search(emb[0], 1),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    assert index.build_index(emb, rows, tmp_path)["index_type"] == "FlatIP"  # trains nothing
+    # the service's methods run on its device, which only "cpu" gives here
+    svc = CellImageSearch(workspace_dir=str(tmp_path / "ws"), device="cpu",
+                          model_overrides={"dim": 32, "depth": 1, "num_heads": 2})
+    assert svc.device.type == "cpu" and svc.embedder.device.type == "cpu"
+    # every method of the JAX app's CellImageSearch
+    tree = ast.parse((REPO / "apps" / "cell-image-search" / "main.py").read_text())
+    (jax_cls,) = [n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "CellImageSearch"]
+    methods = {f.name for f in jax_cls.body if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    assert {"start_ingestion", "get_umap_preview", "project_query_onto_umap"} <= methods
+    for method in methods:
+        assert callable(getattr(svc, method)), method
 
 
 def test_serving_entry_points_raise_without_cuda(no_cuda, tmp_path):
