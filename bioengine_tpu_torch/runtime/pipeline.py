@@ -14,10 +14,8 @@ buffers per (shape, dtype); for an engine on the card it hands out
 page-locked (pinned) buffers, numpy views of
 ``torch.empty(..., pin_memory=True)``, so host-to-device copies run
 asynchronously. ``DispatchExecutor`` is the async front door: one
-long-lived dispatch thread per engine.
-
-Left out of the copy: the process metrics registry that sums every
-``PipelineStats``.
+long-lived dispatch thread per engine. Every live ``PipelineStats``
+folds into the ``pipeline_*`` process metrics at scrape time.
 """
 
 from __future__ import annotations
@@ -31,6 +29,36 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+
+from bioengine_tpu_torch.utils import metrics
+
+
+def _collect_pipelines(instances: list) -> list:
+    """Fold every live PipelineStats into process totals for the metrics
+    plane: the same objects ``describe()`` reads per engine, summed to the
+    device-busy/overlap signal a scheduler wants per worker."""
+    fields = (
+        "runs", "chunks", "items", "cut_seconds", "put_seconds",
+        "dispatch_seconds", "compute_seconds", "readback_seconds",
+        "stitch_seconds", "wall_seconds",
+    )
+    totals = dict.fromkeys(fields, 0.0)
+    for st in instances:
+        with st._lock:
+            for f in fields:
+                totals[f] += getattr(st, f)
+    return [
+        metrics.Sample(
+            f"pipeline_{name}",
+            round(value, 4),
+            kind="counter",
+            help=f"overlapped-pipeline cumulative {name.replace('_', ' ')}",
+        )
+        for name, value in totals.items()
+    ]
+
+
+_PIPELINE_STATS = metrics.InstanceSet("pipeline_stats", _collect_pipelines)
 
 
 class PipelineStats:
@@ -62,6 +90,7 @@ class PipelineStats:
         self.max_in_flight = 0
         for name in self._FIELDS:
             setattr(self, name, 0)
+        _PIPELINE_STATS.add(self)
 
     def add(self, **deltas: float) -> None:
         with self._lock:

@@ -6,9 +6,11 @@ graph captured for one (model, bucket shape, dtype, placement) key, or on
 the CPU the module's forward. Keys are explicit so eviction, stats and
 warm-up stay controllable.
 
-Left out of the copy: the XLA persistent compile cache (so ``cache_hit``
-is always False and ``persistent_hits`` stays 0) and the metrics and
-flight-recorder registries.
+Builds and evictions leave ``program.compile`` / ``program.evict``
+flight events, and live caches fold into the ``program_cache_*`` metrics
+at scrape time, as in the JAX package. Left out of the copy: the XLA
+persistent compile cache (so ``cache_hit`` is always False and
+``persistent_hits`` stays 0).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable
+
+from bioengine_tpu_torch.utils import flight, metrics
 
 
 @dataclass
@@ -47,6 +51,54 @@ class CacheStats:
         }
 
 
+def _collect_program_caches(instances: list) -> list:
+    """Scrape-time fold of live program caches into process metrics:
+    build time is the cold-start cost, and the reason a request's p99
+    suddenly grows a tail."""
+    hits = misses = evictions = persistent = 0
+    compile_s = 0.0
+    live = 0
+    for c in instances:
+        s = c.stats
+        hits += s.hits
+        misses += s.misses
+        evictions += s.evictions
+        persistent += s.persistent_hits
+        compile_s += s.cumulative_compile_seconds
+        live += len(c)
+    return [
+        metrics.Sample(
+            "program_cache_hits_total", hits, kind="counter",
+            help="compiled-program cache hits",
+        ),
+        metrics.Sample(
+            "program_cache_misses_total", misses, kind="counter",
+            help="compiled-program cache misses (each cost a compile)",
+        ),
+        metrics.Sample(
+            "program_cache_evictions_total", evictions, kind="counter",
+            help="compiled programs evicted (a re-request recompiles)",
+        ),
+        metrics.Sample(
+            "program_cache_compile_seconds_total", round(compile_s, 6),
+            kind="counter",
+            help="lifetime program build seconds across caches",
+        ),
+        metrics.Sample(
+            "program_cache_persistent_hits_total", persistent,
+            kind="counter",
+            help="misses satisfied by a persistent cache (always 0 here)",
+        ),
+        metrics.Sample(
+            "program_cache_live_programs", live,
+            help="compiled programs currently cached",
+        ),
+    ]
+
+
+_PROGRAM_CACHES = metrics.InstanceSet("program_cache", _collect_program_caches)
+
+
 class CompiledProgramCache:
     """Bounded LRU of built programs.
 
@@ -61,6 +113,7 @@ class CompiledProgramCache:
         self._building: dict[Hashable, threading.Event] = {}
         self._lock = threading.Lock()
         self.stats = CacheStats()
+        _PROGRAM_CACHES.add(self)
 
     def get_or_compile(self, key: Hashable, build: Callable[[], Any]) -> Any:
         while True:
@@ -78,6 +131,7 @@ class CompiledProgramCache:
             t0 = time.perf_counter()
             program = build()
             dt = time.perf_counter() - t0
+            evicted = []
             with self._lock:
                 self.stats.misses += 1
                 self.stats.compile_seconds[str(key)] = dt
@@ -90,6 +144,13 @@ class CompiledProgramCache:
                     self.stats.compile_seconds.pop(str(victim), None)
                     self.stats.cache_hit.pop(str(victim), None)
                     self.stats.evictions += 1
+                    evicted.append(victim)
+            flight.record(
+                "program.compile", key=str(key), seconds=round(dt, 3),
+                cache_hit=False,
+            )
+            for victim in evicted:
+                flight.record("program.evict", key=str(victim))
             return program
         finally:
             with self._lock:
@@ -120,6 +181,8 @@ class CompiledProgramCache:
                 self.stats.compile_seconds.pop(str(k), None)
                 self.stats.cache_hit.pop(str(k), None)
             self.stats.evictions += len(victims)
+        for k in victims:
+            flight.record("program.evict", key=str(k))
         return len(victims)
 
     def keys(self) -> list[Hashable]:

@@ -15,7 +15,8 @@ its weights overlap:
    request runs against the skeleton.
 
 No manifest: the caller loads eagerly. A manifest/checkpoint mismatch
-fails the load loudly. Left out of the copy: the flight-recorder event.
+fails the load loudly. The end of a load leaves a ``weights.streamed``
+or ``weights.stream_error`` flight event.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 
 from bioengine_tpu_torch.runtime.convert import unflatten_params
+from bioengine_tpu_torch.utils import flight
 
 logger = logging.getLogger(__name__)
 
@@ -209,10 +211,23 @@ class StreamedWeightLoader:
                     f"or fall back to eager load"
                 )
             self.seconds = time.perf_counter() - self._started_at
+            flight.record(
+                "weights.streamed",
+                model=self.model_id,
+                groups=self.groups_loaded,
+                bytes=self.bytes_loaded,
+                seconds=round(self.seconds, 3),
+            )
             self.on_complete(unflatten_params(flat))
         except Exception as e:  # noqa: BLE001 — surfaced via on_error and the first request
             self.error = e
             self.seconds = time.perf_counter() - self._started_at
+            flight.record(
+                "weights.stream_error",
+                severity="error",
+                model=self.model_id,
+                error=str(e)[:300],
+            )
             logger.warning("streamed weight load failed for %s: %s", self.model_id, e)
             if self.on_error is not None:
                 self.on_error(e)

@@ -1,0 +1,281 @@
+"""Flight recorder: the always-on postmortem ring.
+
+Own copy of ``bioengine_tpu/utils/flight.py``, with the same API and
+environment variables. A per-process, fixed-size ring of structured
+events, written from rare edges (a compile, an eviction, a sequence
+joining or leaving a decode batch), never from the steady hot path.
+The port records:
+
+==========================  ================================================
+``program.compile``         a program (CUDA graph) built (key, seconds)
+``program.evict``           a program evicted from the cache
+``weights.streamed``        a streamed checkpoint finished loading
+``weights.stream_error``    a streamed checkpoint failed to load
+``decode.kv_evict``         an idle sequence's KV blocks reclaimed
+``decode.join``             a sequence admitted into a decode batch
+``decode.leave``            a sequence retired from a decode batch
+``flight.dump``             a dump snapshot was taken (reason)
+==========================  ================================================
+
+Design constraints, in order:
+
+- **Never on the happy hot path.** No per-request event exists; the
+  request path only records on failure/slow/rare-transition edges, so
+  the steady-state cost of the recorder is the ring's existence.
+- **Lock-cheap.** One short ``threading.Lock`` around a deque append;
+  event dicts are built outside the lock.
+- **Crash-evidence first.** ``dump(reason)`` snapshots the whole ring
+  in memory (bounded, rate-limited per reason) the moment something
+  goes wrong — the evidence survives even if the incident keeps
+  raging and the ring wraps. ``BIOENGINE_FLIGHT_DIR`` additionally
+  writes each dump to disk for processes that may die next.
+- **Mergeable.** Every event carries ``(recorder, seq)``: a
+  process-unique recorder id plus a monotonically increasing sequence
+  number. :func:`merge_records` time-orders events gathered from many
+  processes into one incident timeline and dedupes by identity, so
+  gathering the same process twice (or an in-process test harness
+  where "hosts" share one ring) cannot double-report.
+
+Env knobs: ``BIOENGINE_FLIGHT=0`` disables recording entirely,
+``BIOENGINE_FLIGHT_EVENTS`` sizes the ring (default 2048),
+``BIOENGINE_FLIGHT_DUMP_INTERVAL_S`` rate-limits same-reason dumps
+(default 30), ``BIOENGINE_FLIGHT_DIR`` persists dumps as JSON files.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from pathlib import Path
+from typing import Any, Iterable, Optional
+
+DEFAULT_EVENTS = 2048
+DUMPS_KEPT = 8
+
+logger = logging.getLogger("bioengine.flight")
+
+# process-unique identity: merge_records dedupes on (recorder, seq)
+_RECORDER_ID = uuid.uuid4().hex[:12]
+
+_lock = threading.Lock()
+_events: deque = deque(
+    maxlen=int(os.environ.get("BIOENGINE_FLIGHT_EVENTS", str(DEFAULT_EVENTS)))
+)
+_dumps: deque = deque(maxlen=DUMPS_KEPT)
+_seq = 0
+_last_dump_mono: dict[str, float] = {}
+
+_ENABLED: Optional[bool] = None
+
+
+def enabled() -> bool:
+    """``BIOENGINE_FLIGHT=0`` turns the recorder off. Read once: record()
+    sits on failure edges that can fire in bursts."""
+    global _ENABLED
+    if _ENABLED is None:
+        _ENABLED = os.environ.get("BIOENGINE_FLIGHT", "1") != "0"
+    return _ENABLED
+
+
+def reset_env_cache() -> None:
+    global _ENABLED
+    _ENABLED = None
+
+
+def recorder_id() -> str:
+    return _RECORDER_ID
+
+
+def record(etype: str, severity: str = "info", **attrs: Any) -> Optional[dict]:
+    """Append one structured event to the ring. ``attrs`` must be
+    JSON-able (call sites pass strings/numbers — event payloads cross
+    the RPC plane inside incident bundles)."""
+    if not enabled():
+        return None
+    global _seq
+    evt = {
+        "type": etype,
+        "severity": severity,
+        "ts": time.time(),
+        "attrs": attrs,
+        "recorder": _RECORDER_ID,
+    }
+    with _lock:
+        _seq += 1
+        evt["seq"] = _seq
+        _events.append(evt)
+    return evt
+
+
+def dump(reason: str, **attrs: Any) -> Optional[dict]:
+    """Snapshot the whole ring NOW (the moment something went wrong),
+    into a bounded in-memory list of recent dumps and — when
+    ``BIOENGINE_FLIGHT_DIR`` is set — a JSON file. Rate-limited per
+    reason (``BIOENGINE_FLIGHT_DUMP_INTERVAL_S``) so an incident that
+    trips a breaker 50 times doesn't produce 50 identical snapshots."""
+    if not enabled():
+        return None
+    # live env read is deliberate: dumps fire at incident rate (and are
+    # rate-limited right below), and tests retarget the knob at runtime
+    # bioengine: ignore[BE-PERF-301]
+    interval = float(os.environ.get("BIOENGINE_FLIGHT_DUMP_INTERVAL_S", "30"))
+    now = time.monotonic()
+    with _lock:
+        last = _last_dump_mono.get(reason)
+        if last is not None and now - last < interval:
+            return None
+        _last_dump_mono[reason] = now
+        snap = {
+            "reason": reason,
+            "at": time.time(),
+            "recorder": _RECORDER_ID,
+            "attrs": attrs,
+            "events": [dict(e) for e in _events],
+        }
+        _dumps.append(snap)
+    record("flight.dump", reason=reason, events=len(snap["events"]))
+    _write_dump(snap)
+    return snap
+
+
+def _write_dump(snap: dict) -> None:
+    """Persist a dump when ``BIOENGINE_FLIGHT_DIR`` is set. Dumps fire
+    on failure paths that often run ON the event loop (breaker trip,
+    deadline exceeded) — serializing ~2k events and touching disk there
+    would stall every in-flight request mid-incident, so when a loop is
+    running the work is handed to a thread. ``snap`` is a private copy
+    (built under the ring lock), safe to serialize concurrently."""
+    # live env read is deliberate: dump-rate, and tests point
+    # BIOENGINE_FLIGHT_DIR at a tmpdir per test without a reload
+    # bioengine: ignore[BE-PERF-301]
+    target_dir = os.environ.get("BIOENGINE_FLIGHT_DIR")
+    if not target_dir:
+        return
+    try:
+        import asyncio
+
+        asyncio.get_running_loop().run_in_executor(
+            None, _write_dump_sync, snap, target_dir
+        )
+    except RuntimeError:  # no running loop — a plain thread context
+        # this branch only runs when get_running_loop() raised, i.e.
+        # never on an event loop, so the sync write cannot stall one
+        # bioengine: ignore[BE-ASYNC-006]
+        _write_dump_sync(snap, target_dir)
+
+
+def _write_dump_sync(snap: dict, target_dir: str) -> None:
+    try:
+        path = Path(target_dir).expanduser()
+        path.mkdir(parents=True, exist_ok=True)
+        stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime(snap["at"]))
+        # recorder id in the name: several processes share one flight
+        # dir by design, and two same-reason dumps in the same second
+        # must never overwrite each other's evidence
+        name = (
+            f"flight-{stamp}-{snap['reason'].replace('/', '_')}"
+            f"-{snap.get('recorder', 'unknown')}.json"
+        )
+        (path / name).write_text(json.dumps(snap, indent=2, default=str))
+    except OSError as e:
+        # a full disk must never turn a dump into a second incident;
+        # the in-memory snapshot above already holds the evidence
+        logger.warning(f"flight dump not persisted to {target_dir}: {e}")
+
+
+def get_events(
+    types: Optional[Iterable[str]] = None,
+    limit: Optional[int] = None,
+    since: Optional[float] = None,
+) -> list[dict]:
+    """Events in ring (seq) order, newest last; optionally filtered by
+    type set / wall-clock ``since`` and truncated to the newest
+    ``limit``."""
+    with _lock:
+        events = list(_events)
+    if types is not None:
+        wanted = set(types)
+        events = [e for e in events if e["type"] in wanted]
+    if since is not None:
+        events = [e for e in events if e["ts"] >= since]
+    if limit is not None:
+        events = events[-limit:]
+    return events
+
+
+def get_record(
+    limit: Optional[int] = 500, since: Optional[float] = None
+) -> dict:
+    """The transferable form of this process's flight state: recent
+    events plus dump metadata (the ``get_flight_record`` verb body)."""
+    events = get_events(limit=limit, since=since)
+    with _lock:
+        dumps_meta = [
+            {"reason": d["reason"], "at": d["at"], "events": len(d["events"])}
+            for d in _dumps
+        ]
+    return {
+        "recorder": _RECORDER_ID,
+        "pid": os.getpid(),
+        "captured_at": time.time(),
+        "events": events,
+        "dumps": dumps_meta,
+    }
+
+
+def get_dumps() -> list[dict]:
+    """Full dump snapshots (in-memory), oldest first."""
+    with _lock:
+        return [dict(d) for d in _dumps]
+
+
+def merge_records(records: Iterable[dict]) -> list[dict]:
+    """Fold flight records gathered from several processes into ONE
+    time-ordered incident timeline. Events dedupe on
+    ``(recorder, seq)`` so gathering one process through two surfaces
+    (or an in-process multi-host test harness sharing a single ring)
+    never double-reports; ordering is wall-clock with
+    ``(recorder, seq)`` as the stable tie-break.
+
+    Clock-skew correction: a record carrying ``clock_skew_s`` (the
+    producing host's wall clock minus the controller's, estimated at
+    the RPC handshake by RTT-midpoint and refreshed on reconnect —
+    worker_host.py) gets every event's ``ts`` shifted onto the
+    controller's timeline; the raw stamp is preserved as ``ts_raw``
+    and the applied skew annotated per event, so a host whose clock
+    runs 5 s fast no longer scrambles the incident ordering."""
+    seen: set[tuple] = set()
+    out: list[dict] = []
+    for rec in records:
+        skew = rec.get("clock_skew_s")
+        skew = float(skew) if skew else 0.0
+        for e in rec.get("events", []) or []:
+            if not isinstance(e, dict):
+                continue
+            key = (e.get("recorder"), e.get("seq"))
+            if key in seen:
+                continue
+            seen.add(key)
+            if skew and "ts" in e:
+                e = {
+                    **e,
+                    "ts": e["ts"] - skew,
+                    "ts_raw": e["ts"],
+                    "clock_skew_s": round(skew, 6),
+                }
+            out.append(e)
+    out.sort(key=lambda e: (e.get("ts", 0.0), e.get("recorder", ""), e.get("seq", 0)))
+    return out
+
+
+def clear() -> None:
+    """Tests only — wipe events, dumps, and rate-limit state."""
+    with _lock:
+        _events.clear()
+        _dumps.clear()
+        _last_dump_mono.clear()

@@ -85,8 +85,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    held against the module on the CPU (f32, TF32 off inside the runner);
    request ms, load s and peak memory; the attention kernel's count
    stays 0; one ``zoo`` JSON line;
-11. one JSON line of the kernels' numbers;
-12. the result line ``{"ok": true, "device": {...}}``, printed last.
+11. token generation (slice 7): the ``generate`` app at the repo's
+   decoder (``DecoderConfig()``, seed 0) on the card: ``async_init``,
+   ``test_deployment``, ``generate_stream("the cell divides", 32)`` equal
+   to the golden fixture's greedy tokens, ``resume_from=10`` the suffix,
+   unary ``generate`` the stream, the KV drained; the engine alone:
+   prefill and step logits through its graphs against the fixture (2e-4)
+   and the CPU port (1e-5), a co-batch of 3 prompts across KV buckets
+   equal to the CPU port's tokens, one graph per bucket and none built on
+   repeat, one steady step's host ms beside its graph's device ms;
+   bench.py's token-streaming legs (8 bulk streams x 48 tokens, one
+   interactive stream, a join mid-batch); then ``DecoderConfig(d_model
+   768, 12 heads, 12 layers, d_ff 3072)``: 16 greedy tokens and logits
+   against the CPU port (1e-3), the throughput leg and a steady step;
+   the attention kernel's count stays 0; one ``decode`` JSON line;
+12. one JSON line of the kernels' numbers;
+13. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -96,6 +110,7 @@ f32.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
 import re
@@ -125,6 +140,7 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning import service as finetune_service
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
+from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
 from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.models.cellpose import (
@@ -164,8 +180,16 @@ from bioengine_tpu_torch.runtime.convert import (
     synthetic_cpsam_state_dict,
     unflatten_params,
 )
+from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
+from bioengine_tpu_torch.runtime.decode_engine import (
+    DecodeEngine,
+    DecoderConfig,
+    init_decoder_params,
+)
+from bioengine_tpu_torch.runtime.program_cache import CompiledProgramCache
 from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
 from bioengine_tpu_torch.runtime.weight_stream import write_manifest
+from bioengine_tpu_torch.serving.decode import DecodeLoop
 
 SEED = 0
 BUCKET = 64
@@ -2161,6 +2185,341 @@ def phase_zoo(card: str, device: str = "cuda") -> dict:
     return {"launches": launches, "stardist": stardist, "zoo": zoo}
 
 
+# ---- slice 7: token generation ------------------------------------------------
+
+DECODE_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                              "fixtures_golden_decoder.npz")
+DECODE_PROMPT = "the cell divides"
+DECODE_RESUME = 10
+DECODE_GOLDEN_TOL = 2e-4  # the JAX package's own tolerance against the fixture
+DECODE_CARD_VS_CPU = 1e-5
+# bench.py _bench_token_streaming: 8 bulk streams x 48 new tokens
+DECODE_STREAMS = 8
+DECODE_NEW_TOKENS = 48
+DECODE_BENCH_PROMPT = "the cell divides and grows"[:16]
+# three prompts of different lengths, grown from the 16 bucket to the 128 one
+DECODE_CO_PROMPTS = ("a", "the cell divides", "mitochondria fuse and divide again")
+DECODE_CO_STEPS = 48
+DECODE_STEADY_STEPS = 20
+# the wider decoder: a value of the JAX engine's DecoderConfig, not a new model
+DECODE_WIDE = DecoderConfig(d_model=768, n_heads=12, n_layers=12, d_ff=3072, max_len=512)
+DECODE_WIDE_TOKENS = 16
+DECODE_WIDE_CARD_VS_CPU = 1e-3
+
+
+def _decode_logits(engine: DecodeEngine, prompt: list) -> tuple[np.ndarray, np.ndarray]:
+    """Prefill and first-step logits through the engine's own programs
+    (graphs on the card); the sequence is finished after."""
+    T = len(prompt)
+    t_pad = bucket_dim(T, engine._len_ladder, divisor=engine.kv.block_size)
+    padded = np.zeros((t_pad,), np.int64)
+    padded[:T] = prompt
+    with engine._lock, engine._device_scope():
+        logits, K, V = engine._prefill_program(t_pad)(tokens=padded, length=T)
+        prefill = logits.cpu().numpy()
+        engine.kv.write_prefill("logits", K[:, :T], V[:, :T])
+        table, lengths = engine.kv.block_table(["logits"], t_pad, pad_batch=1)
+        tok = np.array([int(np.argmax(prefill))])
+        step = engine._step_program(1, t_pad)(tokens=tok, lengths=lengths, table=table)[0]
+        step = step[0].cpu().numpy()
+    engine.finish("logits")
+    return prefill, step
+
+
+def _co_batch(engine: DecodeEngine, prompts, steps: int) -> dict:
+    """The prompts join one step apart and generate ``steps`` tokens each
+    in one co-batch, as the decode loop drives it."""
+    last, out = {}, {}
+    for step in range(steps + len(prompts)):
+        if step < len(prompts):
+            sid = f"co{step}"
+            last[sid] = engine.prefill(sid, [ord(c) % 256 for c in prompts[step]])
+            out[sid] = [last[sid]]
+        ids = [s for s in last if len(out[s]) < steps]
+        if ids:
+            for s, t in zip(ids, engine.step(ids, [last[s] for s in ids])):
+                last[s] = t
+                out[s].append(t)
+    for s in last:
+        engine.finish(s)
+    return out
+
+
+def _quantile(vals: list, q: float) -> float:
+    s = sorted(vals)
+    return s[min(int(len(s) * q), len(s) - 1)] if s else 0.0
+
+
+async def _drain_timed(stream) -> dict:
+    toks, gaps, ttft = [], [], 0.0
+    t_sub = time.perf_counter()
+    t_prev = None
+    async for tok in stream.tokens():
+        now = time.perf_counter()
+        if t_prev is None:
+            ttft = now - t_sub
+        else:
+            gaps.append(now - t_prev)
+        t_prev = now
+        toks.append(tok)
+    return {"tokens": toks, "ttft_s": ttft, "gaps": gaps}
+
+
+async def decode_traffic(engine: DecodeEngine, legs=("throughput", "inter_token", "join")) -> dict:
+    """bench.py's token-streaming legs over ``engine``; each leg runs once
+    untimed first."""
+    prompt = [ord(c) % 256 for c in DECODE_BENCH_PROMPT]
+
+    async def throughput() -> dict:
+        loop = DecodeLoop(engine, name="smoke-tp", max_active=DECODE_STREAMS, interactive_reserve=0)
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[
+            _drain_timed(loop.submit(prompt, DECODE_NEW_TOKENS, klass="bulk"))
+            for _ in range(DECODE_STREAMS)
+        ])
+        wall = time.perf_counter() - t0
+        stats = loop.stats
+        await loop.close()
+        total = sum(len(o["tokens"]) for o in outs)
+        check(all(o["tokens"] == outs[0]["tokens"] for o in outs), "bulk streams of one prompt differ")
+        return {"streams": DECODE_STREAMS, "new_tokens_each": DECODE_NEW_TOKENS,
+                "tokens_per_s": total / wall, "batch_occupancy": stats["occupancy"]["mean"],
+                "steps": stats["steps"], "wall_s": wall, "tokens": outs[0]["tokens"]}
+
+    async def inter_token() -> dict:
+        loop = DecodeLoop(engine, name="smoke-it", max_active=2)
+        out = await _drain_timed(loop.submit(prompt, DECODE_NEW_TOKENS, klass="interactive"))
+        await loop.close()
+        gaps_ms = [1e3 * g for g in out["gaps"]]
+        return {"ttft_ms": 1e3 * out["ttft_s"], "inter_token_p50_ms": _quantile(gaps_ms, 0.5),
+                "inter_token_p99_ms": _quantile(gaps_ms, 0.99)}
+
+    async def join() -> dict:
+        loop = DecodeLoop(engine, name="smoke-join", max_active=4, interactive_reserve=1)
+        long_stream = loop.submit(prompt, 2 * DECODE_NEW_TOKENS, klass="bulk")
+        long_task = asyncio.create_task(_drain_timed(long_stream))
+        while loop.stats["tokens"] < 8:
+            await asyncio.sleep(0.001)
+        t0 = time.perf_counter()
+        short_stream = loop.submit(prompt, 8, klass="interactive")
+        short = await _drain_timed(short_stream)
+        short_wall = time.perf_counter() - t0
+        long_still_running = int(not long_task.done())
+        long_out = await long_task
+        await loop.close()
+        return {"joined_mid_batch": int(short_stream.joined_mid_batch),
+                "mid_batch_ttft_ms": 1e3 * short["ttft_s"], "short_wall_ms": 1e3 * short_wall,
+                "long_still_running": long_still_running, "long_tokens": len(long_out["tokens"])}
+
+    run = {"throughput": throughput, "inter_token": inter_token, "join": join}
+    out = {}
+    for leg in legs:
+        await run[leg]()  # untimed: builds every program the leg touches
+        out[leg] = await run[leg]()
+    return out
+
+
+def decode_steady_step(engine: DecodeEngine, device: str) -> dict:
+    """One steady step of 8 sequences in the (8, 64) bucket: host ms of
+    ``engine.step`` (ending with the logits on the host) beside the
+    device ms of the step graph's replay alone (CUDA events)."""
+    prompt = [ord(c) % 256 for c in DECODE_BENCH_PROMPT]
+    ids = [f"steady{i}" for i in range(DECODE_STREAMS)]
+    last = [engine.prefill(s, prompt) for s in ids]
+    while engine.kv.sequence_length(ids[0]) < 36:
+        last = engine.step(ids, last)
+    t_pad = bucket_dim(engine.kv.sequence_length(ids[0]), engine._len_ladder,
+                       divisor=engine.kv.block_size)
+    host = []
+    for _ in range(DECODE_STEADY_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        last = engine.step(ids, last)
+        host.append((time.perf_counter() - t0) * 1e3)
+    check(engine.kv.sequence_length(ids[0]) <= t_pad, "the steady steps left their bucket")
+    program = engine._step_program(bucket_batch(len(ids)), t_pad)
+    with engine._device_scope():
+        replay = (program.graph.replay if program.graph is not None
+                  else lambda: program.fn(**program.inputs))
+        device_ms = _device_ms(device, replay, iters=50, warmup=3)
+    # least time for the replayed step: every weight read once and the
+    # cached K and V of the sequences' real lengths, against 2 flops per
+    # weight and row plus the attention's 4 per cached entry and channel
+    cached = sum(engine.kv.sequence_length(s) - 1 for s in ids)
+    for s in ids:
+        engine.finish(s)
+    cfg = engine.config
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    step_bytes = 4 * (n_params + 2 * cfg.n_layers * cached * cfg.d_model)
+    step_flops = 2 * len(ids) * (n_params - cfg.max_len * cfg.d_model) + (
+        4 * cfg.n_layers * cached * cfg.d_model)
+    t_bytes, t_ops = step_bytes / PEAK_BYTES_PER_S, step_flops / PEAK_FLOPS[torch.float32]
+    host_ms = float(np.median(host))
+    return {"bucket": [bucket_batch(len(ids)), t_pad], "host_ms": host_ms,
+            "host_ms_all": host, "device_ms": device_ms,
+            "device_share": device_ms / host_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+async def drive_generate(device: str, fx: dict) -> dict:
+    """The generate app as a user drives it, in one event loop."""
+    app = GenerateDeployment(device=device)
+    t0 = time.perf_counter()
+    await app.async_init()
+    await app.test_deployment()
+    await app.check_health()
+    r = {"init_s": time.perf_counter() - t0}
+    n = len(fx["greedy_tokens"])
+    items = [i async for i in app.generate_stream(DECODE_PROMPT, n)]
+    r["stream"] = [i["token"] for i in items]
+    r["indices"] = [i["index"] for i in items]
+    resumed = [i async for i in app.generate_stream(DECODE_PROMPT, n, resume_from=DECODE_RESUME)]
+    r["resumed"] = [i["token"] for i in resumed]
+    r["unary"] = await app.generate(DECODE_PROMPT, max_new_tokens=n)
+    r["describe"] = await app.describe_engine()
+    await app.close()
+    return r
+
+
+def decode_engine_checks(card: str, device: str, fx: dict) -> dict:
+    """The engine alone at the repo's decoder: logits against the fixture
+    and the CPU port, a co-batch across KV buckets against the CPU port,
+    and the program cache's graphs per bucket."""
+    cache = CompiledProgramCache(max_programs=64)
+    engine = DecodeEngine(model_id="smoke-decode", device=device, cache=cache)
+    cpu = DecodeEngine(model_id="smoke-decode-cpu", device="cpu", cache=CompiledProgramCache(64))
+    prompt = fx["prompt"].astype(np.int64).tolist()
+    prefill, step = _decode_logits(engine, prompt)
+    prefill_cpu, step_cpu = _decode_logits(cpu, prompt)
+    err = {
+        "prefill_vs_fixture": float(np.abs(prefill - fx["prefill_logits"]).max()),
+        "step_vs_fixture": float(np.abs(step - fx["step_logits"]).max()),
+        "prefill_vs_cpu": float(np.abs(prefill - prefill_cpu).max()),
+        "step_vs_cpu": float(np.abs(step - step_cpu).max()),
+    }
+    print(f"[{card}] decode: logits max abs err {json.dumps(err)}")
+    for key in ("prefill_vs_fixture", "step_vs_fixture"):
+        check(err[key] <= DECODE_GOLDEN_TOL, f"decode {key} {err[key]} over {DECODE_GOLDEN_TOL}")
+    for key in ("prefill_vs_cpu", "step_vs_cpu"):
+        check(err[key] <= DECODE_CARD_VS_CPU, f"decode {key} {err[key]} over {DECODE_CARD_VS_CPU}")
+    cache.evict(lambda key: True)
+    cpu.cache.evict(lambda key: True)
+    misses = cache.stats.misses
+    t0 = time.perf_counter()
+    co = _co_batch(engine, DECODE_CO_PROMPTS, DECODE_CO_STEPS)
+    first_s = time.perf_counter() - t0
+    co_cpu = _co_batch(cpu, DECODE_CO_PROMPTS, DECODE_CO_STEPS)
+    check(co == co_cpu, f"co-batch tokens differ from the CPU port's: {co} vs {co_cpu}")
+    keys = sorted(k[1:-1] for k in cache.keys())
+    check(keys == sorted(k[1:-1] for k in cpu.cache.keys()), f"program keys {keys}")
+    kv_buckets = sorted({k[2] for k in keys if k[0] == "decode_step"})
+    check(len(kv_buckets) >= 2, f"the co-batch touched KV buckets {kv_buckets} only")
+    built = cache.stats.misses - misses
+    check(len(keys) == len(set(keys)) == built, f"{built} builds for {len(keys)} keys")
+    misses = cache.stats.misses
+    t0 = time.perf_counter()
+    check(_co_batch(engine, DECODE_CO_PROMPTS, DECODE_CO_STEPS) == co, "repeated co-batch tokens differ")
+    repeat_s = time.perf_counter() - t0
+    check(cache.stats.misses == misses, f"repeating the co-batch built {cache.stats.misses - misses} programs")
+    check(engine.kv.stats["sequences"] == 0, f"kv not drained: {engine.kv.stats}")
+    graphs = sum(1 for k in cache.keys() if cache.get_or_compile(k, None).graph is not None)
+    check(device != "cuda" or graphs == len(keys), f"{graphs} graphs for {len(keys)} programs")
+    steady = decode_steady_step(engine, device)
+    engine.close()
+    print(f"[{card}] decode: co-batch of {len(DECODE_CO_PROMPTS)} prompts x {DECODE_CO_STEPS} tokens "
+          f"equals the CPU port's; {len(keys)} programs {keys}; first pass {first_s:.3f} s "
+          f"(builds), repeat {repeat_s:.3f} s (0 builds); steady step {json.dumps(steady)}")
+    return {"logits_err": err, "programs": len(keys), "kv_buckets": kv_buckets,
+            "co_first_s": first_s, "co_repeat_s": repeat_s,
+            "graph_build_s": cache.stats.cumulative_compile_seconds, "steady_step": steady}
+
+
+def decode_wide(card: str, device: str) -> dict:
+    """The same engine and loop at the wider DecoderConfig: 16 greedy
+    tokens and the logits against the CPU port, then the throughput leg."""
+    t0 = time.perf_counter()
+    params = init_decoder_params(SEED, DECODE_WIDE)
+    engine = DecodeEngine(model_id="smoke-wide", params=params, config=DECODE_WIDE, device=device,
+                          cache=CompiledProgramCache(64))
+    build_s = time.perf_counter() - t0
+    cpu = DecodeEngine(model_id="smoke-wide-cpu", params=params, config=DECODE_WIDE, device="cpu",
+                       cache=CompiledProgramCache(64))
+    del params
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    prompt = [ord(c) % 256 for c in DECODE_PROMPT]
+    prefill, step = _decode_logits(engine, prompt)
+    prefill_cpu, step_cpu = _decode_logits(cpu, prompt)
+    err = {"prefill_vs_cpu": float(np.abs(prefill - prefill_cpu).max()),
+           "step_vs_cpu": float(np.abs(step - step_cpu).max())}
+    for key, e in err.items():
+        check(e <= DECODE_WIDE_CARD_VS_CPU, f"wide decode {key} {e} over {DECODE_WIDE_CARD_VS_CPU}")
+    toks = [engine.prefill("wide", prompt)]
+    toks_cpu = [cpu.prefill("wide", prompt)]
+    while len(toks) < DECODE_WIDE_TOKENS:
+        toks += engine.step(["wide"], toks[-1:])
+        toks_cpu += cpu.step(["wide"], toks_cpu[-1:])
+    engine.finish("wide")
+    cpu.finish("wide")
+    check(toks == toks_cpu, f"wide greedy tokens differ from the CPU port's: {toks} vs {toks_cpu}")
+    del cpu
+    legs = asyncio.run(decode_traffic(engine, legs=("throughput",)))
+    steady = decode_steady_step(engine, device)
+    pool_bytes = 2 * engine.kv.k_pool.numel() * engine.kv.k_pool.element_size()
+    engine.close()
+    print(f"[{card}] decode wide {dataclasses.asdict(DECODE_WIDE)}: {n_params} parameters, "
+          f"pools {pool_bytes / 2**30:.3f} GiB, logits err {json.dumps(err)}, {len(toks)} greedy tokens "
+          f"equal the CPU port's; throughput {json.dumps({k: v for k, v in legs['throughput'].items() if k != 'tokens'})}; "
+          f"steady step {json.dumps(steady)}")
+    return {"config": dataclasses.asdict(DECODE_WIDE), "parameters": n_params,
+            "build_s": build_s, "pool_gib": pool_bytes / 2**30, "logits_err": err,
+            "throughput": {k: v for k, v in legs["throughput"].items() if k != "tokens"},
+            "steady_step": steady}
+
+
+def phase_decode(card: str, device: str = "cuda") -> dict:
+    """Slice 7: the generate app, the engine alone and bench.py's traffic
+    at the repo's decoder, then the wider decoder; one ``decode`` JSON
+    line."""
+    fx = dict(np.load(DECODE_FIXTURE))
+    print(f"decode phase: DecoderConfig() {dataclasses.asdict(DecoderConfig())}, seed {SEED}, on {device}; "
+          f"then DecoderConfig {dataclasses.asdict(DECODE_WIDE)}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    attention.launch_count = 0
+    app = asyncio.run(drive_generate(device, fx))
+    golden = fx["greedy_tokens"].tolist()
+    check(app["stream"] == golden, f"generate_stream {app['stream']} != fixture {golden}")
+    check(app["indices"] == list(range(len(golden))), f"stream indices {app['indices']}")
+    check(app["resumed"] == golden[DECODE_RESUME:], f"resume_from={DECODE_RESUME} gave {app['resumed']}")
+    check(app["unary"]["tokens"] == golden, f"unary generate {app['unary']}")
+    kv = app["describe"]["engine"]["kv"]
+    check(kv["sequences"] == 0 and kv["blocks_in_use"] == 0, f"kv not drained: {kv}")
+    check(app["describe"]["engine"]["device"].startswith(device), f"app engine on {app['describe']['engine']['device']}")
+    print(f"[{card}] decode app: async_init + test_deployment {app['init_s']:.3f} s; the stream equals the "
+          f"fixture's {len(golden)} tokens, resume_from={DECODE_RESUME} the suffix, unary the stream; "
+          f"kv drained; programs {app['describe']['engine']['programs']}")
+    checks = decode_engine_checks(card, device, fx)
+    engine = DecodeEngine(model_id="smoke-traffic", device=device, cache=CompiledProgramCache(64))
+    traffic = asyncio.run(decode_traffic(engine))
+    engine.close()
+    tp, join = traffic["throughput"], traffic["join"]
+    check(join["joined_mid_batch"] == 1 and join["long_still_running"] == 1, f"join leg {join}")
+    check(tp["batch_occupancy"] > DECODE_STREAMS / 2, f"throughput occupancy {tp['batch_occupancy']}")
+    tp = {k: v for k, v in tp.items() if k != "tokens"}
+    print(f"[{card}] decode traffic: {json.dumps({**traffic, 'throughput': tp})}")
+    wide = decode_wide(card, device)
+    launches = attention.launch_count
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    check(launches == 0, f"the decode phase launched flash_attn_fwd {launches} times")
+    print(f"decode phase: flash_attn_fwd launches {launches} (the decoder has no kernel slot)")
+    out = {"card": card, "app_init_s": app["init_s"], **checks, "throughput": tp,
+           "inter_token": traffic["inter_token"], "join_mid_batch": join, "wide": wide,
+           "peak_gib": peak / 2**30, "flash_attn_fwd_launches": launches}
+    print("decode " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -2172,6 +2531,7 @@ def main() -> int:
     cellpose = phase_cellpose(card)
     transformers = phase_cellpose_transformers(card)
     zoo = phase_zoo(card)
+    decode = phase_decode(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2179,13 +2539,14 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slices 2-5 launch no attention kernel: their counts stay 0
+        # slices 2-5 and 7 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "index": index["launches"],
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
                              "cellpose_transformers": transformers["launches"],
-                             "zoo": zoo["launches"]},
+                             "zoo": zoo["launches"],
+                             "decode": decode["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

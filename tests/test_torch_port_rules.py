@@ -2,6 +2,7 @@
 package, and its entry points run on the card unless asked for the CPU."""
 
 import ast
+import asyncio
 from pathlib import Path
 
 import numpy as np
@@ -12,6 +13,7 @@ from bioengine_tpu_torch.apps.cell_image_search import index
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
+from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
 from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeployment
 from bioengine_tpu_torch.models.cellpose import CellposeConfig, create_model_and_state
@@ -19,8 +21,10 @@ from bioengine_tpu_torch.models.registry import list_models
 from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.ops import kmeans
 from bioengine_tpu_torch.ops.flows import masks_from_flows
+from bioengine_tpu_torch.runtime.decode_engine import DecodeEngine
 from bioengine_tpu_torch.runtime.devices import resolve_device, resolve_devices
 from bioengine_tpu_torch.runtime.engine import InferenceEngine
+from bioengine_tpu_torch.runtime.kv_cache import PagedKVCache
 from bioengine_tpu_torch.runtime.torch_runner import TorchRunner
 
 REPO = Path(__file__).resolve().parent.parent
@@ -63,6 +67,13 @@ def test_port_files_exist():
     # slice 6: cell-image-search at corpus scale
     assert {"kmeans.py", "knn.py", "index.py", "ingestion.py", "normalizer.py"} <= names
     assert (REPO / "bioengine_tpu_torch" / "ops" / "kmeans.py").is_file()
+    # slice 7: token generation, the metrics and flight registries
+    for rel in (
+        "utils/metrics.py", "utils/flight.py", "utils/logger.py",
+        "runtime/kv_cache.py", "runtime/decode_engine.py",
+        "serving/scheduler.py", "serving/decode.py", "apps/generate/service.py",
+    ):
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -181,3 +192,18 @@ def test_zoo_entry_points_raise_without_cuda(no_cuda, tmp_path, monkeypatch):
     entry = EntryDeployment(cache_dir=str(tmp_path / "cache"), device="cpu")
     assert entry.runtime_deployment.backend == "cpu"
     assert "stardist2d" in list_models()
+
+
+def test_decode_entry_points_raise_without_cuda(no_cuda):
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DecodeEngine(device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PagedKVCache(2, 4, 16, num_blocks=4, block_size=4, device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            asyncio.run(GenerateDeployment(device=device).async_init())
+    assert DecodeEngine(device="cpu").kv.k_pool.device.type == "cpu"
+    app = GenerateDeployment(device="cpu")
+    asyncio.run(app.async_init())
+    assert app.engine.device.type == "cpu"
+    asyncio.run(app.close())
