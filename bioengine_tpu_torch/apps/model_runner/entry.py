@@ -14,15 +14,15 @@ Counterpart of ``apps/model-runner/entry_deployment.py``:
   A URL is refused as a model id.
 - ``EntryDeployment``: ``search_models``, ``get_model_rdf``,
   ``get_model_documentation``, ``validate``, ``test``, ``infer``,
-  ``get_upload_url``, ``upload_image`` and ``list_cached_models``, calling
-  the port's ``RuntimeDeployment`` directly.
+  ``get_upload_url``, ``upload_image`` and ``list_cached_models``, each a
+  ``@schema_method``. Under the app builder ``runtime_deployment`` is the
+  sibling deployment's ``DeploymentHandle`` (its methods are routed
+  calls); built alone, the entry builds its own ``RuntimeDeployment``.
 
 RDFs and ``collection.yaml`` are read with ``runtime.rdf.parse_rdf_text``
-(PyYAML where it imports, else JSON). The methods are plain ``async``
-methods with no ``context`` (no RPC plane yet, ROADMAP A12). The
-bioimage.io HTTP source and http(s) inputs need the network and raise
-``NotImplementedError``. Entry points run on ``cuda`` unless given
-``device="cpu"``.
+(PyYAML where it imports, else JSON). The bioimage.io HTTP source and
+http(s) inputs need the network and raise ``NotImplementedError``. Entry
+points run on ``cuda`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
+from bioengine_tpu_torch.rpc import schema_method
 from bioengine_tpu_torch.runtime.devices import DeviceLike
 from bioengine_tpu_torch.runtime.rdf import parse_rdf_text
 
@@ -290,7 +291,8 @@ class ModelCache:
 
 class EntryDeployment:
     """The model-runner's front: discovery, cache, test and infer, over a
-    ``RuntimeDeployment`` (built on ``device`` unless one is given)."""
+    ``RuntimeDeployment`` or its deployment handle (a runtime is built on
+    ``device`` unless one is given)."""
 
     def __init__(
         self,
@@ -300,7 +302,12 @@ class EntryDeployment:
         max_cache_size_gb: float = 20.0,
         device: DeviceLike = None,
     ):
-        self.runtime_deployment = runtime_deployment or RuntimeDeployment(device=device)
+        # a runtime this entry built is its own to close; a given one (the
+        # builder's handle to the runtime deployment) belongs to its owner
+        self._owns_runtime = runtime_deployment is None
+        self.runtime_deployment = (
+            RuntimeDeployment(device=device) if self._owns_runtime else runtime_deployment
+        )
         local_root = os.environ.get("BIOENGINE_LOCAL_MODEL_PATH")
         if local_root:
             source = LocalCollectionSource(local_root)
@@ -329,11 +336,15 @@ class EntryDeployment:
             raise RuntimeError("runtime replica reports no devices")
 
     async def close(self) -> None:
-        await self.runtime_deployment.close()
+        if self._owns_runtime:
+            await self.runtime_deployment.close()
 
     # ---- discovery ----------------------------------------------------------
 
-    async def search_models(self, keywords: list | None = None, limit: int = 10, ignore_checks: bool = False):
+    @schema_method
+    async def search_models(
+        self, keywords: list | None = None, limit: int = 10, ignore_checks: bool = False, context=None
+    ):
         """Search the model collection; by default only models that passed
         the bioengine inference check are returned."""
         models = await self.model_cache.source.list_models()
@@ -360,12 +371,14 @@ class EntryDeployment:
             for m in models[: limit or 10]
         ]
 
-    async def get_model_rdf(self, model_id: str, stage: bool = False):
+    @schema_method
+    async def get_model_rdf(self, model_id: str, stage: bool = False, context=None):
         """Fetch and parse a model's rdf.yaml."""
         data = await self.model_cache.source.fetch_file(model_id, "rdf.yaml", stage)
         return parse_rdf_text(data.decode(), f"{model_id}/rdf.yaml")
 
-    async def get_model_documentation(self, model_id: str, stage: bool = False):
+    @schema_method
+    async def get_model_documentation(self, model_id: str, stage: bool = False, context=None):
         """The file the RDF's 'documentation' field names, or None when it
         is absent or missing."""
         rdf = await self.get_model_rdf(model_id=model_id, stage=stage)
@@ -378,7 +391,8 @@ class EntryDeployment:
             return None
         return data.decode(errors="replace")
 
-    async def validate(self, rdf_dict: dict):
+    @schema_method
+    async def validate(self, rdf_dict: dict, context=None):
         """Format-validate a model RDF (no IO checks): the subset of
         bioimageio.spec's format validation the runtime relies on."""
         problems = []
@@ -405,7 +419,8 @@ class EntryDeployment:
 
     # ---- test + infer -------------------------------------------------------
 
-    async def test(self, model_id: str, stage: bool = False, skip_cache: bool = False):
+    @schema_method
+    async def test(self, model_id: str, stage: bool = False, skip_cache: bool = False, context=None):
         """Fetch (or reuse) the model package and run the runtime's self-test
         on it; reports are cached keyed on weight mtimes."""
         package = await self.model_cache.get_model_package(
@@ -414,6 +429,7 @@ class EntryDeployment:
         async with package:
             return await self.runtime_deployment.test(rdf_path=str(package.path), skip_cache=skip_cache)
 
+    @schema_method
     async def infer(
         self,
         model_id: str,
@@ -423,6 +439,7 @@ class EntryDeployment:
         sample_id: str = "sample",
         skip_cache: bool = False,
         return_download_url: bool = False,
+        context=None,
     ):
         """Run inference on a published model. ``inputs``: an array, a dict
         of arrays, or a file path from ``get_upload_url``."""
@@ -453,7 +470,8 @@ class EntryDeployment:
 
     # ---- image upload/download ----------------------------------------------
 
-    async def get_upload_url(self, file_type: str):
+    @schema_method
+    async def get_upload_url(self, file_type: str, context=None):
         """Reserve a temporary upload slot: ``upload_path`` on disk and the
         ``file_path`` to pass to ``upload_image`` and ``infer``."""
         if file_type not in SUPPORTED_FILE_TYPES:
@@ -463,7 +481,8 @@ class EntryDeployment:
         dest.parent.mkdir(parents=True, exist_ok=True)
         return {"upload_path": str(dest), "file_path": file_path}
 
-    async def upload_image(self, file_path: str, data: bytes):
+    @schema_method
+    async def upload_image(self, file_path: str, data: bytes, context=None):
         """Store encoded image bytes under a reserved ``file_path``."""
         dest = (self._uploads_dir / file_path).resolve()
         if not dest.is_relative_to(self._uploads_dir.resolve()):
@@ -510,6 +529,7 @@ class EntryDeployment:
 
     # ---- cache inspection ---------------------------------------------------
 
-    async def list_cached_models(self):
+    @schema_method
+    async def list_cached_models(self, context=None):
         """Cached packages with size, last access and in-use flags."""
         return await self.model_cache.cached_models()

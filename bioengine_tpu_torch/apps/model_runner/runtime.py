@@ -15,13 +15,14 @@ Counterpart of ``apps/model-runner/runtime_deployment.py``:
   on the same device, whole arrays at a time in f32 with TF32 off (the
   reference runs them on the host CPU); their backend is ``"torch"``;
 - ``RuntimeDeployment`` keeps the pipeline LRU and the test-report cache
-  keyed on weight mtimes, and reports CUDA out-of-memory the way the
-  reference does.
+  keyed on weight mtimes, reports CUDA out-of-memory the way the
+  reference does, and serves as a replica of the port's serving plane:
+  ``async_init`` takes the replica's chip lease (``bioengine_device_ids``)
+  and batching knobs (``bioengine_batch_config``), and concurrent
+  ``predict`` calls on one pipeline and per-item shape ride one engine
+  call through a ``ContinuousBatcher``.
 
-Entry points run on ``cuda`` unless given ``device="cpu"``. Not ported
-yet: the continuous batcher (``serving/batching.py``, with the serving
-plane of ROADMAP A12): ``predict`` goes straight to the pipeline's async
-front door.
+Entry points run on ``cuda`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from bioengine_tpu_torch.models.registry import get_model
+from bioengine_tpu_torch.rpc import schema_method
 from bioengine_tpu_torch.runtime.convert import load_params_npz, state_dict_from_flax
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
@@ -377,23 +379,74 @@ class Pipeline:
 
 
 class RuntimeDeployment:
-    """Inference replica on one device: pipeline LRU + test-report cache."""
+    """Inference replica on one device: pipeline LRU + test-report cache +
+    continuous batching (concurrent predicts against the same pipeline and
+    per-item shape run as ONE engine call, ``serving/batching.py``)."""
 
     def __init__(
         self,
         max_pipelines: int = 4,
+        batch_max: int = 8,
+        batch_wait_ms: float = 5.0,
         device: DeviceLike = None,
         device_ids=None,
     ):
         self.max_pipelines = max_pipelines
-        self._devices = resolve_devices(device_ids, device)
-        self.device = self._devices[0]
+        self.batch_max = batch_max
+        self.batch_wait_ms = batch_wait_ms
+        self._device = resolve_device(device)
+        self._set_devices(resolve_devices(device_ids, self._device))
+        self._pipelines: OrderedDict[str, Pipeline] = OrderedDict()
+        self._lock = asyncio.Lock()
+        self._batcher = None
+
+    def _set_devices(self, devices: list) -> None:
+        self._devices = devices
+        self.device = devices[0]
         self.backend = self.device.type
         self.device_count = (
             torch.cuda.device_count() if self.backend == "cuda" else 1
         )
-        self._pipelines: OrderedDict[str, Pipeline] = OrderedDict()
-        self._lock = asyncio.Lock()
+
+    async def async_init(self):
+        """The replica lifecycle injects the leased chip group and the
+        batching knobs (``deployment_config.<dep>.batching``) before this
+        runs; they override the constructor's. A lease resolves on this
+        deployment's device type (``resolve_devices``: refused, never
+        remapped, when it names no such device)."""
+        lease = getattr(self, "bioengine_device_ids", None)
+        self._set_devices(resolve_devices(list(lease) if lease else None, self._device))
+        batch_cfg = getattr(self, "bioengine_batch_config", None) or {}
+        if batch_cfg.get("max_batch") is not None:
+            self.batch_max = int(batch_cfg["max_batch"])
+        if batch_cfg.get("max_wait_ms") is not None:
+            self.batch_wait_ms = float(batch_cfg["max_wait_ms"])
+        if self.batch_max > 1:
+            from bioengine_tpu_torch.serving import ContinuousBatcher
+
+            self._batcher = ContinuousBatcher(
+                self._run_batch,
+                max_batch=self.batch_max,
+                max_wait_ms=self.batch_wait_ms,
+            )
+
+    async def _run_batch(self, signature, payloads):
+        """One flushed group: same pipeline + same per-item shape, so the
+        arrays concatenate along the batch axis into a single engine call,
+        then split back per request."""
+        pipeline = payloads[0][0]
+        arrays = [a for _, a in payloads]
+        sizes = [len(a) for a in arrays]
+        with tracing.trace_span("batch.assemble", requests=len(arrays)):
+            merged = np.concatenate(arrays, axis=0)
+        result = await pipeline.predict_async(merged)
+        out_name, y = next(iter(result.items()))
+        outs = []
+        start = 0
+        for n in sizes:
+            outs.append({out_name: y[start : start + n]})
+            start += n
+        return outs
 
     async def check_health(self):
         return  # nothing loaded, or engines that answer: healthy
@@ -427,7 +480,10 @@ class RuntimeDeployment:
         return info
 
     async def close(self) -> None:
-        """Release every cached pipeline's engine dispatch thread."""
+        """Replica.stop's hook: flush the batcher and release every cached
+        pipeline's engine (its dispatch thread and its graphs)."""
+        if self._batcher is not None:
+            await self._batcher.close()
         async with self._lock:
             pipelines = list(self._pipelines.values())
             self._pipelines.clear()
@@ -483,6 +539,7 @@ class RuntimeDeployment:
 
     # ---- handle API ---------------------------------------------------------
 
+    @schema_method
     async def predict(
         self,
         rdf_path: str,
@@ -492,13 +549,33 @@ class RuntimeDeployment:
         sample_id: str = "sample",
         context=None,
     ):
-        """Run one inference; returns {output_name: np.ndarray, "_meta": ...}."""
+        """Run one inference; returns {output_name: np.ndarray, "_meta": ...}.
+
+        Concurrent calls against the same pipeline whose declared axes are
+        batch-first and whose per-item shapes match ride one batched engine
+        call (continuous batching); anything else takes the direct path."""
         t0 = time.monotonic()
         try:
             pipeline = await self._get_pipeline(
                 rdf_path, weights_format, default_blocksize_parameter
             )
-            result = await pipeline.predict_async(pipeline.extract_array(inputs))
+            array = pipeline.extract_array(inputs)
+            if self._batchable(pipeline, array):
+                # the full pipeline-cache key, not just the model key: one
+                # model under another weights format or blocksize is
+                # another pipeline and never co-batches
+                signature = (
+                    self._cache_key(
+                        rdf_path,
+                        weights_format=weights_format,
+                        blocksize=default_blocksize_parameter,
+                        mesh=self._mesh_tag(),
+                    ),
+                    tuple(array.shape[1:]),
+                )
+                result = await self._batcher.submit(signature, (pipeline, array))
+            else:
+                result = await pipeline.predict_async(array)
         except Exception as e:
             raise _normalize_oom(e) from e
         ms = (time.monotonic() - t0) * 1000
@@ -512,6 +589,37 @@ class RuntimeDeployment:
             },
         }
 
+    # processing ops that treat each sample independently (or use fixed
+    # constants), so co-batched requests can't contaminate each other's
+    # statistics: batch-global zero_mean/scale_range must NOT co-batch
+    _PER_SAMPLE_SAFE_OPS = frozenset({"scale_linear", "sigmoid", "binarize", "clip"})
+
+    @classmethod
+    def _processing_per_sample_safe(cls, ops) -> bool:
+        for op in ops or []:
+            name = op.get("name", op.get("id"))
+            kw = op.get("kwargs", {}) or {}
+            if name in cls._PER_SAMPLE_SAFE_OPS:
+                continue
+            if (
+                name in ("zero_mean_unit_variance", "fixed_zero_mean_unit_variance")
+                and (kw.get("mean") is not None or kw.get("mode") == "per_sample")
+            ):
+                continue  # fixed constants or per-sample stats
+            return False
+        return True
+
+    def _batchable(self, pipeline: Pipeline, array: np.ndarray) -> bool:
+        return (
+            self._batcher is not None
+            and pipeline.input_spec.axes.startswith("b")
+            and pipeline.output_spec.axes.startswith("b")
+            and array.ndim == len(pipeline.input_spec.axes)
+            and self._processing_per_sample_safe(pipeline.input_spec.preprocessing)
+            and self._processing_per_sample_safe(pipeline.output_spec.postprocessing)
+        )
+
+    @schema_method
     async def test(
         self,
         rdf_path: str,
@@ -551,6 +659,7 @@ class RuntimeDeployment:
                 parts.append(f"{p.name}:{p.stat().st_mtime_ns}")
         return ";".join(parts)
 
+    @schema_method
     async def get_status(self, context=None):
         """Loaded pipelines + backend info."""
         return {

@@ -50,7 +50,7 @@ from bioengine_tpu_torch.runtime.devices import (
     mesh_cache_tag,
     resolve_devices,
 )
-from bioengine_tpu_torch.runtime.engine import GRAPH_WARMUP_ITERS
+from bioengine_tpu_torch.runtime.engine import CAPTURE_LOCK, GRAPH_WARMUP_ITERS
 from bioengine_tpu_torch.runtime.kv_cache import PagedKVCache, gather_blocks
 from bioengine_tpu_torch.runtime.program_cache import (
     CompiledProgramCache,
@@ -320,7 +320,7 @@ class _Program:
 
     def _capture(self) -> None:
         dev = self.device
-        with torch.cuda.device(dev), torch.no_grad(), full_f32():
+        with CAPTURE_LOCK, torch.cuda.device(dev), torch.no_grad(), full_f32():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):

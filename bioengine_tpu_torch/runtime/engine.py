@@ -75,6 +75,14 @@ from bioengine_tpu_torch.utils import tracing
 # and the caching allocator settles, so the capture records steady state
 GRAPH_WARMUP_ITERS = 3
 
+# One CUDA graph capture at a time in the process (the engines' and the
+# decode engine's): ``torch.cuda.graph`` captures every graph on one
+# shared default stream, so a second capture begun while one is underway
+# finds that stream capturing and fails. Replays and eager launches on
+# other threads go on during a capture (``capture_error_mode=
+# "thread_local"``).
+CAPTURE_LOCK = threading.Lock()
+
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -347,7 +355,7 @@ class InferenceEngine:
 
     def _capture(self, shape: tuple[int, ...], dtype) -> _GraphProgram:
         dev = self.device
-        with self._params_lock, torch.cuda.device(dev), torch.no_grad():
+        with CAPTURE_LOCK, self._params_lock, torch.cuda.device(dev), torch.no_grad():
             static_in = torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))

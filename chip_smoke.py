@@ -99,8 +99,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    768, 12 heads, 12 layers, d_ff 3072)``: 16 greedy tokens and logits
    against the CPU port (1e-3), the throughput leg and a steady step;
    the attention kernel's count stays 0; one ``decode`` JSON line;
-12. one JSON line of the kernels' numbers;
-13. the result line ``{"ok": true, "device": {...}}``, printed last.
+12. the serving plane (slice 8), ``phase_serving``: whether aiohttp,
+   msgpack, yaml and psutil import here; ``detect_topology()`` against
+   ``torch.cuda``; the model-runner bundle built by ``AppBuilder`` and
+   deployed on ``ServeController(ClusterState(detect_topology()))`` with
+   the UNet2D/UNet3D packages of step 7 in a local collection: the runtime
+   replica holds one chip (chip 0 on one card) on its ``cuda:i``, the entry
+   none; 10 timed rounds of 32 concurrent 512^2 predicts through the
+   runtime's handle as shipped (batching max 8 / 5 ms,
+   ``max_ongoing_requests`` 4), with 8 requests let in, and with
+   ``max_batch: 1``, each output within 2e-2 of the direct
+   ``RuntimeDeployment.predict``, with the median requests/s and its
+   spread, batches, occupancy, queue wait p50/p99, and one more round
+   under ``torch.profiler`` whose device busy time (the union of its
+   kernels, copies and memsets) over its wall is the busy share; the
+   entry's tiled 2048^2 ``infer`` and the 96 x 256^2 volume
+   beside 16 replays (graph captures beside replays), each equal to its
+   direct result bit for bit; a load that wants a second runtime replica,
+   a pending workload on one chip; the undeploy, after which the allocated
+   device memory is back within 64 MiB and the chips are free; a deployment
+   whose ``async_init`` raises fails typed, frees the chip and deploys on
+   retry; the attention kernel's count stays 0; one ``serving`` JSON line;
+13. one JSON line of the kernels' numbers;
+14. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -111,9 +132,13 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
+import importlib
 import json
 import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -124,6 +149,7 @@ import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
+from bioengine_tpu_torch.apps.builder import AppBuilder
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.index import (
     IVFFLAT_MAX_CELLS,
@@ -143,6 +169,8 @@ from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetun
 from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
 from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
+from bioengine_tpu_torch.cluster.state import ClusterState
+from bioengine_tpu_torch.cluster.topology import detect_topology
 from bioengine_tpu_torch.models.cellpose import (
     CellposeConfig,
     CellposeNet,
@@ -190,6 +218,7 @@ from bioengine_tpu_torch.runtime.program_cache import CompiledProgramCache
 from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
 from bioengine_tpu_torch.runtime.weight_stream import write_manifest
 from bioengine_tpu_torch.serving.decode import DecodeLoop
+from bioengine_tpu_torch.serving import DeploymentHandle, DeploymentSpec, ReplicaState, ServeController
 
 SEED = 0
 BUCKET = 64
@@ -2520,6 +2549,399 @@ def phase_decode(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 8: the serving plane -------------------------------------------------
+
+SERVE_BUNDLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bioengine_tpu_torch",
+                            "apps", "bundles", "model-runner")
+SERVE_APP = "model-runner"
+SERVE_REQUESTS = 32  # concurrent 512^2 predicts per timed round
+SERVE_IMAGE = 512
+SERVE_WARM_ROUNDS = 2  # untimed rounds first, so the timed ones build no graph
+SERVE_TIMED_ROUNDS = 10  # timed rounds per leg: the median rate and its spread
+SERVE_REPLAYS = 16  # 512^2 predicts replaying beside the tiled requests' captures
+SERVE_LOAD_REQUESTS = 8  # concurrent tiled 2048^2 infers that fill the runtime's 4 slots
+SERVE_TOL = TOLERANCE[torch.bfloat16][0]  # batched vs direct, bf16 packages
+SERVE_MEMORY_SLACK = 64 << 20
+SERVE_HEALTHY_TIMEOUT_S = 300
+WIRE_PACKAGES = ("aiohttp", "msgpack", "yaml", "psutil")  # the RPC wire's and the plane's
+# the legs of the 512^2 round: the bundle as shipped (batching max 8 / 5 ms
+# under max_ongoing_requests 4), then with 8 requests let into the replica
+# at once, then with the batcher off
+SERVE_LEGS = (
+    ("shipped", {}),
+    ("max_ongoing_8", {"max_ongoing_requests": 8}),
+    ("max_batch_1", {"batching": {"max_batch": 1}}),
+)
+
+
+class _InitFailsOnce(RuntimeDeployment):
+    """A runtime deployment whose first ``async_init`` raises."""
+
+    failures = 0
+
+    async def async_init(self):
+        if _InitFailsOnce.failures == 0:
+            _InitFailsOnce.failures += 1
+            raise RuntimeError("async_init failed on purpose")
+        await super().async_init()
+
+
+def _wire_packages() -> dict:
+    found = {}
+    for name in WIRE_PACKAGES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def _serve_bundle(root: str, leg: str, runtime_config: dict) -> str:
+    """The bundle with ``deployment_config.runtime_deployment`` updated."""
+    dst = os.path.join(root, f"bundle_{leg}")
+    shutil.copytree(SERVE_BUNDLE, dst)
+    path = os.path.join(dst, "manifest.yaml")
+    with open(path) as f:
+        manifest = json.load(f)
+    manifest["deployment_config"]["runtime_deployment"].update(runtime_config)
+    with open(path, "w") as f:
+        json.dump(manifest, f)
+    return dst
+
+
+async def _deploy_bundle(controller, root: str, leg: str, runtime_config: dict, device: str):
+    built = AppBuilder(workdir_root=os.path.join(root, "workdirs")).build(
+        SERVE_APP,
+        local_path=_serve_bundle(root, leg, runtime_config),
+        deployment_kwargs={
+            "runtime_deployment": {"device": device},
+            "entry_deployment": {"device": device, "cache_dir": os.path.join(root, "cache")},
+        },
+        make_handle=lambda name: DeploymentHandle(controller, SERVE_APP, name),
+    )
+    t0 = time.perf_counter()
+    app = await controller.deploy(SERVE_APP, built.specs, acl=built.authorized_users)
+    await _until_healthy(app)
+    return app, time.perf_counter() - t0
+
+
+async def _until_healthy(app) -> None:
+    async def wait():
+        while any(r.state != ReplicaState.HEALTHY for reps in app.replicas.values() for r in reps):
+            check(not any(r.state == ReplicaState.UNHEALTHY for reps in app.replicas.values() for r in reps),
+                  f"a replica went unhealthy: {[r.last_error for reps in app.replicas.values() for r in reps]}")
+            await asyncio.sleep(0.01)
+
+    await asyncio.wait_for(wait(), SERVE_HEALTHY_TIMEOUT_S)
+
+
+async def _until(predicate, timeout: float = 60.0) -> None:
+    async def wait():
+        while not predicate():
+            await asyncio.sleep(0.001)
+
+    await asyncio.wait_for(wait(), timeout)
+
+
+def _runtime_instance(app) -> RuntimeDeployment:
+    (replica,) = app.replicas["runtime_deployment"]
+    return replica.instance
+
+
+async def _predict_round(handle, package: str, images) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*(handle.predict(rdf_path=package, inputs={"raw": x}) for x in images))
+    return [o["mask"] for o in outs], time.perf_counter() - t0
+
+
+def _device_busy_ms(prof) -> tuple[float, float]:
+    """(union, sum) in ms of the device activities (kernels, copies,
+    memsets) a ``torch.profiler`` run recorded: the union is the time the
+    card was busy at all, the sum counts overlapping work twice."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    union, total, cur_start, cur_end = 0.0, 0.0, None, None
+    for a, b in spans:
+        total += b - a
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                union += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        union += cur_end - cur_start
+    return union / 1e3, total / 1e3
+
+
+async def _profiled_round(handle, package: str, images) -> tuple[list, float, float, float]:
+    """One round under ``torch.profiler``: (outputs, wall s, busy ms, summed ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        outs, wall = await _predict_round(handle, package, images)
+        torch.cuda.synchronize()
+    busy, summed = _device_busy_ms(prof)
+    return outs, wall, busy, summed
+
+
+def _max_abs(outs, direct) -> float:
+    return max(float(np.abs(o - d).max()) for o, d in zip(outs, direct))
+
+
+async def _serve_leg(card, controller, root, leg, config, package, images, direct, device, n_chips) -> dict:
+    app, deploy_s = await _deploy_bundle(controller, root, leg, config, device)
+    runtime = _runtime_instance(app)
+    leases = {name: [list(r.device_ids) for r in reps] for name, reps in app.replicas.items()}
+    (lease,) = leases["runtime_deployment"]
+    check(leases["entry_deployment"] == [[]] and len(lease) == 1 and (n_chips > 1 or lease == [0]),
+          f"{leg}: leases {leases} on {n_chips} chip(s)")
+    check(str(runtime.device) == (f"cuda:{lease[0]}" if device == "cuda" else "cpu"),
+          f"{leg}: the runtime replica leased {lease} runs on {runtime.device}")
+    handle = controller.get_handle(SERVE_APP, "runtime_deployment")
+    for _ in range(SERVE_WARM_ROUNDS):
+        await _predict_round(handle, package, images)
+    b = runtime._batcher
+    rates, walls, batches, err = [], [], [], 0.0
+    for _ in range(SERVE_TIMED_ROUNDS):
+        n0 = b.stats["batches"] if b is not None else 0
+        _sync(device)
+        outs, wall = await _predict_round(handle, package, images)
+        _sync(device)
+        batches.append(b.stats["batches"] - n0 if b is not None else len(images))
+        rates.append(len(images) / wall)
+        walls.append(wall * 1e3)
+        err = max(err, _max_abs(outs, direct))
+    n_requests = len(images) * SERVE_TIMED_ROUNDS
+    if b is not None:
+        occupancy = list(b._occupancy_samples)[-sum(batches):]
+        waits = sorted(list(b._wait_samples)[-n_requests:])
+        wait_p50, wait_p99 = _quantile(waits, 0.5) * 1e3, _quantile(waits, 0.99) * 1e3
+    else:
+        occupancy, wait_p50, wait_p99 = [1] * n_requests, 0.0, 0.0
+    check(err <= SERVE_TOL, f"{leg}: served vs direct max abs {err} over {SERVE_TOL}")
+    check(sum(occupancy) == n_requests, f"{leg}: occupancy {occupancy} for {n_requests} requests")
+    hist = {str(k): occupancy.count(k) for k in sorted(set(occupancy))}
+    r = {"deploy_s": deploy_s, "rounds": SERVE_TIMED_ROUNDS,
+         "requests_per_s": statistics.median(rates), "requests_per_s_min": min(rates),
+         "requests_per_s_max": max(rates), "requests_per_s_by_round": rates,
+         "wall_ms_median": statistics.median(walls), "batches_by_round": batches,
+         "occupancy": hist, "queue_wait_ms_p50": wait_p50, "queue_wait_ms_p99": wait_p99,
+         "max_abs_vs_direct": err, "batch_max": runtime.batch_max,
+         "max_ongoing": app.specs["runtime_deployment"].max_ongoing_requests}
+    print(f"[{card}] serving {leg} (batch max {r['batch_max']}, max_ongoing {r['max_ongoing']}): "
+          f"{SERVE_TIMED_ROUNDS} rounds of {len(images)} concurrent {SERVE_IMAGE}^2 predicts, requests/s "
+          f"median {r['requests_per_s']:.2f} (min {min(rates):.2f}, max {max(rates):.2f}; round wall median "
+          f"{r['wall_ms_median']:.3f} ms); batches per round {batches}, occupancy {json.dumps(hist)}; "
+          f"queue wait p50 {wait_p50:.3f} ms, p99 {wait_p99:.3f} ms; max abs vs direct {err:.6g} "
+          f"(tolerance {SERVE_TOL}); deploy + self-test {deploy_s:.3f} s")
+    if device == "cuda":
+        outs, wall, busy, summed = await _profiled_round(handle, package, images)
+        check(busy > 0, f"{leg}: the profiler recorded no device activity in a served round")
+        err = max(err, _max_abs(outs, direct))
+        check(err <= SERVE_TOL, f"{leg}: profiled round max abs {err} over {SERVE_TOL}")
+        r.update(profiled_wall_ms=wall * 1e3, busy_ms=busy, busy_sum_ms=summed,
+                 busy_share=busy / (wall * 1e3))
+        print(f"[{card}] serving {leg}: one more round under torch.profiler, wall {wall * 1e3:.3f} ms "
+              f"(unprofiled median {r['wall_ms_median']:.3f} ms); device busy (union of kernels, copies "
+              f"and memsets) {busy:.3f} ms, summed {summed:.3f} ms; busy share {r['busy_share']:.4f} "
+              "of that round's wall")
+    return {"app": app, "runtime": runtime, **r}
+
+
+async def drive_serving(card: str, device: str, root: str, pkgs: dict, inputs: dict, direct: dict) -> dict:
+    topo = detect_topology(device=device)
+    n_chips = topo.n_chips
+    controller = ServeController(ClusterState(topo), health_check_period=3600)
+    state = controller.cluster_state
+    r: dict = {"n_chips": n_chips, "legs": {}}
+    try:
+        for leg, config in SERVE_LEGS:
+            if leg != SERVE_LEGS[0][0]:
+                await controller.undeploy(SERVE_APP)
+                check(state.free_chips() == n_chips,
+                      f"undeploy before {leg} left {state.free_chips()} of {n_chips} chips free")
+            res = await _serve_leg(card, controller, root, leg, config, pkgs["unet2d"],
+                                   inputs["images"], direct["images"], device, n_chips)
+            app, runtime = res.pop("app"), res.pop("runtime")
+            r["legs"][leg] = res
+
+        # the tiled 2048^2 request and the volume through the entry, with
+        # 512^2 predicts replaying beside their graph captures; batching is
+        # off in this deployment, so each must equal its direct result
+        entry = controller.get_handle(SERVE_APP, "entry_deployment")
+        handle = controller.get_handle(SERVE_APP, "runtime_deployment")
+        replays = inputs["images"][:SERVE_REPLAYS]
+        t0 = time.perf_counter()
+        tiled, volume, *side = await asyncio.gather(
+            entry.infer(model_id="unet2d", inputs={"raw": inputs["2048"]}),
+            entry.infer(model_id="unet3d", inputs={"raw": inputs["volume"]}),
+            *(handle.predict(rdf_path=pkgs["unet2d"], inputs={"raw": x}) for x in replays),
+        )
+        r["concurrent_s"] = time.perf_counter() - t0
+        check(np.array_equal(tiled["mask"], direct["2048"]), "entry infer 2048^2 differs from the direct result: "
+              f"max abs {np.abs(tiled['mask'] - direct['2048']).max()}")
+        check(np.array_equal(volume["mask"], direct["volume"]), "entry infer volume differs from the direct "
+              f"result: max abs {np.abs(volume['mask'] - direct['volume']).max()}")
+        side_err = max(float(np.abs(o["mask"] - d).max()) for o, d in zip(side, direct["images"]))
+        check(side_err <= SERVE_TOL, f"replays beside the captures: max abs {side_err}")
+        r["side_max_abs"] = side_err
+        print(f"[{card}] serving: entry infer 2048^2 (tiled) and {VOLUME[1:4]} volume concurrently with "
+              f"{len(replays)} {SERVE_IMAGE}^2 replays in {r['concurrent_s']:.3f} s (first calls: graph "
+              f"captures beside replays); both equal their direct results bit for bit; replays max abs "
+              f"{side_err:.6g}")
+
+        # load: the runtime's 4 slots fill with tiled requests; the
+        # controller wants a second replica, which on one chip finds none
+        # free and is a pending workload, and on more chips is placed
+        load = [asyncio.create_task(entry.infer(model_id="unet2d", inputs={"raw": inputs["2048"]}))
+                for _ in range(SERVE_LOAD_REQUESTS)]
+        (replica,) = app.replicas["runtime_deployment"]
+        await _until(lambda: replica.load >= 1.0)
+        r["load_at_tick"] = replica.load
+        await controller.health_tick()
+        pending = [(p.workload_id, p.resources) for p in state.pending()]
+        n_runtime = len(app.replicas["runtime_deployment"])
+        loaded = await asyncio.gather(*load)
+        if n_chips == 1:
+            check(pending == [(f"{SERVE_APP}/runtime_deployment", {"chips": 1})],
+                  f"pending workloads {pending}")
+            check(n_runtime == 1, f"{n_runtime} runtime replicas on one chip")
+        else:
+            check(not pending and n_runtime == 2, f"{n_runtime} runtime replicas on {n_chips} chips, "
+                  f"pending {pending}")
+        check(app.status == "RUNNING", f"app {app.status}")
+        check(all(np.array_equal(o["mask"], direct["2048"]) for o in loaded), "a loaded 2048^2 request differs")
+        r["pending"] = pending
+        print(f"[{card}] serving: {SERVE_LOAD_REQUESTS} concurrent 2048^2 infers, runtime load "
+              f"{r['load_at_tick']:.2f} at the health tick on {n_chips} chip(s): {n_runtime} runtime "
+              f"replica(s), pending workloads {pending}; the app stays {app.status}")
+
+        # undeploy frees the card and the chip
+        del replica, runtime, app
+        await controller.undeploy(SERVE_APP)
+        r["free_chips_after_undeploy"] = state.free_chips()
+        check(state.free_chips() == n_chips and not state._chips_in_use,
+              f"undeploy left chips in use: {state._chips_in_use}")
+
+        # a deployment whose async_init raises: typed failure, chip back, retry serves
+        _InitFailsOnce.failures = 0
+        spec = DeploymentSpec(name="runtime_deployment", instance_factory=lambda: _InitFailsOnce(device=device),
+                              chips_per_replica=1, autoscale=False)
+        try:
+            await controller.deploy("init-fails", [spec])
+            check(False, "a deployment whose async_init raises deployed")
+        except RuntimeError as e:
+            check("async_init failed on purpose" in str(e), f"deploy failed with {e!r}")
+            r["init_failure"] = f"{type(e).__name__}: {e}"
+        check(controller.apps["init-fails"].status == "DEPLOY_FAILED" and state.free_chips() == n_chips,
+              f"failed deploy: status {controller.apps['init-fails'].status}, free {state.free_chips()}")
+        retry = await controller.deploy("init-fails", [spec])
+        (rep,) = retry.replicas["runtime_deployment"]
+        out = await controller.get_handle("init-fails").predict(rdf_path=pkgs["unet2d"],
+                                                                 inputs={"raw": inputs["images"][0]})
+        check(len(rep.device_ids) == 1 and float(np.abs(out["mask"] - direct["images"][0]).max()) <= SERVE_TOL,
+              f"the retried deploy: lease {rep.device_ids}")
+        rep_lease = rep.device_ids
+        del rep, retry
+        await controller.undeploy("init-fails")
+        check(state.free_chips() == n_chips, "the retried deploy's chip was not released")
+        print(f"[{card}] serving: a deployment whose async_init raises failed typed ({r['init_failure']}), "
+              f"released the chip; the retry leased chip {rep_lease} and served")
+    finally:
+        await controller.stop()
+    return r
+
+
+def phase_serving(card: str, device: str = "cuda") -> dict:
+    """Slice 8: the model-runner bundle built by the port's AppBuilder and
+    served by its ServeController on the card; one ``serving`` JSON line."""
+    found = _wire_packages()
+    print(f"[{card}] serving: packages of the plane and the RPC wire importable here: {json.dumps(found)}")
+    if device == "cuda":
+        topo = detect_topology()
+        check(topo.n_chips == torch.cuda.device_count() and topo.platform == "gpu", f"topology {topo.as_dict()}")
+        chip = topo.chips[0]
+        total = torch.cuda.mem_get_info(0)[1]
+        check(chip.kind == torch.cuda.get_device_name(0) and chip.hbm_bytes == total,
+              f"chip 0 {chip} against {torch.cuda.get_device_name(0)}, {total} B")
+        print(f"[{card}] serving: detect_topology() {topo.n_chips} chip(s); chip 0 '{chip.kind}', "
+              f"hbm {chip.hbm_bytes} B ({chip.hbm_used_bytes} B in use)")
+    rng = np.random.default_rng(SEED)
+    unet2d = UNet2D(features=UNET2D_FEATURES)
+    unet2d.reset_parameters(SEED)
+    unet3d = UNet3D(features=UNET3D_FEATURES, z_strides=UNET3D_Z_STRIDES)
+    unet3d.reset_parameters(SEED + 1)
+    inputs = {
+        "images": [rng.standard_normal((1, SERVE_IMAGE, SERVE_IMAGE, 1), np.float32)
+                   for _ in range(SERVE_REQUESTS)],
+        "2048": rng.standard_normal((1, 2048, 2048, 1), np.float32),
+        "volume": rng.standard_normal(VOLUME, np.float32),
+    }
+    before_env = os.environ.get("BIOENGINE_LOCAL_MODEL_PATH")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        collection = os.path.join(root, "collection")
+        os.makedirs(collection)
+        pkgs = {
+            "unet2d": write_unet_package(collection, "unet2d", unet2d, "unet2d",
+                                         {"features": list(UNET2D_FEATURES)}, "byxc"),
+            "unet3d": write_unet_package(collection, "unet3d", unet3d, "unet3d",
+                                         {"features": list(UNET3D_FEATURES),
+                                          "z_strides": list(UNET3D_Z_STRIDES)}, "bzyxc"),
+        }
+        del unet2d, unet3d
+        # the direct path: RuntimeDeployment.predict with no replica and no batcher
+        dep = RuntimeDeployment(device=device)
+
+        async def direct_results():
+            return {
+                "images": [(await dep.predict(pkgs["unet2d"], {"raw": x}))["mask"] for x in inputs["images"]],
+                "2048": (await dep.predict(pkgs["unet2d"], {"raw": inputs["2048"]}))["mask"],
+                "volume": (await dep.predict(pkgs["unet3d"], {"raw": inputs["volume"]}))["mask"],
+            }
+
+        try:
+            direct = asyncio.run(direct_results())
+        finally:
+            asyncio.run(dep.close())
+        del dep
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() if device == "cuda" else 0
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = collection
+        attention.launch_count = 0
+        try:
+            r = asyncio.run(drive_serving(card, device, root, pkgs, inputs, direct))
+        finally:
+            if before_env is None:
+                os.environ.pop("BIOENGINE_LOCAL_MODEL_PATH", None)
+            else:
+                os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = before_env
+        launches = attention.launch_count
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+            check(after - base <= SERVE_MEMORY_SLACK, f"after undeploy {after} B allocated against "
+                  f"{base} B before the deploy (slack {SERVE_MEMORY_SLACK} B)")
+            print(f"[{card}] serving: device memory allocated {base} B before the deploy, peak {peak} B "
+                  f"while deployed, {after} B after the undeploys ({(after - base) / 2**20:.3f} MiB "
+                  f"apart, limit 64 MiB); chip released")
+            r["memory_before"], r["memory_peak"], r["memory_after"] = base, peak, after
+        else:
+            print("serving: device memory not measured on the CPU")
+    check(launches == 0, f"the serving phase launched flash_attn_fwd {launches} times")
+    print(f"[{card}] serving phase: flash_attn_fwd launches {launches} (the U-Nets run no attention)")
+    out = {"card": card, **r, "wire_packages": found, "flash_attn_fwd_launches": launches}
+    print("serving " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -2532,6 +2954,7 @@ def main() -> int:
     transformers = phase_cellpose_transformers(card)
     zoo = phase_zoo(card)
     decode = phase_decode(card)
+    serving = phase_serving(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2539,14 +2962,15 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slices 2-5 and 7 launch no attention kernel: their counts stay 0
+        # slices 2-5, 7 and 8 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "index": index["launches"],
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
                              "cellpose_transformers": transformers["launches"],
                              "zoo": zoo["launches"],
-                             "decode": decode["flash_attn_fwd_launches"]},
+                             "decode": decode["flash_attn_fwd_launches"],
+                             "serving": serving["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -3,6 +3,8 @@ package, and its entry points run on the card unless asked for the CPU."""
 
 import ast
 import asyncio
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +18,8 @@ from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetun
 from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
 from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import Pipeline, RuntimeDeployment
+from bioengine_tpu_torch.cluster.state import ClusterState
+from bioengine_tpu_torch.cluster.topology import detect_topology
 from bioengine_tpu_torch.models.cellpose import CellposeConfig, create_model_and_state
 from bioengine_tpu_torch.models.registry import list_models
 from bioengine_tpu_torch.models.unet import UNet2D
@@ -31,6 +35,19 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu", "sklearn", "pandas"}
 PORT_FILES = sorted((REPO / "bioengine_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
+]
+# the modules of slice 8, each imported below in a fresh interpreter
+SLICE8_MODULES = [
+    "utils/tasks.py", "utils/backoff.py", "utils/permissions.py", "utils/telemetry.py",
+    "utils/tracing.py", "utils/compile_cache.py",
+    "rpc/__init__.py", "rpc/schema.py", "rpc/protocol.py",
+    "cluster/__init__.py", "cluster/topology.py", "cluster/state.py",
+    "serving/__init__.py", "serving/errors.py", "serving/replica.py", "serving/batching.py",
+    "serving/outlier.py", "serving/remote.py", "serving/scheduler.py", "serving/router.py",
+    "serving/slo.py", "serving/journal.py", "serving/warm_pool.py", "serving/mesh_replica.py",
+    "serving/mesh_plan.py", "serving/compile_tier.py", "serving/controller.py",
+    "apps/manifest.py", "apps/builder.py", "apps/artifacts.py",
+    "apps/model_runner/runtime.py", "apps/model_runner/entry.py",
 ]
 
 
@@ -74,6 +91,11 @@ def test_port_files_exist():
         "serving/scheduler.py", "serving/decode.py", "apps/generate/service.py",
     ):
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
+    # slice 8: the serving plane, the topology over CUDA, the app builder
+    for rel in SLICE8_MODULES:
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
+    for name in ("manifest.yaml", "entry_deployment.py", "runtime_deployment.py"):
+        assert (REPO / "bioengine_tpu_torch" / "apps" / "bundles" / "model-runner" / name).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -207,3 +229,44 @@ def test_decode_entry_points_raise_without_cuda(no_cuda):
     asyncio.run(app.async_init())
     assert app.engine.device.type == "cpu"
     asyncio.run(app.close())
+
+
+def test_slice8_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 8, the bundle's
+    deployment files and chip_smoke.py import, a manifest and a cluster
+    snapshot load, and no module of jax, flax, ``bioengine_tpu`` or the
+    other forbidden packages has been imported along the way."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+        for rel in SLICE8_MODULES
+    ]
+    bundle = REPO / "bioengine_tpu_torch" / "apps" / "bundles" / "model-runner"
+    script = f"""
+import importlib, runpy, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+for path in ({str(bundle / "entry_deployment.py")!r}, {str(bundle / "runtime_deployment.py")!r}):
+    runpy.run_path(path)
+import chip_smoke
+from bioengine_tpu_torch.apps.manifest import load_manifest
+from bioengine_tpu_torch.cluster.state import ClusterState
+from bioengine_tpu_torch.cluster.topology import detect_topology
+assert load_manifest({str(bundle)!r}).raw["id"] == "model-runner"
+assert ClusterState(detect_topology(device="cpu")).snapshot()["memory"]["total_bytes"] > 0
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_serving_defaults_are_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RuntimeDeployment()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        detect_topology()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterState().free_chips()
+    assert detect_topology(device="cpu").platform == "cpu"

@@ -1,0 +1,150 @@
+"""Copy fidelity of the serving plane's modules: each module the port keeps
+as a copy of a JAX-package module (host-only Python that imports no JAX)
+must equal it statement for statement after the import prefix
+``bioengine_tpu.`` is renamed ``bioengine_tpu_torch.``.
+
+The comparison is ``ast.dump`` of each top-level statement, keyed by what
+it defines: a function or class by name, an import by its text, an
+assignment by its targets, a ``try`` by its first statement, the module
+docstring as ``__doc__``. A class whose methods are allow-listed is
+compared method by method. Every allow-listed key is a deliberate
+difference of the port and must be listed, with its module, in
+ROADMAP.md's slice-8 differences.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from _torch_parity import few_torch_threads  # noqa: F401
+
+REPO = Path(__file__).resolve().parent.parent
+
+# module -> {key: reason}; a module mapped to {} is an unchanged copy
+COPIES = {
+    "utils/tasks.py": {},
+    "utils/backoff.py": {},
+    "utils/permissions.py": {},
+    "utils/telemetry.py": {},
+    "utils/tracing.py": {},
+    "rpc/schema.py": {},
+    "rpc/protocol.py": {},
+    "rpc/__init__.py": {
+        "__doc__": "the wire is not ported (ROADMAP A12b)",
+        "from bioengine_tpu_torch.rpc.client import connect_to_server": "the wire (A12b)",
+        "from bioengine_tpu_torch.rpc.server import RpcServer": "the wire (A12b)",
+        "__all__": "exports schema_method only",
+    },
+    "cluster/topology.py": {
+        "__doc__": "CUDA in place of jax.devices()",
+        "import torch": "CUDA in place of jax.devices()",
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device":
+            "CUDA in place of jax.devices()",
+        "detect_topology": "CUDA in place of jax.devices()",
+    },
+    "cluster/state.py": {},
+    "serving/errors.py": {},
+    "serving/replica.py": {},
+    "serving/batching.py": {},
+    "serving/outlier.py": {},
+    "serving/remote.py": {},
+    "serving/scheduler.py": {},
+    "serving/router.py": {},
+    "serving/slo.py": {},
+    "serving/journal.py": {},
+    "serving/warm_pool.py": {},
+    "serving/mesh_replica.py": {},
+    "serving/mesh_plan.py": {
+        "MeshConfig.mesh_shape": "the parallel layer is not ported (ROADMAP A10)",
+    },
+    "serving/compile_tier.py": {},
+    "serving/controller.py": {},
+    "serving/__init__.py": {},
+    "apps/manifest.py": {},
+    "apps/builder.py": {},
+    "apps/artifacts.py": {},
+}
+# the port holds only these of the JAX module's statements
+SUBSETS = {
+    "utils/compile_cache.py": {"__doc__": "holds only what compile_tier.py imports (ROADMAP A11)"},
+}
+
+
+def _key(i: int, node: ast.stmt) -> str:
+    if (
+        i == 0
+        and isinstance(node, ast.Expr)
+        and isinstance(node.value, ast.Constant)
+        and isinstance(node.value.value, str)
+    ):
+        return "__doc__"
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+        return node.name
+    if isinstance(node, (ast.Import, ast.ImportFrom)):
+        return ast.unparse(node)
+    if isinstance(node, ast.Assign):
+        return ", ".join(ast.unparse(t) for t in node.targets)
+    if isinstance(node, ast.AnnAssign):
+        return ast.unparse(node.target)
+    if isinstance(node, ast.Try):
+        return "try: " + ast.unparse(node.body[0])
+    return f"{type(node).__name__}@{i}"
+
+
+def _items(body: list, prefix: str, split: set) -> dict:
+    out = {}
+    for i, node in enumerate(body):
+        key = prefix + _key(i, node)
+        if isinstance(node, ast.ClassDef) and key in split:
+            out.update(_items(node.body, key + ".", split))
+        else:
+            out[key] = ast.dump(node)
+    return out
+
+
+def _pair(rel: str, skips: dict) -> tuple[dict, dict]:
+    split = {k.rsplit(".", 1)[0] for k in skips if "." in k and not k.startswith(("import", "from"))}
+    jax_src = (REPO / "bioengine_tpu" / rel).read_text().replace("bioengine_tpu.", "bioengine_tpu_torch.")
+    port_src = (REPO / "bioengine_tpu_torch" / rel).read_text()
+    return (
+        _items(ast.parse(jax_src).body, "", split),
+        _items(ast.parse(port_src).body, "", split),
+    )
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copy_equals_the_jax_module(rel):
+    skips = COPIES[rel]
+    ref, ours = _pair(rel, skips)
+    for key in skips:
+        assert key in ref or key in ours, f"{rel}: allow-listed {key!r} is on neither side"
+    differ = sorted(
+        k for k in set(ref) | set(ours)
+        if k not in skips and ref.get(k) != ours.get(k)
+    )
+    assert not differ, f"{rel}: differs from the JAX module at {differ}"
+
+
+@pytest.mark.parametrize("rel", sorted(SUBSETS))
+def test_subset_equals_the_jax_module(rel):
+    skips = SUBSETS[rel]
+    ref, ours = _pair(rel, skips)
+    kept = [k for k in ours if k not in skips]
+    assert kept, rel
+    assert [k for k in kept if ours[k] != ref.get(k)] == []
+
+
+def _slice8_differences() -> str:
+    text = (REPO / "ROADMAP.md").read_text()
+    start = text.index("Slice 8 (")
+    end = text.index("\n\n\n", start) if "\n\n\n" in text[start:] else len(text)
+    return text[start:end]
+
+
+@pytest.mark.parametrize("rel", sorted(k for k, v in {**COPIES, **SUBSETS}.items() if v))
+def test_every_skip_is_a_listed_difference(rel):
+    section = _slice8_differences()
+    assert f"`{rel}`" in section, rel
+    for key in {**COPIES, **SUBSETS}[rel]:
+        assert f"`{key}`" in section, f"{rel}: {key}"
