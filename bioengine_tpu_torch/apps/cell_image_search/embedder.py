@@ -45,6 +45,7 @@ class ViTEmbedder:
         # compare against it
         attn_fn: Optional[Callable] = None,
         # ViT constructor overrides, to shrink the model in CPU tests
+        # ("dtype" may be a torch dtype or its name, e.g. "float32")
         model_overrides: Optional[dict[str, Any]] = None,
     ) -> None:
         self.device = resolve_device(device)
@@ -71,6 +72,8 @@ class ViTEmbedder:
     def _build(self) -> ViT:
         kw = {"patch_size": 14, "dim": 768, "depth": 12, "num_heads": 12}
         kw.update(self.model_overrides)
+        if isinstance(kw.get("dtype"), str):  # by name, as deployment kwargs carry it
+            kw["dtype"] = getattr(torch, kw["dtype"])
         model = ViT(img_size=self.INPUT_SIZE, attn_fn=self.attn_fn, **kw)
         if self.weights_path:
             state = state_dict_from_flax(load_params_npz(self.weights_path))

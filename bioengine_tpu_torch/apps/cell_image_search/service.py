@@ -1,14 +1,16 @@
 """Cell Morphology Search Engine on PyTorch.
 
 Counterpart of ``CellImageSearch`` in ``apps/cell-image-search/main.py``,
-every method as a plain ``async`` method (no RPC plane, no ``context``):
-``ping``, ``get_index_stats``; ``list_datasets`` / ``add_dataset`` /
+with the same ``@schema_method``s (each takes ``context``): ``ping``,
+``get_index_stats``; ``list_datasets`` / ``add_dataset`` /
 ``remove_dataset``; ``start_ingestion`` / ``get_ingestion_status`` /
 ``stop_ingestion`` / ``get_active_sessions``; ``search`` with the query's
 position on the 2-D map; ``get_umap_preview`` and
 ``project_query_onto_umap``. The embedder runs on the card (the
-flash-attention kernel in every bucket), index training on the same device;
-a datasets-plane client, where there is one, is passed in.
+flash-attention kernel in every bucket), index training on the same device.
+The datasets-plane client is ``bioengine_datasets``: passed in as
+``datasets_client``, or attached by the app builder when the worker
+deploys the bundle (``apps/bundles/cell-image-search``).
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ from bioengine_tpu_torch.apps.cell_image_search.ingestion import (
 from bioengine_tpu_torch.apps.cell_image_search.normalizer import (
     decode_image_bytes,
 )
+from bioengine_tpu_torch.rpc import schema_method
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
     device_name,
     resolve_device,
+    resolve_devices,
 )
 
 
@@ -64,7 +68,8 @@ class CellImageSearch:
         seed: int = 0,
         model_overrides: Optional[dict[str, Any]] = None,
         # a datasets-plane client (async list_datasets/list_files/get_file,
-        # ``available``) for the 'datasets' source
+        # ``available``) for the 'datasets' source; without one the app
+        # builder attaches the worker's
         datasets_client: Any = None,
     ):
         self.device = resolve_device(device)
@@ -79,7 +84,8 @@ class CellImageSearch:
         )
         self.crop_size = crop_size
         self.n_crops_per_image = n_crops_per_image
-        self.bioengine_datasets = datasets_client
+        if datasets_client is not None:
+            self.bioengine_datasets = datasets_client
         self.started_at = time.time()
         self._index = None
         self._metadata: Optional[list[dict]] = None
@@ -90,6 +96,13 @@ class CellImageSearch:
     # ---- lifecycle hooks --------------------------------------------------
 
     async def async_init(self):
+        """The replica lifecycle injects the leased chip
+        (``bioengine_device_ids``) before this runs: the embedder, the
+        index and ingestion run on that card (``resolve_devices``: a lease
+        naming no such device is refused, never remapped)."""
+        lease = getattr(self, "bioengine_device_ids", None)
+        (self.device,) = resolve_devices(list(lease) if lease else None, self.device)
+        self.embedder.device = self.device  # the model loads on first use
         await self._try_load_index()
 
     async def test_deployment(self):
@@ -122,7 +135,8 @@ class CellImageSearch:
 
     # ---- status -----------------------------------------------------------
 
-    async def ping(self):
+    @schema_method
+    async def ping(self, context=None):
         """Liveness + device summary."""
         cuda = self.device.type == "cuda"
         return {
@@ -136,7 +150,8 @@ class CellImageSearch:
             "index_loaded": self._index is not None,
         }
 
-    async def get_index_stats(self):
+    @schema_method
+    async def get_index_stats(self, context=None):
         """Index size/type/build stats, or {loaded: False}."""
         if self._index is None and not await self._try_load_index():
             return {"loaded": False, "n_cells": 0}
@@ -149,11 +164,12 @@ class CellImageSearch:
 
     # ---- dataset registry --------------------------------------------------
 
-    async def list_datasets(self):
+    @schema_method
+    async def list_datasets(self, context=None):
         """Registered ingestion sources + datasets-plane datasets."""
         registered = load_registry(self.workspace_dir)
         remote = []
-        client = self.bioengine_datasets
+        client = getattr(self, "bioengine_datasets", None)
         if client is not None and client.available:
             try:
                 remote = await client.list_datasets()
@@ -161,6 +177,7 @@ class CellImageSearch:
                 remote = []
         return {"registered": registered, "data_server": remote}
 
+    @schema_method
     async def add_dataset(
         self,
         name: str,
@@ -168,6 +185,7 @@ class CellImageSearch:
         path: Optional[str] = None,
         n_images: int = 8,
         image_size: int = 896,
+        context=None,
     ):
         """Register an ingestion source. source: 'synthetic' (demo
         generator), 'local' (directory on the worker), or 'datasets'
@@ -187,7 +205,8 @@ class CellImageSearch:
         upsert_registry(self.workspace_dir, entry)
         return {"added": True, "dataset": entry}
 
-    async def remove_dataset(self, name: str):
+    @schema_method
+    async def remove_dataset(self, name: str, context=None):
         """Drop a dataset from the registry."""
         registry = load_registry(self.workspace_dir)
         kept = [r for r in registry if r.get("name") != name]
@@ -196,11 +215,13 @@ class CellImageSearch:
 
     # ---- ingestion ---------------------------------------------------------
 
+    @schema_method
     async def start_ingestion(
         self,
         dataset_name: str,
         session_id: Optional[str] = None,
         n_crops_per_image: Optional[int] = None,
+        context=None,
     ):
         """Launch background ingestion of a registered dataset; returns
         the session id to poll with get_ingestion_status."""
@@ -240,7 +261,7 @@ class CellImageSearch:
         )
         dataset = dict(entry)
         if dataset["source"] == "datasets":
-            dataset["client"] = self.bioengine_datasets
+            dataset["client"] = getattr(self, "bioengine_datasets", None)
 
         async def _run():
             try:
@@ -267,16 +288,19 @@ class CellImageSearch:
         self._sessions[session_id] = asyncio.create_task(_run())
         return {"session_id": session_id, "status": "started"}
 
-    async def get_ingestion_status(self, session_id: str):
+    @schema_method
+    async def get_ingestion_status(self, session_id: str, context=None):
         """Poll a session's status.json."""
         return read_status(self.workspace_dir, session_id)
 
-    async def stop_ingestion(self, session_id: str):
+    @schema_method
+    async def stop_ingestion(self, session_id: str, context=None):
         """Request a running session to stop (between images)."""
         request_stop(self.workspace_dir, session_id)
         return {"session_id": session_id, "stop_requested": True}
 
-    async def get_active_sessions(self):
+    @schema_method
+    async def get_active_sessions(self, context=None):
         """All known sessions with their latest status."""
         root = session_dir(self.workspace_dir, "x").parent
         sessions = {}
@@ -290,11 +314,13 @@ class CellImageSearch:
 
     # ---- search ------------------------------------------------------------
 
+    @schema_method
     async def search(
         self,
         image: Any = None,
         image_bytes: Optional[bytes] = None,
         top_k: int = 20,
+        context=None,
     ):
         """Find morphologically similar cells. ``image`` is any microscopy
         array (1-5 channels); ``image_bytes`` a PNG/JPEG/TIFF (needs
@@ -326,8 +352,12 @@ class CellImageSearch:
 
     # ---- projection (UMAP-analog) -----------------------------------------
 
+    @schema_method
     async def get_umap_preview(
-        self, n_samples: int = 10_000, force_recompute: bool = False
+        self,
+        n_samples: int = 10_000,
+        force_recompute: bool = False,
+        context=None,
     ):
         """2-D projection of an index sample for the dashboard scatter
         (PCA projector, cached with components so queries map into the
@@ -341,7 +371,8 @@ class CellImageSearch:
             self.device,
         )
 
-    async def project_query_onto_umap(self, image: Any):
+    @schema_method
+    async def project_query_onto_umap(self, image: Any, context=None):
         """Embed an image and return its position on the cached 2-D map."""
         query = await asyncio.to_thread(
             self.embedder.embed_single, np.asarray(image)

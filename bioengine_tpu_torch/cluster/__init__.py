@@ -1,7 +1,5 @@
-"""Cluster state over the CUDA topology: chip leases, replicas, pending
-workloads."""
-
+from bioengine_tpu_torch.cluster.cluster import TpuCluster
 from bioengine_tpu_torch.cluster.state import ClusterState
 from bioengine_tpu_torch.cluster.topology import TpuTopology, detect_topology
 
-__all__ = ["ClusterState", "TpuTopology", "detect_topology"]
+__all__ = ["TpuCluster", "ClusterState", "TpuTopology", "detect_topology"]

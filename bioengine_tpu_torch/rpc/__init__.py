@@ -1,10 +1,5 @@
-"""The RPC plane's in-process half: ``schema_method``.
-
-The wire (``server.py``, ``transport.py``, ``client.py``) is not ported
-yet (ROADMAP A12b); ``protocol.py`` is here for ``RemoteError`` and the
-``PROTO_*`` names the serving plane reads.
-"""
-
 from bioengine_tpu_torch.rpc.schema import schema_method
+from bioengine_tpu_torch.rpc.client import connect_to_server
+from bioengine_tpu_torch.rpc.server import RpcServer
 
-__all__ = ["schema_method"]
+__all__ = ["schema_method", "connect_to_server", "RpcServer"]

@@ -120,8 +120,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    device memory is back within 64 MiB and the chips are free; a deployment
    whose ``async_init`` raises fails typed, frees the chip and deploys on
    retry; the attention kernel's count stays 0; one ``serving`` JSON line;
-13. one JSON line of the kernels' numbers;
-14. the result line ``{"ok": true, "device": {...}}``, printed last.
+13. the worker (slice 9), ``phase_worker``: whether httpx, cloudpickle and
+   aiohttp import, whether the native shm store built, which codecs load;
+   a Zarr dataset of 16 synthetic 896^2 fields (zstd where it loads) under
+   the worker's ``datasets_dir``; ``BioEngineWorker(device="cuda")`` in
+   process, driven over a ``connect_to_server`` WebSocket client:
+   ``get_status`` names the card; the cell-image-search bundle deployed
+   through the apps manager at ViT-B/14 width (bucket 64), ingesting the
+   dataset from the worker's own datasets plane; 16 searches over the
+   WebSocket, the same 16 through the HTTP ``/call`` bridge and on the
+   deployed instance in process, all equal, and one MCP ``tools/call``;
+   ms per search on each path and the wire's cost; the flash kernel's
+   launches equal 12 x the app's forwards; ``start_profiling`` /
+   ``stop_profiling`` around 2 searches (the trace holds a ``flash_attn``
+   kernel) and ``memory_profile``; the model-runner bundle deployed through
+   the same worker (after the search app's undeploy: one card) with 16
+   512^2 f32 predicts over the wire against the direct predicts and the
+   in-process handle, with bytes and ms per request and the path (shm or
+   wire frames) that carried them; ``run_code`` with one chip sees one
+   card; the worker stops, its lock is released, the allocated memory is
+   back within 64 MiB; the searches equal, bit for bit,
+   ``CellImageSearch(device="cuda")`` built here on the same seed over the
+   worker's index; then ``python -m bioengine_tpu_torch.worker`` as a
+   subprocess answers ``/health/liveness``, names the card through the
+   bridge with its admin token and exits 0 on SIGTERM; one ``worker`` JSON
+   line;
+14. one JSON line of the kernels' numbers;
+15. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -144,6 +169,7 @@ import sys
 import tempfile
 import time
 
+import aiohttp
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -171,6 +197,7 @@ from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.cluster.state import ClusterState
 from bioengine_tpu_torch.cluster.topology import detect_topology
+from bioengine_tpu_torch.datasets import codecs, zarr_codec
 from bioengine_tpu_torch.models.cellpose import (
     CellposeConfig,
     CellposeNet,
@@ -218,7 +245,10 @@ from bioengine_tpu_torch.runtime.program_cache import CompiledProgramCache
 from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
 from bioengine_tpu_torch.runtime.weight_stream import write_manifest
 from bioengine_tpu_torch.serving.decode import DecodeLoop
+from bioengine_tpu_torch.native import store as native_store
+from bioengine_tpu_torch.rpc import connect_to_server
 from bioengine_tpu_torch.serving import DeploymentHandle, DeploymentSpec, ReplicaState, ServeController
+from bioengine_tpu_torch.worker.worker import BioEngineWorker
 
 SEED = 0
 BUCKET = 64
@@ -2942,6 +2972,575 @@ def phase_serving(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 9: the worker over the wire -----------------------------------------
+
+WORKER_BUNDLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bioengine_tpu_torch",
+                              "apps", "bundles")
+WORKER_CIS = "cell-image-search"
+WORKER_FIELDS = 16  # synthetic 896^2 fields of the Zarr dataset the worker serves
+WORKER_FIELD_SIZE = 896
+WORKER_CROPS_PER_FIELD = 50
+WORKER_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
+WORKER_SEARCHES = 16
+WORKER_ROUNDS = 3  # timed rounds over the queries (and the predicts), the paths interleaved call by call
+WORKER_PROFILED_SEARCHES = 2
+WORKER_PREDICTS = 16  # 512^2 f32 predicts through the model-runner over the wire
+WORKER_INGEST_TIMEOUT_S = 600
+WORKER_CLI_START_S = 60
+WORKER_CLI_STOP_S = 30
+WORKER_PROBES = ("httpx", "cloudpickle", "aiohttp")
+
+
+def write_cell_dataset(datasets_dir: str, name: str, n_fields: int, size: int, seed: int,
+                       compressor) -> np.ndarray:
+    """A datasets-plane dataset: ``<name>/fields.zarr`` holding the array
+    ``raw`` of ``n_fields`` synthetic fields (N, size, size) float32, one
+    chunk a field; returns the fields."""
+    fields = np.stack([img for _, img in make_synthetic_images(n_images=n_fields, size=size, seed=seed)])
+    root = os.path.join(datasets_dir, name)
+    os.makedirs(root)
+    with open(os.path.join(root, "manifest.yaml"), "w") as f:
+        f.write("description: synthetic fluorescence fields\nauthorized_users: ['*']\n")
+    zarr_codec.write_group(os.path.join(root, "fields.zarr"))
+    zarr_codec.write_array(os.path.join(root, "fields.zarr"), "raw", fields,
+                           chunks=(1, size, size), compressor=compressor)
+    return fields
+
+
+def _codecs_loaded() -> dict:
+    loaded = {}
+    for name, fn in (("zstd", lambda: codecs.zstd_compress(b"probe", 3)),
+                     ("lz4", lambda: codecs.lz4_compress(b"probe")),
+                     ("blosc", lambda: codecs.blosc_compress(b"probe"))):
+        try:
+            fn()
+            loaded[name] = True
+        except codecs.CodecUnavailable:
+            loaded[name] = False
+    return loaded
+
+
+def _results(found: dict) -> list:
+    """A search's ranked results without its timings."""
+    return [dict(r) for r in found["results"]]
+
+
+def _spread(ms: list) -> dict:
+    q1, _, q3 = statistics.quantiles(ms, n=4)
+    return {"n": len(ms), "median": statistics.median(ms), "q1": q1, "q3": q3, "min": min(ms), "max": max(ms)}
+
+
+def _fmt(s: dict) -> str:
+    return (f"median {s['median']:.3f} ms (quartiles {s['q1']:.3f}-{s['q3']:.3f}, min {s['min']:.3f}, "
+            f"max {s['max']:.3f}, n {s['n']})")
+
+
+def _codec_seconds(*stats) -> float:
+    """Encode plus decode seconds that ``RpcStats`` counted so far."""
+    return sum(st.encode_seconds + st.decode_seconds for st in stats)
+
+
+async def _interleaved(paths: dict, inputs: list, rounds: int, codec_stats: tuple) -> dict:
+    """Each input through every path, call after call, for ``rounds``
+    rounds, the paths' order turned by one each round, so drift on the
+    host falls on every path alike. Returns per path the outputs (round
+    by round) and the ms of each call, and per call of the ``"websocket"``
+    path the ms that ``RpcStats`` counted encoding and decoding."""
+    names = list(paths)
+    out = {n: {"outs": [], "ms": []} for n in names}
+    codec_ms = []
+    for rnd in range(rounds):
+        order = names[rnd % len(names):] + names[:rnd % len(names)]
+        for x in inputs:
+            for n in order:
+                c0 = _codec_seconds(*codec_stats)
+                t0 = time.perf_counter()
+                out[n]["outs"].append(await paths[n](x))
+                out[n]["ms"].append((time.perf_counter() - t0) * 1e3)
+                if n == "websocket":
+                    codec_ms.append((_codec_seconds(*codec_stats) - c0) * 1e3)
+    out["codec_ms"] = codec_ms
+    return out
+
+
+def _paired(a: list, b: list) -> dict:
+    """Spread of the call-by-call differences a - b."""
+    return _spread([x - y for x, y in zip(a, b)])
+
+
+def _json_ms(request: dict, response) -> float:
+    """ms of the JSON work of one bridged call, done alone: the client's
+    encode of the request and the server's parse of it, the server's
+    encode of ``{"result": response}`` and the client's parse of it."""
+    t0 = time.perf_counter()
+    json.loads(json.dumps(request))
+    json.loads(json.dumps({"result": response}))
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _rpc_delta(before: dict, after: dict) -> dict:
+    keys = ("bytes_in", "bytes_out", "frames_in", "frames_out", "chunked_msgs_in", "chunked_msgs_out",
+            "shm_gets", "shm_get_bytes", "shm_puts", "shm_put_bytes", "shm_fallbacks")
+    return {k: after[k] - before[k] for k in keys}
+
+
+def _carried_by(delta: dict) -> str:
+    if delta["shm_gets"] or delta["shm_puts"]:
+        return "shm" if not delta["shm_fallbacks"] else "shm and wire frames"
+    return "wire frames"
+
+
+async def _http_json(http, method: str, url: str, token: str = None, body=None):
+    headers = {"Authorization": f"Bearer {token}"} if token else {}
+    async with http.request(method, url, json=body, headers=headers) as r:
+        return r.status, await r.json()
+
+
+def _trace_kernels(trace_dir: str) -> list:
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+async def drive_worker(card: str, device: str, root: str, queries, collection: str, direct_masks,
+                       mr_inputs) -> dict:
+    """The worker's main path, in process so the launch counter is readable.
+    Returns the numbers and what the checks after it need."""
+    ws, datasets_dir = os.path.join(root, "worker"), os.path.join(root, "datasets")
+    worker = BioEngineWorker(mode="single-machine", device=device, port=0, workspace_dir=ws,
+                             datasets_dir=datasets_dir, admin_users=["admin"], log_file="off",
+                             monitoring_interval_seconds=60.0)
+    r: dict = {}
+    t0 = time.perf_counter()
+    await worker.start()
+    r["start_s"] = time.perf_counter() - t0
+    server = worker.server
+    base = server.http_url
+    admin = server.issue_token("admin")
+    user = server.issue_token("smoke-user")
+    conn = await connect_to_server({"server_url": server.url, "token": admin})
+    http = aiohttp.ClientSession()
+    try:
+        svc = await conn.get_service("bioengine-worker")
+        status = await svc.get_status()
+        topo = status["cluster"]["topology"]
+        want = ("gpu", torch.cuda.get_device_name(0), torch.cuda.device_count()) if device == "cuda" \
+            else ("cpu", "cpu", 1)
+        got = (topo["platform"], topo["chips"][0]["kind"], topo["n_chips"])
+        check(got == want, f"get_status over the wire: topology {got}, expected {want}")
+        print(f"[{card}] worker: started in {r['start_s']:.3f} s on {server.url}; get_status over the "
+              f"WebSocket: platform {got[0]!r}, kind {got[1]!r}, {got[2]} chip(s); datasets served at "
+              f"{status['datasets']['server_url']}")
+
+        # cell-image-search from its bundle, over the wire, ingesting the
+        # worker's own datasets plane
+        attention.launch_count = 0
+        t0 = time.perf_counter()
+        deployed = await svc.deploy_app(
+            local_path=os.path.join(WORKER_BUNDLES, WORKER_CIS), app_id=WORKER_CIS,
+            deployment_kwargs={"main": {"workspace_dir": os.path.join(root, "cis"), "device": device,
+                                        "seed": SEED, "batch_bucket": BUCKET,
+                                        "n_crops_per_image": WORKER_CROPS_PER_FIELD,
+                                        "model_overrides": WORKER_VIT}})
+        r["cis_deploy_s"] = time.perf_counter() - t0
+        check(deployed["app_id"] == WORKER_CIS and "search" in deployed["methods"], f"deploy_app {deployed}")
+        (replica,) = worker.controller.apps[WORKER_CIS].replicas["main"]
+        check(list(replica.device_ids) == [0], f"the replica leased {replica.device_ids}")
+        instance = replica.instance
+        app = await conn.get_service(WORKER_CIS)
+        await app.add_dataset(name="cells", source="datasets")
+        listed = await app.list_datasets()
+        check([d["name"] for d in listed["data_server"]] == ["cells"], f"list_datasets {listed}")
+        t0 = time.perf_counter()
+        await app.start_ingestion(dataset_name="cells", session_id="worker")
+        while True:
+            st = await app.get_ingestion_status(session_id="worker")
+            if st["status"] in ("completed", "failed", "stopped"):
+                break
+            check(time.perf_counter() - t0 < WORKER_INGEST_TIMEOUT_S, f"ingestion stuck: {st}")
+            await asyncio.sleep(0.05)
+        r["ingest_s"] = time.perf_counter() - t0
+        check(st["status"] == "completed" and st["n_embedded"] > 0, f"ingestion {st}")
+        stats = await app.get_index_stats()
+        check(stats["loaded"] and stats["n_cells"] == st["n_embedded"] and stats["index_type"] == "FlatIP",
+              f"index stats {stats}")
+        r["n_cells"] = stats["n_cells"]
+        print(f"[{card}] worker: {WORKER_CIS} deployed from its bundle over the wire (deploy_app answered "
+              f"in {r['cis_deploy_s']:.3f} s; the replica's self-test runs after), chip {replica.device_ids}; "
+              f"ingested {WORKER_FIELDS} {WORKER_FIELD_SIZE}^2 fields from the worker's datasets plane into "
+              f"{r['n_cells']} cells ({stats['index_type']}) in {r['ingest_s']:.3f} s")
+
+        # the same 16 searches over the WebSocket, the HTTP bridge and in
+        # process, interleaved call by call; one MCP call
+        url = f"{base}/call/{WORKER_CIS}/search"
+
+        async def bridge(q):
+            status_code, body = await _http_json(http, "POST", url, user,
+                                                 {"kwargs": {"image": q.tolist(), "top_k": TOP_K}})
+            check(status_code == 200, f"bridge status {status_code}: {body}")
+            return body["result"]
+
+        paths = {"websocket": lambda q: app.search(image=q, top_k=TOP_K), "bridge": bridge,
+                 "in_process": lambda q: instance.search(image=q, top_k=TOP_K)}
+        for call in paths.values():  # one untimed call per path
+            await call(queries[0])
+        timed = await _interleaved(paths, queries, WORKER_ROUNDS, (server.stats, conn.codec.stats))
+        status_code, mcp = await _http_json(
+            http, "POST", f"{base}/mcp/{WORKER_CIS}", user,
+            {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+             "params": {"name": "search", "arguments": {"image": queries[0].tolist(), "top_k": TOP_K}}})
+        check(status_code == 200 and not mcp["result"]["isError"], f"MCP tools/call: {status_code} {mcp}")
+        mcp_found = json.loads(mcp["result"]["content"][0]["text"])
+        ws_found = timed["websocket"]["outs"][:len(queries)]
+        for i, (a, b, c) in enumerate(zip(*(timed[n]["outs"] for n in paths))):
+            check(_results(a) == _results(b) == _results(c) == _results(ws_found[i % len(queries)]),
+                  f"search {i}: WebSocket, bridge and in-process results differ, or differ between rounds")
+            check(len(a["results"]) == TOP_K, f"search {i}: {len(a['results'])} results")
+        check(_results(mcp_found) == _results(ws_found[0]), "MCP tools/call search differs")
+        # the 2-D map over the wire: host arrays and lists, never tensors
+        preview = await app.get_umap_preview(n_samples=r["n_cells"])
+        xy = np.array([preview["x"], preview["y"]], np.float64)
+        check(xy.shape == (2, r["n_cells"]) and np.isfinite(xy).all(), f"map preview of {xy.shape}")
+        pos = await app.project_query_onto_umap(image=queries[0])
+        check(set(pos) == {"x", "y"} and np.isfinite([pos["x"], pos["y"]]).all(), f"query position {pos}")
+        projected = await app.search(image=queries[0], top_k=TOP_K)
+        check(projected["query_projection"] == pos and _results(projected) == _results(ws_found[0]),
+              "a search after the map differs or carries another position")
+        local_ms = timed["in_process"]["ms"]
+        r["search_ms"] = {n: _spread(timed[n]["ms"]) for n in paths}
+        r["wire_ms"] = {n: _paired(timed[n]["ms"], local_ms) for n in ("websocket", "bridge")}
+        r["wire_ms"]["websocket_codec"] = _spread(timed["codec_ms"])
+        r["wire_ms"]["bridge_json_alone"] = _spread(
+            [_json_ms({"kwargs": {"image": q.tolist(), "top_k": TOP_K}}, f) for q, f in zip(queries, ws_found)])
+        w = r["wire_ms"]
+        print(f"[{card}] worker: {WORKER_SEARCHES} searches (top {TOP_K}, 224^2 float64 queries, "
+              f"{queries[0].nbytes} B each) x {WORKER_ROUNDS} rounds, the three paths interleaved call by call, "
+              f"equal over the WebSocket, the HTTP bridge and in process, and MCP tools/call equals the first; "
+              f"the map preview ({r['n_cells']} points) and the query's position came back over the wire; ms per "
+              f"search: WebSocket {_fmt(r['search_ms']['websocket'])}; bridge {_fmt(r['search_ms']['bridge'])}; "
+              f"in process {_fmt(r['search_ms']['in_process'])}; the wire's cost, call minus the in-process "
+              f"call beside it: WebSocket {_fmt(w['websocket'])}, of which RpcStats encode+decode "
+              f"{_fmt(w['websocket_codec'])}; bridge {_fmt(w['bridge'])}, against JSON encode+parse of the same "
+              f"bodies done alone {_fmt(w['bridge_json_alone'])}")
+
+        # the worker's verbs: a profiler trace around 2 searches, memory
+        trace_dir = os.path.join(root, "trace")
+        started = await svc.start_profiling(trace_dir=trace_dir)
+        for q in queries[:WORKER_PROFILED_SEARCHES]:
+            await app.search(image=q, top_k=TOP_K)
+        stopped = await svc.stop_profiling()
+        check(started["profiling"] and not stopped["profiling"] and stopped["trace_dir"] == trace_dir,
+              f"profiling verbs {started} {stopped}")
+        kernels = _trace_kernels(trace_dir)
+        flash = [k for k in kernels if "flash_attn" in k]
+        if device == "cuda":
+            check(flash, f"the worker's trace holds no flash_attn kernel; kernels {kernels[:20]}")
+        r["trace_kernels"] = len(kernels)
+        r["trace_flash_kernels"] = flash
+        mem = await svc.memory_profile()
+        if device == "cuda":
+            (dev,) = mem["devices"]
+            check(dev["kind"] == torch.cuda.get_device_name(0)
+                  and dev["memory_stats"]["allocated_bytes.all.current"] > 0
+                  and len(mem["allocator_snapshot_pickle_b64"]) > 0, f"memory_profile {dev['kind']}")
+            r["memory_profile_allocated"] = dev["memory_stats"]["allocated_bytes.all.current"]
+        print(f"[{card}] worker: start/stop_profiling around {WORKER_PROFILED_SEARCHES} searches wrote "
+              f"{os.path.join(trace_dir, 'trace.json')} with {len(kernels)} kernel names, flash: {flash}; "
+              f"memory_profile: {r.get('memory_profile_allocated', 'no CUDA device')} B allocated, "
+              f"allocator snapshot {len(mem['allocator_snapshot_pickle_b64'])} base64 chars")
+
+        r["launches"] = attention.launch_count
+        r["forwards"] = instance.embedder.forward_count
+        r["found"] = ws_found
+        r["cis_workspace"] = os.path.join(root, "cis")
+        del instance, replica
+        await svc.stop_app(app_id=WORKER_CIS)
+        r["allocated_after_cis"], r["cublas_released_after_cis"] = _allocated(device)
+        check(worker.cluster.state.free_chips() == worker.cluster.state.topology.n_chips,
+              "the undeploy left the chip leased")
+
+        # the model-runner from its bundle: 512^2 f32 predicts over the wire
+        before_env = os.environ.get("BIOENGINE_LOCAL_MODEL_PATH")
+        os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = collection
+        try:
+            mr = await svc.deploy_app(
+                local_path=os.path.join(WORKER_BUNDLES, SERVE_APP), app_id=SERVE_APP,
+                deployment_kwargs={"runtime_deployment": {"device": device},
+                                   "entry_deployment": {"device": device,
+                                                        "cache_dir": os.path.join(root, "mr-cache")}})
+            check(mr["app_id"] == SERVE_APP and "infer" in mr["methods"], f"model-runner deploy {mr}")
+            runner = await conn.get_service(SERVE_APP)
+            entry = worker.controller.get_handle(SERVE_APP, "entry_deployment")
+            predict_paths = {"websocket": lambda x: runner.infer(model_id="unet2d", inputs={"raw": x}),
+                             "in_process": lambda x: entry.infer(model_id="unet2d", inputs={"raw": x})}
+            for call in predict_paths.values():  # one untimed call per path
+                await call(mr_inputs[0])
+            rpc0 = server.stats.as_dict()
+            timed = await _interleaved(predict_paths, mr_inputs, WORKER_ROUNDS, (server.stats, conn.codec.stats))
+            delta = _rpc_delta(rpc0, server.stats.as_dict())
+            wire_out, local_out = timed["websocket"]["outs"], timed["in_process"]["outs"]
+            n = len(wire_out)
+            err = max(float(np.abs(o["mask"] - direct_masks[i % len(mr_inputs)]).max())
+                      for i, o in enumerate(wire_out))
+            check(err <= SERVE_TOL, f"predicts over the wire: max abs {err} against direct (tolerance {SERVE_TOL})")
+            check(all(np.array_equal(a["mask"], b["mask"]) for a, b in zip(wire_out, local_out)),
+                  "a predict over the wire differs from the same predict in process")
+            wire_ms, local_mr_ms = timed["websocket"]["ms"], timed["in_process"]["ms"]
+            r["predict"] = {"max_abs_vs_direct": err, "ms_wire": _spread(wire_ms),
+                            "ms_in_process": _spread(local_mr_ms), "wire_ms": _paired(wire_ms, local_mr_ms),
+                            "codec_ms": _spread(timed["codec_ms"]),
+                            "request_bytes": mr_inputs[0].nbytes, "response_bytes": wire_out[0]["mask"].nbytes,
+                            "server_rpc_per_request": {k: v / n for k, v in delta.items()},
+                            "carried_by": _carried_by(delta)}
+            p = r["predict"]
+            print(f"[{card}] worker: model-runner deployed from its bundle over the wire; {len(mr_inputs)} "
+                  f"{SERVE_IMAGE}^2 f32 predicts (entry infer) x {WORKER_ROUNDS} rounds over the WebSocket and "
+                  f"in process, interleaved call by call, max abs {err:.6g} against the direct "
+                  f"RuntimeDeployment.predict (tolerance {SERVE_TOL}), equal to the in-process handle's bit for "
+                  f"bit; {p['request_bytes']} B in and {p['response_bytes']} B out a request, carried by "
+                  f"{p['carried_by']} (server per request: {json.dumps(p['server_rpc_per_request'])}); ms per "
+                  f"request: WebSocket {_fmt(p['ms_wire'])}; in process {_fmt(p['ms_in_process'])}; the wire's "
+                  f"cost, call minus the in-process call beside it: {_fmt(p['wire_ms'])}, of which RpcStats "
+                  f"encode+decode {_fmt(p['codec_ms'])}")
+            await svc.stop_app(app_id=SERVE_APP)
+            r["allocated_after_model_runner"], r["cublas_released_after_model_runner"] = _allocated(device)
+        finally:
+            if before_env is None:
+                os.environ.pop("BIOENGINE_LOCAL_MODEL_PATH", None)
+            else:
+                os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = before_env
+
+        # run_code with one leased chip sees only that card
+        code = ("import os\ndef main():\n    import torch\n"
+                "    n = torch.cuda.device_count()\n"
+                "    return os.environ.get('CUDA_VISIBLE_DEVICES'), n, "
+                "torch.cuda.get_device_name(0) if n else None\n")
+        ran = await svc.run_code(code=code, remote_options={"num_chips": 1}, timeout=300)
+        check(ran["status"] == "ok", f"run_code: {ran.get('error')} {ran.get('stderr', '')[-2000:]}")
+        seen = tuple(ran["result"])
+        want = ("0", 1, torch.cuda.get_device_name(0)) if device == "cuda" else ("0", 0, None)
+        check(seen == want and ran["device_ids"] == [0], f"run_code with one chip saw {seen}, expected {want}")
+        r["run_code"] = {"seen": list(seen), "duration_s": ran["duration_s"]}
+        print(f"[{card}] worker: run_code with num_chips 1 leased {ran['device_ids']}; the subprocess saw "
+              f"CUDA_VISIBLE_DEVICES={seen[0]!r}, {seen[1]} device(s), {seen[2]!r} ({ran['duration_s']:.3f} s)")
+        r["rpc"] = server.describe()
+    finally:
+        await http.close()
+        await conn.disconnect()
+        await worker.stop()
+    check(not os.path.exists(os.path.join(ws, "cluster.lock")), "the cluster lock outlived the worker")
+    return r
+
+
+def _allocated(device: str) -> tuple[int, int]:
+    """(bytes the caching allocator holds after a collection with the
+    cuBLAS workspaces released, the bytes that release freed); (0, 0) on
+    the CPU. Each thread that runs a GEMM gets a cuBLAS workspace that
+    stays allocated while the thread lives and after it ends. The app's
+    searches and predicts run on the executor threads of the event loop
+    that runs them: after an undeploy these are the worker's, still alive
+    and kept by it, and the release frees theirs too (the next GEMM on such
+    a thread allocates a new one). The freed bytes are reported beside
+    every reading, so what the memory check leaves out is on the record."""
+    gc.collect()
+    if device != "cuda":
+        return 0, 0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    after = torch.cuda.memory_allocated()
+    return after, held - after
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _unlink_shm(name: str) -> None:
+    try:
+        os.unlink(f"/dev/shm/{name}")
+    except FileNotFoundError:
+        pass
+
+
+def worker_cli(card: str, device: str, root: str, store_name: str) -> dict:
+    """``python -m bioengine_tpu_torch.worker`` as a subprocess: liveness,
+    get_status through the bridge with the admin token it wrote, SIGTERM.
+    Its RPC server's shared-memory segment is ``store_name``, unlinked
+    after."""
+    import signal
+    import urllib.request
+
+    port, ws = _free_port(), os.path.join(root, "cli")
+    cmd = [sys.executable, "-m", "bioengine_tpu_torch.worker", "--mode", "single-machine", "--host",
+           "127.0.0.1", "--port", str(port), "--workspace-dir", ws, "--log-file", "off"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    env = {**os.environ, "BIOENGINE_RPC_STORE_NAME": store_name, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])}
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(root, "cli.log")
+
+    def log_tail() -> str:
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                check(False, f"the worker CLI exited with {proc.returncode}: {log_tail()}")
+            check(time.perf_counter() - t0 < WORKER_CLI_START_S, "the worker CLI did not answer within 60 s")
+            try:
+                with urllib.request.urlopen(f"{base}/health/liveness", timeout=2) as resp:
+                    if resp.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.2)
+        live_s = time.perf_counter() - t0
+        with open(os.path.join(ws, "admin_token")) as f:
+            token = f.read().strip()
+        req = urllib.request.Request(f"{base}/call/bioengine-worker/get_status", data=b"{}", method="POST",
+                                     headers={"Authorization": f"Bearer {token}",
+                                              "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            status = json.load(resp)["result"]
+        kind = status["cluster"]["topology"]["chips"][0]["kind"]
+        want = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+        check(kind == want, f"the CLI worker names {kind!r}, expected {want!r}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=WORKER_CLI_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc is not None, f"the worker CLI did not stop within {WORKER_CLI_STOP_S} s of SIGTERM")
+        stop_s = time.perf_counter() - t1
+        if rc != 0:
+            check(False, f"the worker CLI exited {rc} on SIGTERM: {log_tail()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        _unlink_shm(store_name)
+    print(f"[{card}] worker: `python -m bioengine_tpu_torch.worker` answered /health/liveness after "
+          f"{live_s:.3f} s; get_status over the bridge with its admin token names {kind!r}; SIGTERM ended it "
+          f"with exit 0 in {stop_s:.3f} s")
+    return {"liveness_s": live_s, "stop_s": stop_s, "kind": kind}
+
+
+def phase_worker(card: str, device: str = "cuda") -> dict:
+    """Slice 9: the worker in process on the card, driven over the wire
+    (WebSocket, HTTP bridge, MCP); then its CLI as a subprocess. One
+    ``worker`` JSON line."""
+    os.environ["BIOENGINE_DISABLE_GEOLOCATION"] = "1"  # no egress
+    t_phase = time.perf_counter()
+    probes = {}
+    for name in WORKER_PROBES:
+        try:
+            importlib.import_module(name)
+            probes[name] = True
+        except ImportError:
+            probes[name] = False
+    loaded = _codecs_loaded()
+    store = native_store.native_available()
+    compressor = "zstd" if loaded["zstd"] else None
+    print(f"[{card}] worker: importable here {json.dumps(probes)}; native shm store "
+          f"{'built' if store else 'not built (in-process fallback)'}; codecs loaded {json.dumps(loaded)}; "
+          f"the dataset is written {compressor or 'uncompressed'}")
+    check(all(probes.values()), f"packages the worker needs are missing: {probes}")
+    rng = np.random.default_rng(SEED + 9)
+    unet2d = UNet2D(features=UNET2D_FEATURES)
+    unet2d.reset_parameters(SEED)
+    mr_inputs = [rng.standard_normal((1, SERVE_IMAGE, SERVE_IMAGE, 1), np.float32)
+                 for _ in range(WORKER_PREDICTS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_worker_") as root:
+        fields = write_cell_dataset(os.path.join(root, "datasets"), "cells", WORKER_FIELDS,
+                                    WORKER_FIELD_SIZE, SEED + 9, compressor)
+        crops = []
+        for field in fields:  # query crops of the dataset's own fields, float64 (exact in JSON)
+            crops += extract_cell_crops(field, crop_size=224, n_crops=WORKER_SEARCHES - len(crops))
+            if len(crops) >= WORKER_SEARCHES:
+                break
+        queries = [c.astype(np.float64) for c in crops[:WORKER_SEARCHES]]
+        check(len(queries) == WORKER_SEARCHES, f"{len(queries)} query crops")
+        collection = os.path.join(root, "collection")
+        os.makedirs(collection)
+        pkg = write_unet_package(collection, "unet2d", unet2d, "unet2d",
+                                 {"features": list(UNET2D_FEATURES)}, "byxc")
+        del unet2d
+        dep = RuntimeDeployment(device=device)
+
+        async def direct():
+            return [(await dep.predict(pkg, {"raw": x}))["mask"] for x in mr_inputs]
+
+        try:
+            direct_masks = asyncio.run(direct())
+        finally:
+            asyncio.run(dep.close())
+        del dep
+        base, released_before = _allocated(device)
+        # the worker's RPC server gets a shared-memory segment of this run's
+        # own, not the host-wide default another run may be using
+        store_name = f"bioengine-rpc-smoke-{os.getpid()}"
+        os.environ["BIOENGINE_RPC_STORE_NAME"] = store_name
+        try:
+            r = asyncio.run(drive_worker(card, device, root, queries, collection, direct_masks, mr_inputs))
+        finally:
+            del os.environ["BIOENGINE_RPC_STORE_NAME"]
+            _unlink_shm(store_name)
+        after, released_after = _allocated(device)
+        if device == "cuda":
+            r["memory_before"], r["memory_after"] = base, after
+            r["cublas_released_before"], r["cublas_released_after_stop"] = released_before, released_after
+            print(f"[{card}] worker: device memory allocated {base} B before the worker; "
+                  f"{r['allocated_after_cis']} B after the search app's undeploy, "
+                  f"{r['allocated_after_model_runner']} B after the model-runner's, {after} B after the "
+                  f"worker's stop ({(after - base) / 2**20:.3f} MiB apart, limit 64 MiB); cuBLAS workspaces "
+                  f"released before these readings: {released_before}, {r['cublas_released_after_cis']}, "
+                  f"{r['cublas_released_after_model_runner']} and {released_after} B (the two after the "
+                  "undeploys are the worker's live executor threads'); cluster lock released")
+            check(after - base <= SERVE_MEMORY_SLACK, f"after the undeploys {after} B allocated against {base} B "
+                  f"before the worker (slack {SERVE_MEMORY_SLACK} B)")
+
+        # the searches over the wire against the app built here on the same
+        # seed over the index the worker wrote
+        found, forwards, launches = r.pop("found"), r.pop("forwards"), r.pop("launches")
+        # the plain attention on the CPU launches nothing
+        want = WORKER_VIT.get("depth", VIT_DEPTH) * forwards if device == "cuda" else 0
+        check(launches == want and forwards > 0 and (launches > 0 or device != "cuda"),
+              f"flash_attn_fwd launches {launches} on the worker path, {forwards} forwards")
+        ref = CellImageSearch(workspace_dir=r.pop("cis_workspace"), device=device, seed=SEED,
+                              batch_bucket=BUCKET, model_overrides=WORKER_VIT)
+
+        async def reference():
+            await ref.async_init()
+            return [await ref.search(image=q, top_k=TOP_K) for q in queries]
+
+        mine = asyncio.run(reference())
+        for i, (a, b) in enumerate(zip(found, mine)):
+            pairs = [(x["index_id"], x["score"]) for x in a["results"]]
+            check(pairs == [(x["index_id"], x["score"]) for x in b["results"]],
+                  f"search {i} over the wire differs from CellImageSearch(device={device!r}) in process")
+        del ref, mine
+        print(f"[{card}] worker: {WORKER_SEARCHES} searches over the wire equal, ids and scores bit for bit, "
+              f"CellImageSearch(device={device!r}) built here on seed {SEED} over the worker's index; "
+              f"flash_attn_fwd launches {launches} = {WORKER_VIT.get("depth", VIT_DEPTH)} x {forwards} forwards")
+        r["cli"] = worker_cli(card, device, root, f"{store_name}-cli")
+    r["phase_s"] = time.perf_counter() - t_phase
+    out = {"card": card, **r, "flash_attn_fwd_launches": launches, "forwards": forwards,
+           "packages": probes, "codecs": loaded, "native_store": store, "dataset_compressor": compressor}
+    print(f"[{card}] worker phase: {r['phase_s']:.3f} s")
+    print("worker " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -2955,6 +3554,7 @@ def main() -> int:
     zoo = phase_zoo(card)
     decode = phase_decode(card)
     serving = phase_serving(card)
+    worker = phase_worker(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2970,7 +3570,8 @@ def main() -> int:
                              "cellpose_transformers": transformers["launches"],
                              "zoo": zoo["launches"],
                              "decode": decode["flash_attn_fwd_launches"],
-                             "serving": serving["flash_attn_fwd_launches"]},
+                             "serving": serving["flash_attn_fwd_launches"],
+                             "worker": worker["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -1,6 +1,9 @@
 """Shared inputs and emulations for the PyTorch port's parity tests."""
 
+import contextlib
 import math
+import os
+import secrets
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,27 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def private_rpc_store():
+    """Point the RPC servers started inside at a shared-memory segment of
+    their own (``BIOENGINE_RPC_STORE_NAME``, named for this process and
+    call) in place of the host-wide default ``bioengine-rpc``, and unlink
+    the segment on the way out, so that runs side by side never share or
+    evict each other's objects and none outlives its test."""
+    name = f"bioengine-rpc-test-{os.getpid()}-{secrets.token_hex(4)}"
+    before = os.environ.get("BIOENGINE_RPC_STORE_NAME")
+    os.environ["BIOENGINE_RPC_STORE_NAME"] = name
+    try:
+        yield name
+    finally:
+        if before is None:
+            os.environ.pop("BIOENGINE_RPC_STORE_NAME", None)
+        else:
+            os.environ["BIOENGINE_RPC_STORE_NAME"] = before
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(f"/dev/shm/{name}")
 
 
 def seeded_flax_params(model, image_shape, seed=0):

@@ -49,6 +49,22 @@ SLICE8_MODULES = [
     "apps/manifest.py", "apps/builder.py", "apps/artifacts.py",
     "apps/model_runner/runtime.py", "apps/model_runner/entry.py",
 ]
+# the modules of slice 9: the wire, the apps manager, the datasets plane, the worker
+SLICE9_MODULES = [
+    "utils/network.py", "utils/geo_location.py", "utils/profiling.py",
+    "testing/__init__.py", "testing/faults.py", "native/__init__.py", "native/store.py",
+    "rpc/transport.py", "rpc/server.py", "rpc/client.py",
+    "apps/mcp.py", "apps/webrtc.py", "apps/proxy.py", "apps/artifact_http.py", "apps/manager.py",
+    "cluster/provisioner.py", "cluster/cluster.py",
+    "datasets/__init__.py", "datasets/net.py", "datasets/chunk_cache.py", "datasets/codecs.py",
+    "datasets/zarr_codec.py", "datasets/http_zarr_store.py", "datasets/datasets.py",
+    "datasets/proxy_server.py", "datasets/__main__.py",
+    "worker/__init__.py", "worker/code_executor.py", "worker/worker.py", "worker/__main__.py",
+]
+BUNDLE_FILES = [
+    "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
+    "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
+]
 
 
 def _imported_top_levels(path: Path) -> set[str]:
@@ -96,6 +112,13 @@ def test_port_files_exist():
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     for name in ("manifest.yaml", "entry_deployment.py", "runtime_deployment.py"):
         assert (REPO / "bioengine_tpu_torch" / "apps" / "bundles" / "model-runner" / name).is_file()
+    # slice 9: the worker, the wire, the datasets plane, two more bundles
+    for rel in SLICE9_MODULES + BUNDLE_FILES + [
+        "worker/dashboard/index.html", "apps/bundles/cell-image-search/manifest.yaml",
+        "apps/bundles/demo-app/manifest.yaml",
+    ]:
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
+    assert not (REPO / "bioengine_tpu_torch" / "datasets" / "prefetch.py").exists()  # A11
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -270,3 +293,45 @@ def test_serving_defaults_are_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ClusterState().free_chips()
     assert detect_topology(device="cpu").platform == "cpu"
+
+
+def test_slice9_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 9 and every bundle's
+    deployment file import, and no module of jax, flax, ``bioengine_tpu``
+    or the other forbidden packages has been imported along the way."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+        for rel in SLICE9_MODULES
+    ]
+    paths = [str(REPO / "bioengine_tpu_torch" / rel) for rel in BUNDLE_FILES]
+    script = f"""
+import importlib, runpy, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+for path in {paths!r}:
+    runpy.run_path(path)
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_worker_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """``BioEngineWorker`` and the CLI's parsed kwargs default to ``cuda``;
+    without CUDA the worker raises at ``start()``, before the workspace lock."""
+    import inspect
+
+    from bioengine_tpu_torch.worker import __main__ as cli
+    from bioengine_tpu_torch.worker.worker import BioEngineWorker
+
+    assert inspect.signature(BioEngineWorker).parameters["device"].default == "cuda"
+    kwargs = cli.worker_kwargs_from_args(cli.create_parser().parse_args([]))
+    assert kwargs["device"] == "cuda"
+    worker = BioEngineWorker(**{**kwargs, "workspace_dir": tmp_path / "ws", "log_file": "off"})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(worker.start())
+    assert not (tmp_path / "ws" / "cluster.lock").exists()
+    assert cli.worker_kwargs_from_args(cli.create_parser().parse_args(["--device", "cpu"]))["device"] == "cpu"

@@ -1,7 +1,7 @@
-"""Copy fidelity of the serving plane's modules: each module the port keeps
-as a copy of a JAX-package module (host-only Python that imports no JAX)
-must equal it statement for statement after the import prefix
-``bioengine_tpu.`` is renamed ``bioengine_tpu_torch.``.
+"""Copy fidelity of the serving plane's and the worker's modules: each
+module the port keeps as a copy of a JAX-package module (host-only Python
+that imports no JAX) must equal it statement for statement after the
+import prefix ``bioengine_tpu.`` is renamed ``bioengine_tpu_torch.``.
 
 The comparison is ``ast.dump`` of each top-level statement, keyed by what
 it defines: a function or class by name, an import by its text, an
@@ -9,7 +9,7 @@ assignment by its targets, a ``try`` by its first statement, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8 differences.
+ROADMAP.md's slice-8 or slice-9 differences.
 """
 
 import ast
@@ -30,12 +30,7 @@ COPIES = {
     "utils/tracing.py": {},
     "rpc/schema.py": {},
     "rpc/protocol.py": {},
-    "rpc/__init__.py": {
-        "__doc__": "the wire is not ported (ROADMAP A12b)",
-        "from bioengine_tpu_torch.rpc.client import connect_to_server": "the wire (A12b)",
-        "from bioengine_tpu_torch.rpc.server import RpcServer": "the wire (A12b)",
-        "__all__": "exports schema_method only",
-    },
+    "rpc/__init__.py": {},
     "cluster/topology.py": {
         "__doc__": "CUDA in place of jax.devices()",
         "import torch": "CUDA in place of jax.devices()",
@@ -64,6 +59,67 @@ COPIES = {
     "apps/manifest.py": {},
     "apps/builder.py": {},
     "apps/artifacts.py": {},
+    # slice 9: the wire, the apps manager, the datasets plane, the worker
+    "utils/network.py": {},
+    "utils/geo_location.py": {},
+    "testing/__init__.py": {},
+    "testing/faults.py": {},
+    "native/__init__.py": {},
+    "native/store.py": {},
+    "rpc/transport.py": {},
+    "rpc/server.py": {},
+    "rpc/client.py": {},
+    "apps/mcp.py": {},
+    "apps/webrtc.py": {},
+    "apps/proxy.py": {},
+    "apps/artifact_http.py": {},
+    "apps/manager.py": {},
+    "cluster/provisioner.py": {},
+    "cluster/cluster.py": {
+        "TpuCluster._make_provisioner": "slurm/gke exec a worker host the port lacks (ROADMAP A12c)",
+    },
+    "cluster/__init__.py": {},
+    "datasets/net.py": {},
+    "datasets/chunk_cache.py": {},
+    "datasets/codecs.py": {},
+    "datasets/zarr_codec.py": {},
+    "datasets/http_zarr_store.py": {},
+    "datasets/datasets.py": {},
+    "datasets/proxy_server.py": {},
+    "datasets/__main__.py": {},
+    "datasets/__init__.py": {
+        "__doc__": "no device prefetch (ROADMAP A11)",
+        "from bioengine_tpu_torch.datasets.prefetch import ZarrBatchLoader, prefetch_to_device":
+            "no device prefetch (ROADMAP A11)",
+        "__all__": "no device prefetch (ROADMAP A11)",
+    },
+    "utils/profiling.py": {
+        "__doc__": "torch.profiler in place of jax.profiler",
+        "TRACE_FILE": "torch.profiler in place of jax.profiler",
+        "_ACTIVE": "torch.profiler in place of jax.profiler",
+        "start_trace": "torch.profiler in place of jax.profiler",
+        "stop_trace": "torch.profiler in place of jax.profiler",
+        "device_memory_snapshot": "torch.cuda memory stats and allocator snapshot",
+    },
+    "worker/code_executor.py": {
+        "chip_env": "CUDA_VISIBLE_DEVICES in place of TPU_VISIBLE_CHIPS/DEVICES",
+    },
+    "worker/worker.py": {
+        "__doc__": "device argument, torch.profiler, no compile cache",
+        "from bioengine_tpu_torch.cluster.topology import detect_topology": "device argument",
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
+        "BioEngineWorker.__init__": "device argument",
+        "BioEngineWorker.start": "topology on the device; no compile cache (ROADMAP A11)",
+        "BioEngineWorker._service_definition": "the description names the GPU",
+        "BioEngineWorker.start_profiling": "torch.profiler in place of jax.profiler",
+        "BioEngineWorker.memory_profile": "torch.cuda memory stats and allocator snapshot",
+    },
+    "worker/__main__.py": {
+        "__doc__": "--device",
+        "create_parser": "--device",
+        "worker_kwargs_from_args": "--device",
+    },
+    "worker/__init__.py": {},
 }
 # the port holds only these of the JAX module's statements
 SUBSETS = {
@@ -135,16 +191,20 @@ def test_subset_equals_the_jax_module(rel):
     assert [k for k in kept if ours[k] != ref.get(k)] == []
 
 
-def _slice8_differences() -> str:
+def _listed_differences() -> str:
+    """ROADMAP's "Slice 8 (" and "Slice 9 (" differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
-    start = text.index("Slice 8 (")
-    end = text.index("\n\n\n", start) if "\n\n\n" in text[start:] else len(text)
-    return text[start:end]
+    sections = []
+    for heading in ("Slice 8 (", "Slice 9 ("):
+        start = text.index(heading)
+        end = text.find("\n\n\n", start)
+        sections.append(text[start : end if end != -1 else len(text)])
+    return "\n".join(sections)
 
 
 @pytest.mark.parametrize("rel", sorted(k for k, v in {**COPIES, **SUBSETS}.items() if v))
 def test_every_skip_is_a_listed_difference(rel):
-    section = _slice8_differences()
+    section = _listed_differences()
     assert f"`{rel}`" in section, rel
     for key in {**COPIES, **SUBSETS}[rel]:
         assert f"`{key}`" in section, f"{rel}: {key}"
