@@ -8,11 +8,15 @@ dim 32, 64 or 128) or raises; on a CPU tensor it computes
 ``reference_attention``, as the JAX custom VJP does; a fused backward kernel
 is later work.
 
-The kernel has two paths, chosen by dtype (``launch_plan``): bf16 runs both
-products on the tensor cores (``wgmma``, tiles loaded by TMA), f32 runs
-exact f32 FMAs on the CUDA cores. The kernel takes contiguous (B*H, N, d)
-rows, so the wrapper makes q, k and v contiguous (a no-op for the ViT, which
-lays them out so).
+The kernel has two paths, chosen by dtype (``launch_plan``), both on the
+tensor cores with tiles loaded by TMA: bf16 (``wgmma``) runs both products
+in bf16; f32 (``tf32x3``) runs each product as 3xTF32 (big and small tf32
+halves of each operand, big·big + big·small + small·big summed in f32), which
+holds f32 inputs within the JAX suite's 2e-5 of the f32 reference; a
+splitter warpgroup splits K and V while two consumer warpgroups (one at
+d = 128) compute, so an f32 block covers 128 query rows. The
+kernel takes contiguous (B*H, N, d) rows at 16-byte-aligned addresses, so the
+wrapper makes q, k and v so (a no-op for the ViT, which lays them out so).
 """
 
 from __future__ import annotations
@@ -31,12 +35,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 # Launch geometry, as csrc/flash_attn_fwd.cu has it
-BLOCK_Q = 64  # query rows per block (and key rows per tile)
-PATHS = {torch.float32: "cuda_core_f32", torch.bfloat16: "wgmma"}
-_PATH_CODES = {"cuda_core_f32": 0, "wgmma": 1}
-_F32_THREADS = 256
+BLOCK_Q = 64  # query rows per block (and key rows per tile of the bf16 path)
+PATHS = {torch.float32: "tf32x3", torch.bfloat16: "wgmma"}
+_PATH_CODES = {"tf32x3": 0, "wgmma": 1}
 _WGMMA_THREADS = 128 + 32  # one consumer warpgroup + one producer warp
 _WGMMA_STAGES = 2  # depth of the K/V ring in shared memory
+_TF32X3_WORK_STAGES = 2  # depth of the ring of split K and V^T tiles
 _WGMMA_BOX_BYTES = 64 * 64 * 2  # one 64-row x 64-column bf16 TMA box
 _MAX_GRID = 2**31 - 1
 
@@ -64,11 +68,12 @@ class LaunchPlan:
     """How ``flash_attn_fwd`` is launched for one call; the C entry point
     refuses any plan other than the one it computes itself."""
 
-    path: str  # "wgmma" (bf16, tensor cores) or "cuda_core_f32"
-    q_tiles: int  # 64-row query tiles per (batch, head)
+    path: str  # "wgmma" (bf16) or "tf32x3" (f32), both on the tensor cores
+    q_tiles: int  # query tiles of ``block_q`` rows per (batch, head)
     grid: int  # blocks, one per (batch * head, query tile)
     threads: int  # per block
     smem_bytes: int  # dynamic shared memory per block
+    block_q: int  # query rows per block: 64 per consumer warpgroup
 
     def block_tile(self, block: int) -> tuple[int, int]:
         """(batch * head, query tile) of a block: the tiles of one head are
@@ -96,20 +101,44 @@ def launch_plan(shape, dtype: torch.dtype) -> LaunchPlan:
         raise ValueError(
             f"flash_attention kernel takes a non-empty shape, got {tuple(shape)}"
         )
-    q_tiles = -(-N // BLOCK_Q)
-    grid = B * H * q_tiles
-    if grid > _MAX_GRID:
-        raise ValueError(f"{grid} blocks exceed the grid's {_MAX_GRID}")
     path = PATHS[dtype]
     if path == "wgmma":
         # Q, then a ring of K and V tiles, each tile one box per 64 columns
         # (d = 32 pads its box to 64), then the barriers and 1 KB to align
         boxes = (1 + 2 * _WGMMA_STAGES) * max(1, d // 64)
         threads, smem = _WGMMA_THREADS, boxes * _WGMMA_BOX_BYTES + 128 + 1024
+        block_q = BLOCK_Q
     else:
-        # f32 q, k, v tiles with row stride d + 1, and P with row stride 80
-        threads, smem = _F32_THREADS, 4 * (3 * BLOCK_Q * (d + 1) + BLOCK_Q * 80)
-    return LaunchPlan(path, q_tiles, grid, threads, smem)
+        # f32: each consumer's Q big and small, the landing ring of f32 K and
+        # V tiles, the working ring of K big and small and V^T big and small,
+        # 4 B each; a splitter warpgroup beside the consumers
+        consumers = tf32x3_consumers(d)
+        tile = tf32x3_block_k(d) * d
+        stages = 2 * tf32x3_land_stages(d) + 4 * _TF32X3_WORK_STAGES
+        smem = 4 * (2 * consumers * BLOCK_Q * d + stages * tile) + 128 + 1024
+        threads, block_q = 128 * (consumers + 1), consumers * BLOCK_Q
+    q_tiles = -(-N // block_q)
+    grid = B * H * q_tiles
+    if grid > _MAX_GRID:
+        raise ValueError(f"{grid} blocks exceed the grid's {_MAX_GRID}")
+    return LaunchPlan(path, q_tiles, grid, threads, smem, block_q)
+
+
+# The f32 (``tf32x3``) path's geometry per head dim, so that its shared
+# memory fits a block: consumer warpgroups of 64 query rows each, key rows
+# per tile, and f32 K/V tiles the TMA keeps in flight.
+
+
+def tf32x3_consumers(d: int) -> int:
+    return 1 if d == 128 else 2
+
+
+def tf32x3_block_k(d: int) -> int:
+    return 32 if d == 128 else 64
+
+
+def tf32x3_land_stages(d: int) -> int:
+    return 2 if d == 32 else 1
 
 
 def _kernel():
@@ -129,7 +158,7 @@ def _kernel():
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x, contiguous at a 16-byte-aligned address (TMA's rule)."""
+    """x, contiguous at a 16-byte-aligned address (TMA's rule, both paths)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

@@ -8,13 +8,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ptxas's registers, shared memory and spills are printed per kernel;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and the test suite's, with CUDA-event times; for flash
-   attention both paths, bf16 on the tensor cores (wgmma) and f32 on the
-   CUDA cores;
+   attention both paths, bf16 (wgmma) and f32 (3xTF32), both on the tensor
+   cores, at every head dim across tile edges; the f32 main case is timed in
+   turns beside the plain version and SDPA (plain, kernel, SDPA, SDPA,
+   kernel, plain), with SDPA's own error against the plain version;
 4. the main path: cell-image-search at ViT-B/14 width (dim 768, depth 12,
    heads 12, 224², bf16, bucket 64, weights from a numpy seed) ingests
    synthetic fields, builds a FlatIP index and answers ping,
    get_index_stats and 8 searches, with the kernels' launch counts read
    around it and the embeddings held against the plain attention path;
+   then the same in float32 (``phase_main_path_f32``, ``model_overrides``
+   ``{"dtype": "float32"}``, TF32 off): 12 launches per forward, min cosine
+   0.99999 against the plain-attention embedder, and images/s and one
+   bucket forward's device ms with the kernel, the plain attention and
+   SDPA (a yardstick only) as ``attn_fn``, in turns;
 5. cell-image-search at corpus scale (slice 6), ``phase_index``: the app
    at the same width registers a synthetic dataset of 8 896^2 fields,
    ingests it in a background session (FlatIP), stops a second session of
@@ -257,9 +264,11 @@ N_FIELDS = 4
 N_SEARCHES = 8
 TOP_K = 10
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores
+# FLOP/s, f32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_FLOPS = 495e12
+F32_COSINE_FLOOR = 0.99999  # f32 kernel vs plain-attention embeddings
 # the test suite's tolerances (tests/test_ops_pallas.py): (atol, rtol)
 TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0)}
 ATTENTION_CASES = [
@@ -280,6 +289,14 @@ ATTENTION_CASES = [
     for n in (1, 64, 65, 257, 300)
 ] + [
     (f"bf16_d{d}_n257_causal", (2, 3, 257, d), torch.bfloat16, True)
+    for d in (32, 64, 128)
+] + [
+    # the f32 (tf32x3) path at every head dim, across tile edges and ragged ends
+    (f"f32_d{d}_n{n}", (2, 3, n, d), torch.float32, False)
+    for d in (32, 64, 128)
+    for n in (1, 64, 65, 257, 300)
+] + [
+    (f"f32_d{d}_n257_causal", (2, 3, 257, d), torch.float32, True)
     for d in (32, 64, 128)
 ]
 MAIN_CASE = "vit_b14_main_path"
@@ -311,12 +328,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def attention_bound_ms(shape, dtype) -> tuple[float, str]:
     """Least time for one call: q, k, v read once and o written once over
-    HBM bandwidth, against 4*B*H*N^2*d FLOP over the type's peak."""
+    HBM bandwidth, against 4*B*H*N^2*d FLOP over the peak of the products'
+    type. f32-grade products on the tensor cores are 3xTF32: three tf32
+    products each at the TF32 peak (``attention_cuda_core_ms`` gives the same
+    work on the CUDA cores)."""
     B, H, N, d = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     t_bytes = 4 * B * H * N * d * itemsize / PEAK_BYTES_PER_S
-    t_ops = 4 * B * H * N * N * d / PEAK_FLOPS[dtype]
+    flops = 4 * B * H * N * N * d
+    t_ops = 3 * flops / PEAK_TF32_FLOPS if dtype == torch.float32 else flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_cuda_core_ms(shape) -> float:
+    """4*B*H*N^2*d f32 FLOP over the CUDA cores' f32 peak, in ms."""
+    B, H, N, d = shape
+    return 4 * B * H * N * N * d / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def phase_device() -> tuple[str, str]:
@@ -393,14 +420,26 @@ def phase_build(card: str) -> dict:
         ptxas[name] = ptxas_report(log)
         for kernel, info in ptxas[name].items():
             print(f"[{card}] ptxas {name}: {kernel} {json.dumps(info)}")
-    wgmma = ptxas.get(attention.KERNEL_NAME, {}).get("flash_attn_wgmma_kernel<64>")
-    check(wgmma is not None and "registers" in wgmma, "no ptxas report for the wgmma kernel")
+    for kernel in ("flash_attn_wgmma_kernel<64>", *(
+        f"flash_attn_tf32x3_kernel<{d}>" for d in attention.HEAD_DIMS
+    )):
+        info = ptxas.get(attention.KERNEL_NAME, {}).get(kernel)
+        check(info is not None and "registers" in info, f"no ptxas report for {kernel}")
     return ptxas
+
+
+def time_in_turns(fns: dict, order, device: str = "cuda") -> dict:
+    """ms per call of each named fn (CUDA events on the card, mean of 20
+    after 3 warm-ups), timed in ``order``: name -> list of ms."""
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(_device_ms(device, fns[name], iters=20, warmup=3))
+    return times
 
 
 def phase_kernels(card: str) -> dict:
     """Each attention case: the kernel against the plain version, both on
-    the card. Returns the main path's numbers."""
+    the card. Returns the main path's numbers by dtype."""
     rng = np.random.default_rng(SEED)
     main = {}
     for label, shape, dtype, causal in ATTENTION_CASES:
@@ -423,16 +462,34 @@ def phase_kernels(card: str) -> dict:
             "causal": causal, "path": attention.launch_plan(shape, dtype).path,
             "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
         }
-        if label.startswith(MAIN_CASE):
+        if label == MAIN_CASE:
             line["kernel_ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
             line["plain_ms"] = cuda_ms(lambda: attention.reference_attention(q, k, v))
             line["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)
             )
+        elif label.startswith(MAIN_CASE):
+            # f32: in turns, plain, kernel, SDPA, SDPA, kernel, plain
+            times = time_in_turns(
+                {
+                    "plain": lambda: attention.reference_attention(q, k, v),
+                    "kernel": lambda: attention.flash_attention(q, k, v),
+                    "library": lambda: F.scaled_dot_product_attention(q, k, v),
+                },
+                ("plain", "kernel", "library", "library", "kernel", "plain"),
+            )
+            for name, ms in times.items():
+                line[f"{name}_ms"] = sum(ms) / len(ms)
+                line[f"{name}_ms_turns"] = ms
+            lib = F.scaled_dot_product_attention(q, k, v)
+            # the library's own f32 attention against the same plain version
+            line["library_max_abs_err"] = (lib.float() - ref.float()).abs().max().item()
+            line["bound_cuda_core_ms"] = attention_cuda_core_ms(shape)
+            del lib
+        if label.startswith(MAIN_CASE):
             line["bound_ms"], line["bound_by"] = attention_bound_ms(shape, dtype)
             line["card"] = card
-            if label == MAIN_CASE:
-                main = line
+            main[dtype] = line
         print("attention " + json.dumps(line))
         del q, k, v, out, ref, diff
     return main
@@ -479,11 +536,7 @@ async def drive_main_path(svc: CellImageSearch, crops, queries, workspace: str) 
 
 
 def phase_main_path(card: str) -> int:
-    crops = synthetic_crops(SEED, N_FIELDS)
-    check(len(crops) > TOP_K, f"only {len(crops)} crops from {N_FIELDS} fields")
-    probe = 5
-    queries = [crops[probe]] + synthetic_crops(SEED + 1, 1)[: N_SEARCHES - 1]
-    check(len(queries) == N_SEARCHES, f"{len(queries)} queries")
+    crops, queries, probe = main_path_inputs()
     print(f"main path: ViT-B/14 (768 wide, {VIT_DEPTH} deep, 12 heads, 224^2, bf16), "
           f"bucket {BUCKET}, {len(crops)} crops from {N_FIELDS} synthetic 896^2 fields")
 
@@ -501,26 +554,7 @@ def phase_main_path(card: str) -> int:
         embed_dim = svc.embedder.embed_dim
 
     print(f"main path: {forwards} bucket forwards, flash_attn_fwd launches {launches}")
-    check(launches > 0, "the main path launched no flash_attn_fwd kernel")
-    check(launches == VIT_DEPTH * forwards, f"{launches} launches for {forwards} forwards")
-
-    emb = r["emb"]
-    check(emb.shape == (len(crops), embed_dim) and np.isfinite(emb).all(), f"embeddings {emb.shape}")
-    check(np.isfinite(r["bucket_emb"]).all(), "non-finite embeddings in the full buckets")
-    norms = np.linalg.norm(emb, axis=1)
-    check(np.abs(norms - 1).max() <= 1e-3, f"norms off by {np.abs(norms - 1).max()}")
-    check(r["stats"]["loaded"] and r["stats"]["n_cells"] == len(crops), f"stats {r['stats']}")
-    check(r["stats"]["index_type"] == "FlatIP", f"stats {r['stats']}")
-    check(r["ping"]["status"] == "ok" and r["ping"]["backend"] == "cuda", f"ping {r['ping']}")
-    print("ping " + json.dumps(r["ping"]))
-    for i, found in enumerate(r["found"]):
-        scores = [x["score"] for x in found["results"]]
-        check(found["n_results"] == TOP_K, f"search {i}: {found['n_results']} results")
-        check(all(np.isfinite(scores)) and scores == sorted(scores, reverse=True),
-              f"search {i}: scores {scores}")
-    top = r["found"][0]["results"][0]
-    check(top["index_id"] == probe and top["crop"] == probe and top["score"] >= 0.99,
-          f"corpus crop {probe} came back as {top}")
+    check_main_path(r, crops, probe, launches, forwards, embed_dim)
 
     # for comparison only: the same weights with the plain attention
     plain = ViTEmbedder(
@@ -528,7 +562,7 @@ def phase_main_path(card: str) -> int:
         attn_fn=attention.reference_attention, model_overrides={"depth": VIT_DEPTH},
     )
     ref = plain.embed_batch(crops[:BUCKET])
-    cos = np.sum(ref * emb[:BUCKET], axis=1)
+    cos = np.sum(ref * r["emb"][:BUCKET], axis=1)
     print(f"kernel vs plain attention embeddings: min cosine {cos.min():.6f} over {len(cos)} rows")
     check(cos.min() >= 0.999, f"min cosine {cos.min()}")
 
@@ -542,6 +576,112 @@ def phase_main_path(card: str) -> int:
           f"(min {ms.min():.2f}, max {ms.max():.2f}); service embed/search ms {svc_ms}")
     print(f"[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def main_path_inputs() -> tuple[list, list, int]:
+    """The crops of N_FIELDS synthetic fields, N_SEARCHES queries (the first
+    one a corpus crop) and that crop's index."""
+    crops = synthetic_crops(SEED, N_FIELDS)
+    check(len(crops) > TOP_K, f"only {len(crops)} crops from {N_FIELDS} fields")
+    probe = 5
+    queries = [crops[probe]] + synthetic_crops(SEED + 1, 1)[: N_SEARCHES - 1]
+    check(len(queries) == N_SEARCHES, f"{len(queries)} queries")
+    return crops, queries, probe
+
+
+def check_main_path(r: dict, crops, probe: int, launches: int, forwards: int,
+                    embed_dim: int, device: str = "cuda") -> None:
+    check(launches > 0, "the main path launched no flash_attn_fwd kernel")
+    check(launches == VIT_DEPTH * forwards, f"{launches} launches for {forwards} forwards")
+    emb = r["emb"]
+    check(emb.shape == (len(crops), embed_dim) and np.isfinite(emb).all(), f"embeddings {emb.shape}")
+    check(np.isfinite(r["bucket_emb"]).all(), "non-finite embeddings in the full buckets")
+    norms = np.linalg.norm(emb, axis=1)
+    check(np.abs(norms - 1).max() <= 1e-3, f"norms off by {np.abs(norms - 1).max()}")
+    check(r["stats"]["loaded"] and r["stats"]["n_cells"] == len(crops), f"stats {r['stats']}")
+    check(r["stats"]["index_type"] == "FlatIP", f"stats {r['stats']}")
+    check(r["ping"]["status"] == "ok" and r["ping"]["backend"] == device, f"ping {r['ping']}")
+    print("ping " + json.dumps(r["ping"]))
+    for i, found in enumerate(r["found"]):
+        scores = [x["score"] for x in found["results"]]
+        check(found["n_results"] == TOP_K, f"search {i}: {found['n_results']} results")
+        check(all(np.isfinite(scores)) and scores == sorted(scores, reverse=True),
+              f"search {i}: scores {scores}")
+    top = r["found"][0]["results"][0]
+    check(top["index_id"] == probe and top["crop"] == probe and top["score"] >= 0.99,
+          f"corpus crop {probe} came back as {top}")
+
+
+MAIN_F32_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
+
+
+def phase_main_path_f32(card: str, device: str = "cuda") -> dict:
+    """The main path in float32: the service with ``"dtype": "float32"`` in
+    its model overrides (TF32 off, so the ViT's GEMMs are full f32) runs its
+    attention through the kernel's tf32x3 path."""
+    crops, queries, probe = main_path_inputs()
+    overrides = {**MAIN_F32_VIT, "dtype": "float32"}
+    print(f"main path f32: ViT-B/14 (768 wide, {VIT_DEPTH} deep, 12 heads, 224^2, float32), "
+          f"bucket {BUCKET}, {len(crops)} crops from {N_FIELDS} synthetic 896^2 fields")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as workspace:
+        svc = CellImageSearch(
+            workspace_dir=workspace, batch_bucket=BUCKET, device=device, seed=SEED,
+            model_overrides=overrides,
+        )
+        _sync(device)
+        attention.launch_count = 0
+        r = asyncio.run(drive_main_path(svc, crops, queries, workspace))
+        launches = attention.launch_count
+        forwards = svc.embedder.forward_count
+        embed_dim = svc.embedder.embed_dim
+    print(f"main path f32: {forwards} bucket forwards, flash_attn_fwd launches {launches}")
+    # on the CPU (a rehearsal) the wrapper takes the plain version: no launch
+    check_main_path(r, crops, probe, launches if device == "cuda" else VIT_DEPTH * forwards,
+                    forwards, embed_dim, device)
+    check(svc.embedder._model.dtype == torch.float32, f"model dtype {svc.embedder._model.dtype}")
+
+    # for comparison only: the same weights with the plain attention, and
+    # with SDPA (a yardstick; the port never calls it)
+    embedders = {
+        "kernel": svc.embedder,
+        "plain": ViTEmbedder(batch_bucket=BUCKET, device=device, seed=SEED,
+                             attn_fn=attention.reference_attention, model_overrides=overrides),
+        "sdpa": ViTEmbedder(batch_bucket=BUCKET, device=device, seed=SEED,
+                            attn_fn=F.scaled_dot_product_attention, model_overrides=overrides),
+    }
+    ref = embedders["plain"].embed_batch(crops[:BUCKET])
+    cos = np.sum(ref * r["emb"][:BUCKET], axis=1)
+    sdpa_cos = np.sum(ref * embedders["sdpa"].embed_batch(crops[:BUCKET]), axis=1)
+    print(f"f32 kernel vs plain attention embeddings: min cosine {cos.min():.8f}, max abs "
+          f"{np.abs(ref - r['emb'][:BUCKET]).max():.3e} over {len(cos)} rows "
+          f"(SDPA vs plain: min cosine {sdpa_cos.min():.8f})")
+    check(cos.min() >= F32_COSINE_FLOOR, f"f32 min cosine {cos.min()} under {F32_COSINE_FLOOR}")
+
+    full = (crops * (3 * BUCKET // len(crops) + 1))[: 3 * BUCKET]
+    order = ("kernel", "plain", "sdpa", "sdpa", "plain", "kernel")
+    rates = {name: [] for name in embedders}
+    for name in order:
+        t0 = time.perf_counter()
+        embedders[name].embed_batch(full)
+        rates[name].append(len(full) / (time.perf_counter() - t0))
+    x = torch.from_numpy(
+        np.random.default_rng(SEED).standard_normal((BUCKET, 224, 224, 3), np.float32)
+    ).to(device)
+    with torch.inference_mode():
+        forward_ms = time_in_turns(
+            {name: (lambda e=e: e._model(x)) for name, e in embedders.items()}, order, device
+        )
+    print(f"[{card}] f32 embed, 3 full buckets of {BUCKET} (host clock), in turns {order}: "
+          f"images/s kernel {rates['kernel']}, plain attention {rates['plain']}, SDPA {rates['sdpa']}")
+    print(f"[{card}] f32 bucket forward (CUDA events, mean of 20 after 3 warm-up), same turns: "
+          f"ms kernel {forward_ms['kernel']}, plain attention {forward_ms['plain']}, "
+          f"SDPA {forward_ms['sdpa']}")
+    out = {"launches": launches, "forwards": forwards, "min_cosine": float(cos.min()),
+           "images_per_s": rates, "forward_ms": forward_ms, "card": card}
+    print("main_path_f32 " + json.dumps(out))
+    del embedders, svc, x
+    _release(device)
+    return out
 
 
 # ---- slice 6: cell-image-search at corpus scale ------------------------------
@@ -3544,8 +3684,10 @@ def phase_worker(card: str, device: str = "cuda") -> dict:
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
-    main_case = phase_kernels(card)
+    main_cases = phase_kernels(card)
+    main_case, f32_case = main_cases[torch.bfloat16], main_cases[torch.float32]
     launches = phase_main_path(card)
+    main_f32 = phase_main_path_f32(card)
     index = phase_index(card)
     forward = phase_forward(card)
     model_runner = phase_model_runner(card)
@@ -3564,6 +3706,7 @@ def main() -> int:
         "launches": launches,
         # slices 2-5, 7 and 8 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
+                             "cell_image_search_f32": main_f32["launches"],
                              "index": index["launches"],
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
@@ -3581,8 +3724,13 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "forward_ms": forward["kernel"],
         "forward_plain_ms": forward["plain"],
+        # the f32 (tf32x3) path at the same shape, timed in turns
+        "f32": {key: f32_case[key] for key in (
+            "path", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_cuda_core_ms", "max_abs_err", "library_max_abs_err")},
         "ptxas": ptxas[attention.KERNEL_NAME],
         "smem_bytes": attention.launch_plan(main_case["shape"], torch.bfloat16).smem_bytes,
+        "f32_smem_bytes": attention.launch_plan(f32_case["shape"], torch.float32).smem_bytes,
         "card": card,
     }]}))
     print(json.dumps({

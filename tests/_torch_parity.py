@@ -105,3 +105,75 @@ def emulate_wgmma_attention(q, k, v, causal=False, block=64):
         safe_l = torch.where(l == 0, 1.0, l)[..., None]
         out[:, :, q0 : q0 + block] = torch.where(l[..., None] == 0, 0.0, o / safe_l)
     return out.to(torch.bfloat16)
+
+
+def tf32_round(x):
+    """x (float32) rounded to tf32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with 10 mantissa bits, ties away from zero, the low 13 bits
+    zero; inf and nan pass through. Bit operations on the int32 view, the
+    same two the kernel's ``tf32_rna`` does for every finite x and inf."""
+    bits = x.contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    # adding half an ulp to the magnitude's bits rounds it half up; the sign
+    # bit is left alone, so ties go away from zero
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def split_tf32(x):
+    """(big, small): big = tf32(x), small = tf32(x - big); x - big is exact."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def _product_3xtf32(a, b, passes=3):
+    """a @ b from tf32 halves: small(a) big(b) + big(a) small(b) + big(a)
+    big(b) summed in f32, small terms first; ``passes=1`` is big(a) big(b)
+    alone (one TF32 pass)."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def emulate_tf32x3_attention(q, k, v, causal=False, passes=3):
+    """Plain PyTorch emulation of the f32 (tf32x3) path of
+    ``bioengine_tpu_torch/csrc/flash_attn_fwd.cu``, for CPU tests: q scaled
+    by d^-1/2 before its split; 64-row query tiles and key tiles of 64 rows
+    (32 at d = 128), rows past n zero as TMA fills them; both products as
+    3xTF32 (``passes=1``: one TF32 pass, big·big alone); the
+    online softmax in f32 with ``exp``; P split before P V; O / l once.
+    q, k, v: (B, H, N, d) float32 -> (B, H, N, d) float32."""
+    n, d = q.shape[2], q.shape[3]
+    block_k = 32 if d == 128 else 64
+    qs = q.float() * d**-0.5
+    kf, vf = k.float(), v.float()
+    out = torch.empty(qs.shape)
+    for q0 in range(0, n, 64):
+        rows = torch.arange(q0, min(q0 + 64, n))
+        qt = qs[:, :, q0 : q0 + 64]
+        m = torch.full(qt.shape[:-1], -1e30)
+        l = torch.zeros(qt.shape[:-1])
+        o = torch.zeros(qt.shape)
+        kv_len = min(n, q0 + 64) if causal else n
+        for k0 in range(0, kv_len, block_k):
+            k1 = k0 + block_k
+            cols = torch.arange(k0, k1)
+            keep = cols[None, :] < n
+            if causal:
+                keep = keep & (cols[None, :] <= rows[:, None])
+            kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
+            if k1 > n:  # TMA fills rows past n with zeros
+                pad = (0, 0, 0, k1 - n)
+                kt, vt = torch.nn.functional.pad(kt, pad), torch.nn.functional.pad(vt, pad)
+            s = _product_3xtf32(qt, kt.transpose(-2, -1), passes).masked_fill(~keep, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None]).masked_fill(~keep, 0.0)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + _product_3xtf32(p, vt, passes)
+            m = m_new
+        safe_l = torch.where(l == 0, 1.0, l)[..., None]
+        out[:, :, q0 : q0 + 64] = torch.where(l[..., None] == 0, 0.0, o / safe_l)
+    return out

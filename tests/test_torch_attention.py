@@ -17,7 +17,14 @@ from bioengine_tpu.ops.pallas.attention import (
 )
 from bioengine_tpu.ops.pallas.attention import flash_attention as jax_flash
 from bioengine_tpu.ops.pallas.attention import make_attn_fn as jax_make_attn_fn
-from _torch_parity import emulate_wgmma_attention, few_torch_threads, seeded_flax_params  # noqa: F401
+from _torch_parity import (  # noqa: F401
+    emulate_tf32x3_attention,
+    emulate_wgmma_attention,
+    few_torch_threads,
+    seeded_flax_params,
+    split_tf32,
+    tf32_round,
+)
 from bioengine_tpu_torch.ops import attention
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -189,20 +196,32 @@ class TestLaunchPlan:
         (2, 3, 65, 128),
     ]
 
-    def test_main_path_shape(self):
-        plan = attention.launch_plan((64, 12, 257, 64), torch.bfloat16)
-        assert plan.path == "wgmma"
-        assert plan.q_tiles == 5
-        assert plan.grid == 64 * 12 * 5
-        assert plan.threads == 128 + 32
+    @pytest.mark.parametrize(
+        "dtype, path, threads, block_q",
+        # bf16: a consumer warpgroup and a producer warp; f32: two consumer
+        # warpgroups of 64 query rows each and a splitter warpgroup
+        [
+            (torch.bfloat16, "wgmma", 128 + 32, 64),
+            (torch.float32, "tf32x3", 2 * 128 + 128, 128),
+        ],
+        ids=str,
+    )
+    def test_main_path_shape(self, dtype, path, threads, block_q):
+        plan = attention.launch_plan((64, 12, 257, 64), dtype)
+        assert plan.path == path
+        assert plan.block_q == block_q
+        assert plan.q_tiles == -(-257 // block_q)
+        assert plan.grid == 64 * 12 * plan.q_tiles
+        assert plan.threads == threads
 
     @pytest.mark.parametrize("shape", SHAPES, ids=str)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
     def test_tiles_cover_every_row_once(self, shape, dtype):
         B, H, N, _ = shape
         plan = attention.launch_plan(shape, dtype)
-        assert plan.q_tiles == -(-N // attention.BLOCK_Q)
-        assert (plan.q_tiles - 1) * attention.BLOCK_Q < N <= plan.q_tiles * attention.BLOCK_Q
+        assert plan.block_q % attention.BLOCK_Q == 0
+        assert plan.q_tiles == -(-N // plan.block_q)
+        assert (plan.q_tiles - 1) * plan.block_q < N <= plan.q_tiles * plan.block_q
         assert plan.grid == B * H * plan.q_tiles
 
     @pytest.mark.parametrize("shape", [(64, 12, 257, 64), (2, 3, 65, 32)], ids=str)
@@ -219,15 +238,30 @@ class TestLaunchPlan:
         plan = attention.launch_plan((1, 1, 64 * 70_000, 64), torch.bfloat16)
         assert plan.q_tiles == 70_000 and plan.grid == 70_000
 
+    # bf16: Q and a 2-stage ring of K and V, 8 KB boxes (d = 32 pads its box);
+    # f32: Q big and small for each consumer (2, 1 at d = 128), a landing
+    # ring of f32 K and V (2 deep at d = 32, else 1), a 2-deep working ring of
+    # K big and small and V^T big and small (key tiles of 32 rows at
+    # d = 128); both + 128 B of barriers + 1 KB to align
+    SMEM_BYTES = {
+        (torch.bfloat16, 32): 5 * 8192 + 1152,
+        (torch.bfloat16, 64): 5 * 8192 + 1152,
+        (torch.bfloat16, 128): 10 * 8192 + 1152,
+        (torch.float32, 32): 2 * 2 * 8192 + (4 + 8) * 8192 + 1152,
+        (torch.float32, 64): 2 * 2 * 16384 + (2 + 8) * 16384 + 1152,
+        (torch.float32, 128): 2 * 32768 + (2 + 8) * 16384 + 1152,
+    }
+
     @pytest.mark.parametrize("d", attention.HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
     def test_shared_memory_fits_a_block(self, dtype, d):
         plan = attention.launch_plan((1, 1, 257, d), dtype)
+        assert plan.smem_bytes == self.SMEM_BYTES[(dtype, d)]
         assert 0 < plan.smem_bytes <= 232_448  # 227 KB, an H100 block's most
 
     @pytest.mark.parametrize(
         "dtype, path",
-        [(torch.float32, "cuda_core_f32"), (torch.bfloat16, "wgmma")],
+        [(torch.float32, "tf32x3"), (torch.bfloat16, "wgmma")],
         ids=str,
     )
     def test_path_follows_dtype(self, dtype, path):
@@ -282,3 +316,71 @@ class TestWgmmaEmulation:
             attention.reference_attention(q, k, v).float().numpy(),
             atol=2e-2,
         )
+
+
+class TestTf32x3Emulation:
+    """A plain emulation of the f32 path's arithmetic (3xTF32 products from
+    tf32 halves rounded by cvt.rna, q scaled before its split, 64-row query
+    tiles, key tiles trimmed to 8-key blocks, exp, P split before P V)
+    against the JAX kernel in f32, at the JAX suite's f32 tolerance."""
+
+    @pytest.mark.parametrize(
+        "shape, causal",
+        [
+            ((2, 3, 128, 64), False),
+            ((2, 3, 200, 64), False),
+            ((2, 3, 257, 64), False),
+            ((1, 2, 200, 32), True),
+            ((2, 4, 190, 128), False),
+            ((1, 2, 1, 64), False),
+            ((1, 2, 64, 64), False),
+            ((1, 2, 65, 64), False),
+            ((1, 2, 300, 64), False),
+        ],
+        ids=["n128", "n200", "n257", "causal_d32", "d128", "n1", "n64", "n65", "n300"],
+    )
+    def test_matches_jax_f32(self, shape, causal):
+        arrays = _inputs(12, shape)
+        ref = _run_jax(arrays, causal=causal)
+        out = emulate_tf32x3_attention(*(torch.from_numpy(a) for a in arrays), causal)
+        assert out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+
+    def test_one_tf32_pass_is_outside_the_tolerance(self):
+        """The negative control: big·big alone misses 2e-5, so the test
+        above can fail."""
+        arrays = _inputs(12, (2, 3, 257, 64))
+        ref = _run_jax(arrays)
+        tensors = [torch.from_numpy(a) for a in arrays]
+        one_pass = emulate_tf32x3_attention(*tensors, passes=1).numpy()
+        three = emulate_tf32x3_attention(*tensors).numpy()
+        assert not np.allclose(one_pass, ref, atol=2e-5, rtol=2e-5)
+        assert np.abs(one_pass - ref).max() > 10 * np.abs(three - ref).max()
+
+
+class TestTf32Rounding:
+    """``tf32_round`` is cvt.rna.tf32.f32: nearest, ties away from zero."""
+
+    def test_exact_values_stay(self):
+        x = torch.tensor([0.0, -0.0, 1.0, -3.0, 0.5, 1 + 2**-10, 2.0**-126, -(2.0**100)])
+        assert torch.equal(tf32_round(x).view(torch.int32), x.view(torch.int32))
+
+    @pytest.mark.parametrize("sign", [1.0, -1.0])
+    def test_ties_round_away_from_zero(self, sign):
+        x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, 1 + 2**-11 - 2**-23]) * sign
+        expected = torch.tensor([1 + 2**-10, 1 + 2 * 2**-10, 1.0]) * sign
+        np.testing.assert_array_equal(tf32_round(x).numpy(), expected.numpy())
+
+    def test_inf_and_nan_pass_through(self):
+        x = torch.tensor([float("inf"), float("-inf"), float("nan")])
+        out = tf32_round(x)
+        assert out[0] == float("inf") and out[1] == float("-inf")
+        assert torch.isnan(out[2])
+
+    def test_split_holds_x_to_2_pow_minus_22(self):
+        x = torch.from_numpy(np.random.default_rng(13).standard_normal(4096, np.float32))
+        big, small = split_tf32(x)
+        for half in (big, small):
+            assert not (half.view(torch.int32) & 0x1FFF).any()
+        assert (torch.abs(x - big) <= 2.0**-11 * torch.abs(x)).all()
+        assert (torch.abs(x - big - small) <= 2.0**-22 * torch.abs(x)).all()
