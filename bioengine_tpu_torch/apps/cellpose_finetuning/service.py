@@ -33,8 +33,12 @@ by an atomic rename, and restart from the latest snapshot.
 
 cpsam is a 3-channel model: its batches get a zero third channel at the
 model boundary, in training, ``infer`` and ``infer_3d``; its export is
-served with 3-channel input. The methods are plain ``async`` methods (no
-RPC plane yet). Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+served with 3-channel input. The service methods are the JAX app's ten
+``@schema_method``s, with its docstrings (the published schemas are built
+from them) and ``context``, so the worker serves the app from its bundle
+(``apps/bundles/cellpose-finetuning``). ``async_init`` resolves the
+replica's lease: training, ``infer`` and ``infer_3d`` run on the leased
+card. Entry points run on ``cuda:0`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ from bioengine_tpu_torch.runtime.convert import (
     save_params_npz,
     state_dict_from_flax,
 )
-from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
+from bioengine_tpu_torch.rpc import schema_method
+from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device, resolve_devices
 
 # session states with no train thread behind them anymore
 _TERMINAL_STATES = ("completed", "failed", "stopped", "interrupted")
@@ -382,6 +387,14 @@ class CellposeFinetune:
         self._infer_lock = threading.Lock()
         self._recover_sessions()
 
+    async def async_init(self):
+        """The replica lifecycle injects the leased chip
+        (``bioengine_device_ids``) before this runs: training, ``infer`` and
+        ``infer_3d`` run on that card (``resolve_devices``: a lease naming
+        no such device is refused, never remapped)."""
+        lease = getattr(self, "bioengine_device_ids", None)
+        (self.device,) = resolve_devices(list(lease) if lease else None, self.device)
+
     @contextlib.asynccontextmanager
     async def _lifecycle_lock(self, session_id: str):
         entry = self._locks.setdefault(session_id, [asyncio.Lock(), 0])
@@ -600,16 +613,19 @@ class CellposeFinetune:
 
     # ---- service API ------------------------------------------------------------
 
-    async def get_default_config(self):
+    @schema_method
+    async def get_default_config(self, context=None):
         """Training hyperparameters and their defaults."""
         return dict(DEFAULT_CONFIG)
 
+    @schema_method
     async def start_training(
         self,
         train_images: list,
         train_labels: list,
         config: dict | None = None,
         session_id: str | None = None,
+        context=None,
     ):
         """Start a fine-tuning session. ``train_images``: list of (H, W)
         or (H, W, C) arrays; ``train_labels``: instance-label masks of
@@ -668,8 +684,10 @@ class CellposeFinetune:
             session.preparing = False
         return {"session_id": session_id, "status": "started"}
 
-    async def stop_training(self, session_id: str):
-        """Request a graceful stop (the STOP file is checked per batch)."""
+    @schema_method
+    async def stop_training(self, session_id: str, context=None):
+        """Request a graceful stop (checked per batch, like the
+        reference's stop-file, ref main.py:1278-1360)."""
         async with self._lifecycle_lock(session_id):
             session = self._get_session(session_id)
             session.stop_path.touch()
@@ -677,9 +695,10 @@ class CellposeFinetune:
                 await asyncio.wait([session.task], timeout=30)
             return session.read_status()
 
-    async def restart_training(self, session_id: str):
+    @schema_method
+    async def restart_training(self, session_id: str, context=None):
         """Resume a stopped/interrupted/failed session from its latest
-        snapshot."""
+        snapshot (ref main.py:4117)."""
         async with self._lifecycle_lock(session_id):
             session = self._get_session(session_id)
             if await self._busy(session):
@@ -695,11 +714,13 @@ class CellposeFinetune:
             )
         return {"session_id": session_id, "status": "restarted"}
 
-    async def get_training_status(self, session_id: str):
+    @schema_method
+    async def get_training_status(self, session_id: str, context=None):
         """The session's status.json: state, epoch progress, losses."""
         return self._get_session(session_id).read_status()
 
-    async def list_sessions(self):
+    @schema_method
+    async def list_sessions(self, context=None):
         """All sessions with their current status and snapshot count."""
         return [
             {**s.read_status(), "snapshots": len(s.snapshots())}
@@ -732,7 +753,8 @@ class CellposeFinetune:
             return True
         return False
 
-    async def delete_session(self, session_id: str):
+    @schema_method
+    async def delete_session(self, session_id: str, context=None):
         """Remove a session directory (must not be training)."""
         async with self._lifecycle_lock(session_id):
             session = self._get_session(session_id)
@@ -746,12 +768,14 @@ class CellposeFinetune:
             )
         return {"deleted": session_id}
 
+    @schema_method
     async def infer(
         self,
         session_id: str,
         images: list,
         cellprob_threshold: float = 0.0,
         min_size: int = 15,
+        context=None,
     ):
         """Segment images with the session's latest snapshot — live
         inference against a training run works because snapshots are
@@ -822,6 +846,7 @@ class CellposeFinetune:
             for p in pred
         ]
 
+    @schema_method
     async def infer_3d(
         self,
         session_id: str,
@@ -829,15 +854,18 @@ class CellposeFinetune:
         cellprob_threshold: float = 0.0,
         min_size: int = 15,
         anisotropy: float = 1.0,
+        context=None,
     ):
         """Segment (D, H, W) grayscale volumes with the session's 2D
         model via the cellpose ``do_3D`` recipe: the network runs over
         yx, zx, and zy slice orientations, shared flow components are
         averaged into one (dz, dy, dx) field, and voxels are followed
-        to 3D sinks on the device. ``anisotropy`` = z-spacing /
+        to 3D sinks (ops/flows.py). ``anisotropy`` = z-spacing /
         xy-spacing: the stack is resampled along z by this factor first
         so cells appear isotropic to the 2D network, and the masks are
-        resampled back."""
+        resampled back. The reference delegates all of this to the
+        upstream cellpose library; here it is first-class and the flow
+        following runs jitted on TPU."""
         session = self._get_session(session_id)
         if session.config.get("backbone") == "stardist":
             raise RuntimeError(
@@ -924,9 +952,17 @@ class CellposeFinetune:
             out.append(masks)
         return out
 
-    async def export_model(self, session_id: str, model_name: str | None = None):
+    @schema_method
+    async def export_model(
+        self,
+        session_id: str,
+        model_name: str | None = None,
+        context=None,
+    ):
         """Package the session's latest snapshot as a model-runner-ready
-        ``jax_params`` model directory (rdf.yaml + weights.npz)."""
+        ``jax_params`` model directory (rdf.yaml + weights.npz + test
+        tensors) — the TPU analog of the reference's BioImage Model Zoo
+        export (ref main.py:4413+, model_template.py:18)."""
         session = self._get_session(session_id)
         cfg = session.config
         if not session.latest_path.exists():

@@ -9,15 +9,19 @@ continuous batching) driving a
 keeps it deterministic, which mid-stream resume (``resume_from``) relies
 on.
 
-Differences from the JAX app (ROADMAP, slice 7): the methods are plain
-``async`` methods with no ``context``, no ``@schema_method`` and no RPC
-stream frames (A12); the deployment takes ``device`` (``cuda`` unless
+As in the JAX app, ``generate`` and ``describe_engine`` are
+``@schema_method``s, which the worker publishes on the app's service
+(WebSocket, HTTP bridge, MCP); ``generate_stream`` is not one: callers
+reach the stream through the deployment's handle
+(``DeploymentHandle.call_stream``). Differences from the JAX app (ROADMAP,
+slice 7): the deployment takes ``device`` (``cuda`` unless
 ``device="cpu"``); one device, no dp mesh (A10).
 """
 
 import asyncio
 import os
 
+from bioengine_tpu_torch.rpc import schema_method
 from bioengine_tpu_torch.utils import tracing
 
 
@@ -97,6 +101,7 @@ class GenerateDeployment:
         deadline_s=None,
         resume_from: int = 0,
         seq_id=None,
+        context=None,
     ):
         """Async generator: one ``{"token", "text", "index"}`` item per
         generated token. ``resume_from`` makes a resumed stream emit
@@ -133,11 +138,13 @@ class GenerateDeployment:
 
     # ---- unary surface -------------------------------------------------------
 
+    @schema_method
     async def generate(
         self,
         prompt: str,
         max_new_tokens: int = 64,
         klass: str = "interactive",
+        context=None,
     ):
         """Drain a full generation and return it in one response."""
         tokens = []
@@ -147,7 +154,8 @@ class GenerateDeployment:
             tokens.append(item["token"])
         return {"prompt": prompt, "tokens": tokens, "text": decode(tokens)}
 
-    async def describe_engine(self):
+    @schema_method
+    async def describe_engine(self, context=None):
         """Engine placement + KV cache + decode-loop occupancy stats."""
         return {
             "engine": self.engine.describe() if self.engine else None,

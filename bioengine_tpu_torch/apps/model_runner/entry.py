@@ -6,6 +6,12 @@ Counterpart of ``apps/model-runner/entry_deployment.py``:
   plus files, with ``bioengine_inference`` check results in an optional
   ``root/collection.yaml``; ``EntryDeployment`` reads the root from
   ``BIOENGINE_LOCAL_MODEL_PATH``.
+- ``HttpCollectionSource``: the bioimage.io artifact endpoints under
+  ``collection_url`` (the default source without a local root): the
+  artifact manager's ``list`` and ``read`` (the ``bioengine_inference``
+  checks, cached for ``CHECKS_TTL_SECONDS``) and
+  ``{server}/bioimage-io/artifacts/{id}/files/{path}``, each GET tried up
+  to 4 times with a doubling back-off on a transport error, a 5xx or a 429.
 - ``ModelPackage`` / ``ModelCache``: the cross-replica download protocol
   (an exclusive-create ``.downloading`` marker that goes stale after
   ``STALE_DOWNLOAD_SECONDS``, a temp dir renamed into place),
@@ -20,15 +26,16 @@ Counterpart of ``apps/model-runner/entry_deployment.py``:
   calls); built alone, the entry builds its own ``RuntimeDeployment``.
 
 RDFs and ``collection.yaml`` are read with ``runtime.rdf.parse_rdf_text``
-(PyYAML where it imports, else JSON). The bioimage.io HTTP source and
-http(s) inputs need the network and raise ``NotImplementedError``. Entry
-points run on ``cuda`` unless given ``device="cpu"``.
+(PyYAML where it imports, else JSON). An ``http(s)://`` input to ``infer``
+is fetched with httpx. Entry points run on ``cuda`` unless given
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import io
+import json
 import os
 import shutil
 import time
@@ -45,10 +52,6 @@ from bioengine_tpu_torch.runtime.rdf import parse_rdf_text
 
 STALE_DOWNLOAD_SECONDS = 600
 SUPPORTED_FILE_TYPES = (".npy", ".png", ".tiff", ".tif", ".jpeg", ".jpg")
-_NO_NETWORK = (
-    "needs the network, which the port does not use yet (ROADMAP, "
-    "leftovers of A6); set BIOENGINE_LOCAL_MODEL_PATH to a local collection"
-)
 
 
 def _read_yaml(path: Path) -> dict:
@@ -107,10 +110,86 @@ class LocalCollectionSource:
 
 
 class HttpCollectionSource:
-    """The bioimage.io artifact endpoints: not ported."""
+    """bioimage.io artifact endpoints: list via the artifact manager,
+    files via ``{server}/bioimage-io/artifacts/{id}/files/{path}``."""
+
+    CHECKS_TTL_SECONDS = 60
 
     def __init__(self, server_url: str = "https://hypha.aicell.io"):
-        raise NotImplementedError(f"the bioimage.io collection at {server_url} {_NO_NETWORK}")
+        self.server_url = server_url.rstrip("/")
+        import httpx
+
+        self._client = httpx.AsyncClient(timeout=60, follow_redirects=True)
+        self._checks_cache: tuple[float, dict] | None = None
+
+    async def _get(self, url: str, **kw):
+        last = None
+        for attempt in range(4):
+            try:
+                r = await self._client.get(url, **kw)
+                if r.status_code < 400 or (400 <= r.status_code < 500 and r.status_code != 429):
+                    return r
+                last = RuntimeError(f"HTTP {r.status_code} for {url}")
+            except Exception as e:
+                last = e
+            await asyncio.sleep(0.2 * 2**attempt)
+        raise last
+
+    async def list_models(self) -> list[dict]:
+        url = f"{self.server_url}/public/services/artifact-manager/list"
+        r = await self._get(
+            url,
+            params={
+                "parent_id": "bioimage-io/bioimage.io",
+                "filters": json.dumps({"type": "model"}),
+                "limit": 1000,
+            },
+        )
+        r.raise_for_status()
+        return [
+            {
+                "model_id": a["alias"],
+                "description": a.get("manifest", {}).get("description", ""),
+                "tags": a.get("manifest", {}).get("tags", []),
+                "name": a.get("manifest", {}).get("name", a["alias"]),
+            }
+            for a in r.json()
+        ]
+
+    async def inference_checks(self) -> dict:
+        # TTL-cached: is_published runs on every infer() and must not add a
+        # collection round-trip to the inference hot path
+        if self._checks_cache and time.time() - self._checks_cache[0] < self.CHECKS_TTL_SECONDS:
+            return self._checks_cache[1]
+        url = f"{self.server_url}/public/services/artifact-manager/read"
+        r = await self._get(url, params={"artifact_id": "bioimage-io/bioimage.io"})
+        r.raise_for_status()
+        checks = r.json().get("manifest", {}).get("bioengine_inference", {})
+        self._checks_cache = (time.time(), checks)
+        return checks
+
+    async def fetch_file_list(self, model_id: str, stage: bool) -> list[dict]:
+        url = f"{self.server_url}/bioimage-io/artifacts/{model_id}/files/"
+        r = await self._get(url, params={"stage": str(stage).lower()})
+        r.raise_for_status()
+        return [
+            {"name": f["name"], "size": f.get("size", 0)}
+            for f in r.json()
+            if f.get("type") != "directory"
+        ]
+
+    async def fetch_file(self, model_id: str, name: str, stage: bool) -> bytes:
+        url = f"{self.server_url}/bioimage-io/artifacts/{model_id}/files/{name}"
+        r = await self._get(url, params={"stage": str(stage).lower()})
+        r.raise_for_status()
+        return r.content
+
+    async def is_published(self, model_id: str) -> bool:
+        checks = await self.inference_checks()
+        return checks.get(model_id, {}).get("status") == "passed"
+
+    async def close(self) -> None:
+        await self._client.aclose()
 
 
 # ---- model cache ------------------------------------------------------------
@@ -336,6 +415,8 @@ class EntryDeployment:
             raise RuntimeError("runtime replica reports no devices")
 
     async def close(self) -> None:
+        if isinstance(self.model_cache.source, HttpCollectionSource):
+            await self.model_cache.source.close()
         if self._owns_runtime:
             await self.runtime_deployment.close()
 
@@ -492,16 +573,23 @@ class EntryDeployment:
         return {"file_path": file_path, "size": len(data)}
 
     async def _load_image_from_source(self, source: str) -> np.ndarray:
-        """An uploaded file path -> numpy array."""
+        """URL / uploaded-file-path -> numpy array."""
         if source.startswith(("http://", "https://")):
-            raise NotImplementedError(f"an http(s) input {_NO_NETWORK}")
-        path = (self._uploads_dir / source).resolve()
-        if not path.is_relative_to(self._uploads_dir.resolve()):
-            raise ValueError("file path escapes the upload area")
-        if not path.exists():
-            raise FileNotFoundError(f"uploaded file '{source}' not found or expired")
-        raw = await asyncio.to_thread(path.read_bytes)
-        return await asyncio.to_thread(self._decode_array, raw, str(path))
+            import httpx
+
+            async with httpx.AsyncClient(timeout=60, follow_redirects=True) as client:
+                r = await client.get(source)
+                r.raise_for_status()
+                raw, name = r.content, source
+        else:
+            path = (self._uploads_dir / source).resolve()
+            if not path.is_relative_to(self._uploads_dir.resolve()):
+                raise ValueError("file path escapes the upload area")
+            if not path.exists():
+                raise FileNotFoundError(f"uploaded file '{source}' not found or expired")
+            raw, name = await asyncio.to_thread(path.read_bytes), str(path)
+        # decoding is CPU and allocation heavy: off the event loop
+        return await asyncio.to_thread(self._decode_array, raw, name)
 
     @staticmethod
     def _decode_array(raw: bytes, name: str) -> np.ndarray:

@@ -152,8 +152,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    subprocess answers ``/health/liveness``, names the card through the
    bridge with its admin token and exits 0 on SIGTERM; one ``worker`` JSON
    line;
-14. one JSON line of the kernels' numbers;
-15. the result line ``{"ok": true, "device": {...}}``, printed last.
+14. every app bundle on the worker (slice 10), ``phase_apps``: one
+   ``BioEngineWorker(device="cuda")`` in process, driven over a
+   ``connect_to_server`` WebSocket client, deploys and undeploys each
+   bundle in turn on the one card: gpu-test (``gpu_info`` names the card,
+   a bf16 128x128 matmul's norm is 16384.0; ``memory_info``); generate at
+   ``DecoderConfig()`` (unary over the WebSocket, the HTTP bridge and MCP
+   equal to the golden fixture, the deployment handle's ``generate_stream``
+   and its resume, 8 unary calls x 3 rounds over the WebSocket and on the
+   handle in turns, TTFT and inter-token p50/p95/p99 of 8 concurrent handle
+   streams of 64 tokens, a cold round and a warm one, beside the bundle's
+   250 ms objective); cellpose-finetuning (``start_training`` over the wire
+   with step 8's CellposeNet session, polled to ``completed``; ``infer`` of
+   2 x 512^2 over the WebSocket equal to the deployed instance's in-process
+   ``infer``, masks bit for bit and the network's output within 1e-5; ms
+   per ``infer`` on both paths; ``export_model``; the frontend; the peak
+   memory of the leased card); the model-runner fetching the UNet2D
+   package of step 7 from a loopback HTTP collection through
+   ``HttpCollectionSource``, with fibsem-mito-analysis (chips 0) beside it
+   calling it over the wire with a worker-issued token: ``analyze`` of a
+   2048^2 EM-like field (25 tiles of 512, overlap 64) equal, labels bit
+   for bit, to the same analysis made here from the entry handle's
+   predictions, with its ms split into the model-runner calls and the
+   host's work, and an http input equal to the inline array;
+   composition-demo's ``fan_out(7)``; after every undeploy the chips are
+   free and the allocated memory is back within 64 MiB; the attention
+   kernel's count stays 0; one ``apps`` JSON line;
+15. one JSON line of the kernels' numbers;
+16. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -169,6 +195,7 @@ import importlib
 import json
 import os
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -200,7 +227,7 @@ from bioengine_tpu_torch.apps.cell_image_search.service import CellImageSearch
 from bioengine_tpu_torch.apps.cellpose_finetuning import service as finetune_service
 from bioengine_tpu_torch.apps.cellpose_finetuning.service import CellposeFinetune
 from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
-from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment
+from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment, HttpCollectionSource
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.cluster.state import ClusterState
 from bioengine_tpu_torch.cluster.topology import detect_topology
@@ -249,12 +276,18 @@ from bioengine_tpu_torch.runtime.decode_engine import (
     init_decoder_params,
 )
 from bioengine_tpu_torch.runtime.program_cache import CompiledProgramCache
-from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, to_nhwc
+from bioengine_tpu_torch.runtime.rdf import apply_processing, from_nhwc, load_model_rdf, parse_rdf_text, to_nhwc
 from bioengine_tpu_torch.runtime.weight_stream import write_manifest
 from bioengine_tpu_torch.serving.decode import DecodeLoop
 from bioengine_tpu_torch.native import store as native_store
 from bioengine_tpu_torch.rpc import connect_to_server
-from bioengine_tpu_torch.serving import DeploymentHandle, DeploymentSpec, ReplicaState, ServeController
+from bioengine_tpu_torch.serving import (
+    DeploymentHandle,
+    DeploymentSpec,
+    ReplicaState,
+    RequestOptions,
+    ServeController,
+)
 from bioengine_tpu_torch.worker.worker import BioEngineWorker
 
 SEED = 0
@@ -3681,6 +3714,511 @@ def phase_worker(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 10: every app bundle on the worker ----------------------------------
+
+
+class LoopbackCollection:
+    """A model collection on disk (``root/<model_id>/rdf.yaml`` and files)
+    served over loopback HTTP in the layout of the bioimage.io endpoints
+    that ``HttpCollectionSource`` reads: the artifact manager's ``list``
+    and ``read`` under ``/public/services/artifact-manager/`` (every
+    model's inference check ``passed``), a model's file list at
+    ``/bioimage-io/artifacts/{id}/files/`` and its files below it; any
+    other file under ``root`` at ``/{path}`` (an http(s) input).
+    ``throttle`` maps a request path to the number of 429 answers it gets
+    before it is served; ``hits`` counts the requests of each path."""
+
+    ARTIFACTS = "/bioimage-io/artifacts/"
+    MANAGER = "/public/services/artifact-manager/"
+
+    def __init__(self, root: str, throttle: dict | None = None):
+        self.root = os.path.abspath(root)
+        self.throttle = dict(throttle or {})
+        self.hits: dict[str, int] = {}
+        self.url = None
+        self._runner = None
+
+    def _models(self) -> list[str]:
+        return sorted(d for d in os.listdir(self.root) if os.path.isfile(os.path.join(self.root, d, "rdf.yaml")))
+
+    def _file(self, base: str, rel: str):
+        path = os.path.normpath(os.path.join(base, rel))
+        if not path.startswith(base + os.sep) or not os.path.isfile(path):
+            return None
+        with open(path, "rb") as f:
+            return f.read()
+
+    async def _handle(self, request):
+        from aiohttp import web
+
+        path = request.path
+        self.hits[path] = self.hits.get(path, 0) + 1
+        if self.throttle.get(path, 0) > 0:
+            self.throttle[path] -= 1
+            return web.Response(status=429)
+        if path == self.MANAGER + "list":
+            rows = []
+            for m in self._models():
+                with open(os.path.join(self.root, m, "rdf.yaml")) as f:
+                    rdf = parse_rdf_text(f.read()) or {}
+                rows.append({"alias": m, "manifest": {
+                    k: rdf[k] for k in ("name", "description", "tags") if k in rdf}})
+            return web.json_response(rows)
+        if path == self.MANAGER + "read":
+            return web.json_response({"manifest": {"bioengine_inference": {
+                m: {"status": "passed"} for m in self._models()}}})
+        if path.startswith(self.ARTIFACTS):
+            model_id, sep, rel = path[len(self.ARTIFACTS):].partition("/files/")
+            model_dir = os.path.join(self.root, model_id)
+            if not sep or model_id not in self._models():
+                return web.Response(status=404)
+            if not rel:
+                return web.json_response([
+                    {"name": n, "size": os.path.getsize(os.path.join(model_dir, n)),
+                     "type": "directory" if os.path.isdir(os.path.join(model_dir, n)) else "file"}
+                    for n in sorted(os.listdir(model_dir))])
+            body = self._file(model_dir, rel)
+        else:
+            body = self._file(self.root, path.lstrip("/"))
+        return web.Response(status=404) if body is None else web.Response(body=body)
+
+    async def start(self) -> str:
+        from aiohttp import web
+
+        app = web.Application()
+        app.router.add_get("/{tail:.*}", self._handle)
+        self._runner = web.AppRunner(app)
+        await self._runner.setup()
+        site = web.TCPSite(self._runner, "127.0.0.1", 0)
+        await site.start()
+        self.url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+        return self.url
+
+    async def stop(self) -> None:
+        await self._runner.cleanup()
+
+
+APPS_UNARY_CALLS = 8  # unary generate calls a round, over the WebSocket and on the handle in turns
+APPS_ROUNDS = 3
+APPS_INFER_ROUNDS = 8  # cellpose infers over the wire and in process in turns (~0.4 s each on the card)
+APPS_STREAMS = 8  # concurrent handle streams of APPS_STREAM_TOKENS tokens
+APPS_STREAM_TOKENS = 64
+APPS_INTER_TOKEN_MS = 250  # the generate bundle's slo: inter_token_ms
+APPS_FLOW_TOL = 1e-5  # the network's raw output, wire request against in-process request
+APPS_EM_SIZE = 2048  # fibsem's synthetic EM field: 25 tiles of 512 at overlap 64
+APPS_EM_TILE, APPS_EM_OVERLAP, APPS_EM_BATCH = 512, 64, 8
+APPS_EM_MITO = 120
+APPS_EM_REPEATS = 2
+APPS_MEMORY_SLACK = 64 << 20
+APPS_TRAIN_TIMEOUT_S = 600
+
+
+def synthetic_em_field(size: int, n_mito: int, seed: int) -> np.ndarray:
+    """A (size, size) float32 EM-like field: bright ellipses of random
+    orientation on a noisy background."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(60, 12, (size, size)).astype(np.float32)
+    for _ in range(n_mito):
+        cy, cx = rng.uniform(40, size - 40, 2)
+        a, b = rng.uniform(12, 40), rng.uniform(8, 20)
+        theta = rng.uniform(0, np.pi)
+        r = int(np.ceil(max(a, b))) + 1
+        ys = slice(max(int(cy) - r, 0), min(int(cy) + r + 1, size))
+        xs = slice(max(int(cx) - r, 0), min(int(cx) + r + 1, size))
+        dy, dx = np.meshgrid(np.arange(ys.start, ys.stop) - cy, np.arange(xs.start, xs.stop) - cx,
+                             indexing="ij")
+        u = dy * np.cos(theta) + dx * np.sin(theta)
+        v = -dy * np.sin(theta) + dx * np.cos(theta)
+        inside = (u / a) ** 2 + (v / b) ** 2 < 1
+        img[ys, xs][inside] = rng.normal(170, 8, int(inside.sum()))
+    return img
+
+
+class _TimedRunner:
+    """Forwards ``infer`` to a model-runner service and adds up the ms of
+    each call (the fibsem app's app->app calls)."""
+
+    def __init__(self, runner):
+        self.runner, self.ms = runner, []
+
+    async def infer(self, **kwargs):
+        t0 = time.perf_counter()
+        out = await self.runner.infer(**kwargs)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _replica_of(worker, app_id: str, deployment: str):
+    (replica,) = worker.controller.apps[app_id].replicas[deployment]
+    return replica
+
+
+def _gaps(stamps: list) -> list:
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+async def _handle_stream(handle, options, **kwargs) -> dict:
+    t0 = time.perf_counter()
+    tokens, stamps = [], []
+    async for item in handle.call_stream("generate_stream", options=options, **kwargs):
+        stamps.append(time.perf_counter())
+        tokens.append(item["token"])
+    return {"tokens": tokens, "ttft_ms": (stamps[0] - t0) * 1e3, "gaps_ms": _gaps(stamps)}
+
+
+async def drive_apps(card: str, device: str, root: str, fields, masks, em, collection: str,
+                     probe: np.ndarray) -> dict:
+    """Every app bundle on one worker over the wire, one after another on
+    the one card (the model-runner and fibsem together). Returns the
+    numbers; every check is made here."""
+    worker = BioEngineWorker(mode="single-machine", device=device, port=0,
+                             workspace_dir=os.path.join(root, "worker"), admin_users=["admin"],
+                             log_file="off", monitoring_interval_seconds=60.0)
+    await worker.start()
+    server = worker.server
+    conn = await connect_to_server({"server_url": server.url, "token": server.issue_token("admin")})
+    user = server.issue_token("smoke-user")
+    http = aiohttp.ClientSession()
+    collection_server = LoopbackCollection(collection)
+    r: dict = {"memory_after_undeploy": {}}
+    state = worker.cluster.state
+    kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    base, _ = _allocated(device)
+
+    async def undeploy(*app_ids: str) -> None:
+        for app_id in app_ids:
+            await svc.stop_app(app_id=app_id)
+        what = " and ".join(app_ids)
+        check(state.free_chips() == state.topology.n_chips, f"undeploying {what} left a chip leased")
+        held, released = _allocated(device)
+        r["memory_after_undeploy"][what] = {"allocated": held, "cublas_released": released}
+        check(held - base <= APPS_MEMORY_SLACK, f"after undeploying {what}: {held} B allocated against "
+              f"{base} B before (slack {APPS_MEMORY_SLACK} B)")
+
+    async def bridge(app_id: str, method: str, **kwargs):
+        status_code, body = await _http_json(http, "POST", f"{server.http_url}/call/{app_id}/{method}", user,
+                                             {"kwargs": kwargs})
+        check(status_code == 200, f"bridge {app_id}.{method}: {status_code} {body}")
+        return body["result"]
+
+    try:
+        svc = await conn.get_service("bioengine-worker")
+        await collection_server.start()
+
+        # gpu-test: the device probe over the wire
+        await svc.deploy_app(local_path=os.path.join(WORKER_BUNDLES, "gpu-test"), app_id="gpu-test",
+                             deployment_kwargs={"gpu_test_deployment": {"device": device}})
+        probe_app = await conn.get_service("gpu-test")
+        pong, info, memory = await probe_app.ping(), await probe_app.gpu_info(), await probe_app.memory_info()
+        want = ("cuda", 1, kind, 16384.0, "") if device == "cuda" else ("cpu", 1, "cpu", 16384.0, "")
+        got = (info["backend"], info["device_count"], info["devices"][0]["device_kind"], info["matmul_norm"],
+               info["error"])
+        check(pong["status"] == "ok" and got == want, f"gpu_info over the WebSocket {got}, expected {want}")
+        check(len(memory["devices"]) == 1, f"memory_info {memory}")
+        r["gpu_test"] = {"gpu_info": info, "memory_info": memory}
+        print(f"[{card}] apps: gpu-test over the WebSocket: backend {info['backend']!r}, {info['device_count']} "
+              f"device(s) {info['devices'][0]['device_kind']!r}, bf16 128x128 matmul norm {info['matmul_norm']}, "
+              f"env {info['env']}; memory_info {json.dumps(memory['devices'])}")
+        await undeploy("gpu-test")
+
+        # generate at the app's own width, DecoderConfig()
+        golden = np.load(DECODE_FIXTURE)["greedy_tokens"].tolist()
+        n = len(golden)
+        await svc.deploy_app(local_path=os.path.join(WORKER_BUNDLES, "generate"), app_id="generate",
+                             deployment_kwargs={"generate_deployment": {"device": device}})
+        gen = await conn.get_service("generate")
+        handle = worker.controller.get_handle("generate")
+        opts = RequestOptions(idempotent=True, deadline_s=120)
+        unary = await gen.generate(prompt=DECODE_PROMPT, max_new_tokens=n)
+        bridged = await bridge("generate", "generate", prompt=DECODE_PROMPT, max_new_tokens=n)
+        status_code, mcp = await _http_json(
+            http, "POST", f"{server.http_url}/mcp/generate", user,
+            {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+             "params": {"name": "generate", "arguments": {"prompt": DECODE_PROMPT, "max_new_tokens": n}}})
+        check(status_code == 200 and not mcp["result"]["isError"], f"MCP tools/call: {status_code} {mcp}")
+        mcp_tokens = json.loads(mcp["result"]["content"][0]["text"])["tokens"]
+        check(unary["tokens"] == bridged["tokens"] == mcp_tokens == golden,
+              "unary generate over the WebSocket, the bridge or MCP differs from the fixture")
+        streamed = await _handle_stream(handle, opts, prompt=DECODE_PROMPT, max_new_tokens=n)
+        resumed = [i async for i in handle.call_stream("generate_stream", prompt=DECODE_PROMPT, max_new_tokens=n,
+                                                        resume_from=DECODE_RESUME, options=opts)]
+        check(streamed["tokens"] == golden, f"the handle's stream {streamed['tokens']} != fixture {golden}")
+        check([i["token"] for i in resumed] == golden[DECODE_RESUME:]
+              and [i["index"] for i in resumed] == list(range(DECODE_RESUME, n)),
+              f"resume_from={DECODE_RESUME} through the handle gave {resumed}")
+        described = await gen.describe_engine()
+        engine = described["engine"]
+        want_dev = "cuda:0" if device == "cuda" else "cpu"
+        check(engine["device"] == want_dev and engine["device_ids"] == [0], f"describe_engine {engine['device']}")
+        paths = {"websocket": lambda p: gen.generate(prompt=p, max_new_tokens=n),
+                 "in_process": lambda p: handle.call("generate", prompt=p, max_new_tokens=n)}
+        timed = await _interleaved(paths, [DECODE_PROMPT] * APPS_UNARY_CALLS, APPS_ROUNDS,
+                                   (server.stats, conn.codec.stats))
+        check(all(o["tokens"] == golden for name in paths for o in timed[name]["outs"]),
+              "an interleaved unary generate differs from the fixture")
+        stream_rounds = {}
+        for when in ("cold", "warm"):  # the cold round captures the batch buckets' graphs
+            streams = await asyncio.gather(*(
+                _handle_stream(handle, opts, prompt=DECODE_PROMPT, max_new_tokens=APPS_STREAM_TOKENS)
+                for _ in range(APPS_STREAMS)))
+            check(all(s["tokens"] == streams[0]["tokens"] and len(s["tokens"]) == APPS_STREAM_TOKENS
+                      for s in streams), "the concurrent streams differ")
+            check(streams[0]["tokens"][:n] == golden, "a concurrent stream's prefix differs from the fixture")
+            gaps = [g for s in streams for g in s["gaps_ms"]]
+            stream_rounds[when] = {
+                "ttft_ms": _spread([s["ttft_ms"] for s in streams]),
+                "inter_token_ms": {"p50": _quantile(gaps, 0.5), "p95": _quantile(gaps, 0.95),
+                                   "p99": _quantile(gaps, 0.99), "max": max(gaps), "n": len(gaps)}}
+        kv = (await gen.describe_engine())["engine"]["kv"]
+        check(kv["sequences"] == 0, f"the KV cache holds {kv['sequences']} sequences after the streams")
+        r["generate"] = {
+            "unary_ms": {name: _spread(timed[name]["ms"]) for name in paths},
+            "wire_ms": _paired(timed["websocket"]["ms"], timed["in_process"]["ms"]),
+            "codec_ms": _spread(timed["codec_ms"]),
+            "tokens_per_call": n, "streams": APPS_STREAMS, "stream_tokens": APPS_STREAM_TOKENS,
+            **{f"streams_{when}": v for when, v in stream_rounds.items()},
+            "slo_inter_token_ms": APPS_INTER_TOKEN_MS, "engine": {k: engine[k] for k in ("device", "programs")},
+        }
+        g = r["generate"]
+        rounds_text = "; ".join(
+            f"{when}: TTFT {_fmt(v['ttft_ms'])}, inter-token p50 {v['inter_token_ms']['p50']:.3f} ms, p95 "
+            f"{v['inter_token_ms']['p95']:.3f}, p99 {v['inter_token_ms']['p99']:.3f}, max "
+            f"{v['inter_token_ms']['max']:.3f} over {v['inter_token_ms']['n']} gaps"
+            for when, v in stream_rounds.items())
+        print(f"[{card}] apps: generate (DecoderConfig(), seed 0) from its bundle: unary over the WebSocket, the "
+              f"bridge and MCP equal the fixture's {n} tokens; the handle's stream equals them and "
+              f"resume_from={DECODE_RESUME} gives the suffix; describe_engine: {engine['device']} ({kind}); "
+              f"{APPS_UNARY_CALLS} unary calls x {APPS_ROUNDS} rounds in turns, ms per call: WebSocket "
+              f"{_fmt(g['unary_ms']['websocket'])}; handle in process {_fmt(g['unary_ms']['in_process'])}; "
+              f"the wire's cost, call minus the handle's call beside it: {_fmt(g['wire_ms'])}, of which "
+              f"RpcStats encode+decode {_fmt(g['codec_ms'])}; two rounds of {APPS_STREAMS} concurrent handle "
+              f"streams of {APPS_STREAM_TOKENS} tokens, {rounds_text}; the bundle's slo: p95 <= "
+              f"{APPS_INTER_TOKEN_MS} ms")
+        del handle
+        await undeploy("generate")
+
+        # cellpose fine-tuning from its bundle, over the wire
+        cfg = {"features": list(CELLPOSE_FEATURES), "seed": SEED, **CELLPOSE_CFG}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(0)
+        peak_before = torch.cuda.max_memory_allocated(0) if device == "cuda" else 0
+        deployed = await svc.deploy_app(
+            local_path=os.path.join(WORKER_BUNDLES, "cellpose-finetuning"), app_id="cellpose-finetuning",
+            deployment_kwargs={"main": {"device": device, "sessions_root": os.path.join(root, "sessions")}})
+        replica = _replica_of(worker, "cellpose-finetuning", "main")
+        instance = replica.instance
+        check(list(replica.device_ids) == [0] and str(instance.device) == want_dev,
+              f"the fine-tuning replica leased {replica.device_ids}, computes on {instance.device}")
+        cp = await conn.get_service("cellpose-finetuning")
+        t0 = time.perf_counter()
+        await cp.start_training(train_images=list(fields), train_labels=list(masks), config=cfg,
+                                session_id="apps")
+        t_start = time.perf_counter() - t0
+        polls = 0
+        while True:
+            status = await cp.get_training_status(session_id="apps")
+            polls += 1
+            if status["status"] in ("completed", "failed", "stopped"):
+                break
+            check(time.perf_counter() - t0 < APPS_TRAIN_TIMEOUT_S, f"training stuck: {status}")
+            await asyncio.sleep(0.1)
+        t_train = time.perf_counter() - t0
+        want_steps = CELLPOSE_FIELDS * (CELLPOSE_FIELD // CELLPOSE_CFG["tile"]) ** 2 // CELLPOSE_CFG["batch_size"]
+        losses = status.get("losses", [])
+        check(status["status"] == "completed" and status["current_epoch"] == CELLPOSE_CFG["epochs"]
+              and status["steps_per_epoch"] == want_steps, f"training over the wire ended {status}")
+        check(len(losses) == CELLPOSE_CFG["epochs"] and np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"losses {losses}")
+        peak = torch.cuda.max_memory_allocated(0) if device == "cuda" else 0
+        if device == "cuda":
+            check(peak > peak_before, f"training left the leased card's peak at {peak} B ({peak_before} before)")
+        # infer over the wire against the same call on the deployed instance;
+        # the network's raw output of each request is recorded on the way
+        raw = {"websocket": [], "in_process": []}
+        predict_raw = instance._predict_raw
+        where = {"path": None}
+
+        def recording_predict_raw(session, x, state=None):
+            out = predict_raw(session, x, state)
+            raw[where["path"]].append(out)
+            return out
+
+        instance._predict_raw = recording_predict_raw
+        images = [fields[0], fields[1]]
+
+        def infer_path(name, call):
+            async def run(x):
+                where["path"] = name
+                return await call(x)
+            return run
+
+        infer_paths = {"websocket": infer_path("websocket", lambda x: cp.infer(session_id="apps", images=x)),
+                       "in_process": infer_path("in_process", lambda x: instance.infer(session_id="apps", images=x))}
+        for call in infer_paths.values():  # one untimed call per path
+            await call(images)
+        timed = await _interleaved(infer_paths, [images], APPS_INFER_ROUNDS, (server.stats, conn.codec.stats))
+        instance._predict_raw = predict_raw
+        for a, b in zip(timed["websocket"]["outs"], timed["in_process"]["outs"]):
+            check(all(np.array_equal(x, y) for x, y in zip(a["masks"], b["masks"]))
+                  and a["n_cells"] == b["n_cells"], "infer over the WebSocket differs from the in-process infer")
+        flow_err = max(float(np.abs(a - b).max()) for a, b in zip(raw["websocket"], raw["in_process"]))
+        check(flow_err <= APPS_FLOW_TOL, f"the network's output over the wire vs in process: max abs {flow_err}")
+        exported = await cp.export_model(session_id="apps")
+        rdf = load_model_rdf(os.path.join(exported["model_path"], "rdf.yaml"))
+        check(rdf.weights["jax_params"]["architecture"]["name"] == "cellpose", f"exported rdf {rdf.weights}")
+        async with http.get(f"{server.http_url}/apps/cellpose-finetuning/") as resp:
+            page = await resp.text()
+        check(resp.status == 200 and "Cellpose Fine-Tuning" in page and deployed["frontend_url"] ==
+              "/apps/cellpose-finetuning/", f"frontend {resp.status}")
+        await cp.delete_session(session_id="apps")
+        r["cellpose"] = {
+            "start_training_s": t_start, "train_s": t_train, "polls": polls, "losses": losses,
+            "steps": CELLPOSE_CFG["epochs"] * want_steps, "peak_gib": peak / 2**30,
+            "infer_ms": {name: _spread(timed[name]["ms"]) for name in infer_paths},
+            "wire_ms": _paired(timed["websocket"]["ms"], timed["in_process"]["ms"]),
+            "n_cells": timed["websocket"]["outs"][0]["n_cells"], "flow_max_abs": flow_err,
+        }
+        c = r["cellpose"]
+        print(f"[{card}] apps: cellpose-finetuning from its bundle (CellposeNet {CELLPOSE_FEATURES}, {cfg}): "
+              f"start_training over the WebSocket answered in {t_start:.3f} s ({CELLPOSE_FIELDS} {CELLPOSE_FIELD}^2 "
+              f"fields), {c['steps']} steps done at {t_train:.3f} s after {polls} polls; losses {losses}; peak "
+              f"{c['peak_gib']:.2f} GiB on the leased {instance.device}; infer 2 x {CELLPOSE_FIELD}^2 over the "
+              f"WebSocket equals the in-process infer (masks bit for bit, n_cells {c['n_cells']}; the network's "
+              f"output max abs {flow_err:.3g}, tolerance {APPS_FLOW_TOL}); ms per infer: WebSocket "
+              f"{_fmt(c['infer_ms']['websocket'])}; in process {_fmt(c['infer_ms']['in_process'])}; the wire's "
+              f"cost {_fmt(c['wire_ms'])}; export_model's rdf.yaml read by runtime/rdf.py; the frontend answers")
+        del replica, instance, predict_raw, recording_predict_raw, infer_paths
+        await undeploy("cellpose-finetuning")
+
+        # the model-runner from the loopback collection, with fibsem beside it
+        local_root = os.environ.pop("BIOENGINE_LOCAL_MODEL_PATH", None)
+        try:
+            mr = await svc.deploy_app(
+                local_path=os.path.join(WORKER_BUNDLES, SERVE_APP), app_id=SERVE_APP,
+                deployment_kwargs={"runtime_deployment": {"device": device},
+                                   "entry_deployment": {"device": device, "collection_url": collection_server.url,
+                                                        "cache_dir": os.path.join(root, "mr-cache")}})
+        finally:
+            if local_root is not None:
+                os.environ["BIOENGINE_LOCAL_MODEL_PATH"] = local_root
+        entry_instance = _replica_of(worker, SERVE_APP, "entry_deployment").instance
+        check(isinstance(entry_instance.model_cache.source, HttpCollectionSource),
+              f"the entry reads {type(entry_instance.model_cache.source).__name__}")
+        del entry_instance
+        fib = await svc.deploy_app(
+            local_path=os.path.join(WORKER_BUNDLES, "fibsem-mito-analysis"), app_id="fibsem-mito-analysis",
+            deployment_kwargs={"analysis_deployment": {
+                "model_runner_service": mr["service_id"], "model_id": "unet2d", "server_url": server.url,
+                "batch_size": APPS_EM_BATCH, "input_layout": "NHWC"}},
+            env_vars={"BIOENGINE_TOKEN": server.issue_token("fibsem-app")})
+        fib_replica = _replica_of(worker, "fibsem-mito-analysis", "analysis_deployment")
+        check(list(fib_replica.device_ids) == [] and state.free_chips() == state.topology.n_chips - 1,
+              f"fibsem leased {fib_replica.device_ids}; free chips {state.free_chips()}")
+        fibsem = await conn.get_service("fibsem-mito-analysis")
+        timer = _TimedRunner(fib_replica.instance._model_runner)
+        fib_replica.instance._model_runner = timer
+        analyses, analyze_ms, runner_ms = [], [], []
+        for _ in range(APPS_EM_REPEATS):
+            timer.ms.clear()
+            t0 = time.perf_counter()
+            analyses.append(await fibsem.analyze(image=em, tile_size=APPS_EM_TILE, overlap=APPS_EM_OVERLAP))
+            analyze_ms.append((time.perf_counter() - t0) * 1e3)
+            runner_ms.append(sum(timer.ms))
+        n_calls = len(timer.ms)
+        fib_replica.instance._model_runner = timer.runner
+        del fib_replica, timer
+        # the same analysis here, from the entry handle's predictions in process
+        bundle = runpy.run_path(os.path.join(WORKER_BUNDLES, "fibsem-mito-analysis", "analysis_deployment.py"))
+        ref = bundle["MitoAnalysis"](model_id="unet2d", batch_size=APPS_EM_BATCH, input_layout="NHWC")
+        ref._model_runner = worker.controller.get_handle(SERVE_APP, "entry_deployment")
+        want = await ref.analyze(image=em, tile_size=APPS_EM_TILE, overlap=APPS_EM_OVERLAP)
+        for got in analyses:
+            check(np.array_equal(np.asarray(got["labels"]), want["labels"])
+                  and got["n_mitochondria"] == want["n_mitochondria"] and got["properties"] == want["properties"],
+                  "fibsem's analysis over the wire differs from the one made here from the entry's predictions")
+        check(want["n_mitochondria"] > 0, "the analysis found no instance")
+        del ref
+        # an http input against the same array inline
+        runner = await conn.get_service(SERVE_APP)
+        inline = await runner.infer(model_id="unet2d", inputs={"raw": probe})
+        fetched = await runner.infer(model_id="unet2d", inputs={"raw": f"{collection_server.url}/probe.npy"})
+        check(np.array_equal(inline["mask"], fetched["mask"]), "an http input's result differs from the inline one")
+        check(collection_server.hits.get("/probe.npy") == 1 and collection_server.hits.get(
+            LoopbackCollection.ARTIFACTS + "unet2d/files/weights.npz") == 1,
+            f"the loopback collection served {collection_server.hits}")
+        tiles = len(range(0, APPS_EM_SIZE, APPS_EM_TILE - APPS_EM_OVERLAP)) ** 2
+        r["fibsem"] = {
+            "image": APPS_EM_SIZE, "tiles": tiles, "batch_size": APPS_EM_BATCH, "runner_calls": n_calls,
+            "analyze_ms": analyze_ms, "model_runner_ms": runner_ms,
+            "host_ms": [a - b for a, b in zip(analyze_ms, runner_ms)],
+            "n_mitochondria": want["n_mitochondria"], "collection_hits": collection_server.hits,
+        }
+        f = r["fibsem"]
+        print(f"[{card}] apps: model-runner (UNet2D {UNET2D_FEATURES}, bf16) fetched from the loopback "
+              f"collection through HttpCollectionSource, fibsem-mito-analysis (chips 0) beside it calling it over "
+              f"the wire with a worker-issued token: analyze of a {APPS_EM_SIZE}^2 field ({tiles} tiles of "
+              f"{APPS_EM_TILE}, overlap {APPS_EM_OVERLAP}, {n_calls} model-runner calls of up to {APPS_EM_BATCH}) "
+              f"found {f['n_mitochondria']} instances, labels equal bit for bit to the analysis made here from the "
+              f"entry handle's predictions; ms per analyze {[round(x, 3) for x in analyze_ms]}, of which the "
+              f"model-runner calls {[round(x, 3) for x in runner_ms]} and the host's tiling, stitch and "
+              f"post-processing {[round(x, 3) for x in f['host_ms']]}; an http input equals the inline array")
+        await undeploy("fibsem-mito-analysis", SERVE_APP)
+
+        # composition-demo
+        await svc.deploy_app(local_path=os.path.join(WORKER_BUNDLES, "composition-demo"), app_id="composition-demo")
+        fanned = await (await conn.get_service("composition-demo")).fan_out(value=7)
+        check(fanned == {"a": 14, "b": 107, "sum": 121}, f"fan_out(7) {fanned}")
+        r["composition"] = fanned
+        print(f"[{card}] apps: composition-demo fan_out(7) over the WebSocket {fanned}")
+        await undeploy("composition-demo")
+    finally:
+        await http.close()
+        await collection_server.stop()
+        await conn.disconnect()
+        await worker.stop()
+    r["memory_before"] = base
+    return r
+
+
+def phase_apps(card: str, device: str = "cuda") -> dict:
+    """Slice 10: every app bundle on the worker, on the card, over the wire:
+    gpu-test, generate, cellpose-finetuning, the model-runner from a
+    loopback collection with fibsem-mito-analysis beside it, and
+    composition-demo, one after another. One ``apps`` JSON line."""
+    os.environ["BIOENGINE_DISABLE_GEOLOCATION"] = "1"  # no egress
+    t_phase = time.perf_counter()
+    fields, masks = synthetic_cell_fields(CELLPOSE_FIELDS, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED)
+    em = synthetic_em_field(APPS_EM_SIZE, APPS_EM_MITO, SEED + 10)
+    unet2d = UNet2D(features=UNET2D_FEATURES)
+    unet2d.reset_parameters(SEED)
+    probe = np.random.default_rng(SEED + 10).standard_normal((1, SERVE_IMAGE, SERVE_IMAGE, 1), np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as root:
+        collection = os.path.join(root, "collection")
+        os.makedirs(collection)
+        write_unet_package(collection, "unet2d", unet2d, "unet2d", {"features": list(UNET2D_FEATURES)}, "byxc")
+        del unet2d
+        np.save(os.path.join(collection, "probe.npy"), probe)
+        store_name = f"bioengine-rpc-smoke-apps-{os.getpid()}"
+        os.environ["BIOENGINE_RPC_STORE_NAME"] = store_name
+        attention.launch_count = 0
+        try:
+            r = asyncio.run(drive_apps(card, device, root, fields, masks, em, collection, probe))
+        finally:
+            del os.environ["BIOENGINE_RPC_STORE_NAME"]
+            _unlink_shm(store_name)
+        launches = attention.launch_count
+    check(launches == 0, f"the apps phase launched flash_attn_fwd {launches} times")
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] apps: device memory allocated {r['memory_before']} B before the worker, after each undeploy "
+          f"{json.dumps(r['memory_after_undeploy'])} (limit +{APPS_MEMORY_SLACK} B); flash_attn_fwd launches "
+          f"{launches} (none of these apps has an attention kernel slot)")
+    out = {"card": card, **r, "flash_attn_fwd_launches": launches}
+    print(f"[{card}] apps phase: {r['phase_s']:.3f} s")
+    print("apps " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -3697,6 +4235,7 @@ def main() -> int:
     decode = phase_decode(card)
     serving = phase_serving(card)
     worker = phase_worker(card)
+    apps = phase_apps(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -3704,7 +4243,7 @@ def main() -> int:
         "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
         "path": main_case["path"],
         "launches": launches,
-        # slices 2-5, 7 and 8 launch no attention kernel: their counts stay 0
+        # slices 2-5, 7, 8 and 10 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "cell_image_search_f32": main_f32["launches"],
                              "index": index["launches"],
@@ -3714,7 +4253,8 @@ def main() -> int:
                              "zoo": zoo["launches"],
                              "decode": decode["flash_attn_fwd_launches"],
                              "serving": serving["flash_attn_fwd_launches"],
-                             "worker": worker["flash_attn_fwd_launches"]},
+                             "worker": worker["flash_attn_fwd_launches"],
+                             "apps": apps["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -42,7 +42,6 @@ from bioengine_tpu.runtime.convert import save_params_npz
 from bioengine_tpu_torch.apps.model_runner.entry import (
     STALE_DOWNLOAD_SECONDS,
     EntryDeployment,
-    HttpCollectionSource,
     LocalCollectionSource,
     ModelCache,
 )
@@ -459,22 +458,6 @@ def test_list_cached_models(model_collection, tmp_path, monkeypatch):
     cached = _entry_run(model_collection, tmp_path, monkeypatch, body)
     (row,) = [m for m in cached if m["model_id"] == "tiny-unet"]
     assert row["size_bytes"] > 0 and row["last_access"] > 0 and row["in_use"] is False
-
-
-def test_network_sources_are_not_ported(model_collection, tmp_path, monkeypatch):
-    monkeypatch.delenv("BIOENGINE_LOCAL_MODEL_PATH", raising=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        EntryDeployment(cache_dir=str(tmp_path / "cache"), device="cpu")
-    with pytest.raises(NotImplementedError, match="network"):
-        HttpCollectionSource()
-
-    async def body(entry):
-        with pytest.raises(NotImplementedError, match="http"):
-            await entry.infer(model_id="torch-square", inputs="https://example.com/x.npy")
-        return entry.model_cache.source
-
-    source = _entry_run(model_collection, tmp_path, monkeypatch, body)
-    assert isinstance(source, LocalCollectionSource)
 
 
 # ---- TestModelCacheProtocol's cases ------------------------------------------------

@@ -64,7 +64,13 @@ SLICE9_MODULES = [
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
+    # slice 10: every other app of the JAX repo
+    "apps/bundles/cellpose-finetuning/main.py", "apps/bundles/generate/generate_deployment.py",
+    "apps/bundles/fibsem-mito-analysis/analysis_deployment.py",
+    "apps/bundles/composition-demo/entry_deployment.py", "apps/bundles/composition-demo/runtime_a.py",
+    "apps/bundles/composition-demo/runtime_b.py", "apps/bundles/gpu-test/gpu_test_deployment.py",
 ]
+BUNDLES = REPO / "bioengine_tpu_torch" / "apps" / "bundles"
 
 
 def _imported_top_levels(path: Path) -> set[str]:
@@ -119,6 +125,12 @@ def test_port_files_exist():
     ]:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     assert not (REPO / "bioengine_tpu_torch" / "datasets" / "prefetch.py").exists()  # A11
+    # slice 10: a bundle for every app of the JAX repo (tpu-test's twin is gpu-test)
+    jax_apps = {p.name for p in (REPO / "apps").iterdir() if (p / "manifest.yaml").is_file()}
+    bundles = {p.name for p in BUNDLES.iterdir() if (p / "manifest.yaml").is_file()}
+    assert bundles == (jax_apps - {"tpu-test"}) | {"gpu-test"}
+    for app in ("cellpose-finetuning", "cell-image-search", "fibsem-mito-analysis", "composition-demo"):
+        assert (BUNDLES / app / "frontend" / "index.html").is_file(), app
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -335,3 +347,32 @@ def test_worker_entry_points_default_to_cuda(no_cuda, tmp_path):
         asyncio.run(worker.start())
     assert not (tmp_path / "ws" / "cluster.lock").exists()
     assert cli.worker_kwargs_from_args(cli.create_parser().parse_args(["--device", "cpu"]))["device"] == "cpu"
+
+
+def test_app_entry_points_of_slice10_default_to_cuda(no_cuda, tmp_path, monkeypatch):
+    """``GpuTest`` defaults to ``cuda`` and raises without it, as does the
+    fine-tuning app's ``async_init`` once CUDA is gone; ``device="cpu"``
+    runs the probe's matmul on the CPU."""
+    import inspect
+    import runpy
+
+    GpuTest = runpy.run_path(str(BUNDLES / "gpu-test" / "gpu_test_deployment.py"))["GpuTest"]
+    assert inspect.signature(GpuTest).parameters["device"].default is None
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            GpuTest(device=device)
+    probe = GpuTest(device="cpu")
+    asyncio.run(probe.async_init())
+    info = asyncio.run(probe.gpu_info())
+    assert (info["backend"], info["matmul_norm"], info["error"]) == ("cpu", 16384.0, "")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)  # a card stood in for
+    app = CellposeFinetune(sessions_root=str(tmp_path / "sessions"))
+    assert app.device == torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(app.async_init())
+    cpu = CellposeFinetune(sessions_root=str(tmp_path / "cpu-sessions"), device="cpu")
+    cpu.bioengine_device_ids = [0]
+    asyncio.run(cpu.async_init())
+    assert cpu.device == torch.device("cpu")

@@ -1,7 +1,8 @@
 """Copy fidelity of the serving plane's and the worker's modules: each
 module the port keeps as a copy of a JAX-package module (host-only Python
 that imports no JAX) must equal it statement for statement after the
-import prefix ``bioengine_tpu.`` is renamed ``bioengine_tpu_torch.``.
+import prefix ``bioengine_tpu.`` is renamed ``bioengine_tpu_torch.``; so
+must each app bundle file copied from a JAX app (``BUNDLE_COPIES``).
 
 The comparison is ``ast.dump`` of each top-level statement, keyed by what
 it defines: a function or class by name, an import by its text, an
@@ -189,6 +190,25 @@ def test_subset_equals_the_jax_module(rel):
     kept = [k for k in ours if k not in skips]
     assert kept, rel
     assert [k for k in kept if ours[k] != ref.get(k)] == []
+
+
+# the port's app bundles that are copies of a JAX app's files, prefix renamed
+BUNDLE_COPIES = [
+    "demo-app/demo_deployment.py",
+    "fibsem-mito-analysis/analysis_deployment.py",
+    "composition-demo/entry_deployment.py",
+    "composition-demo/runtime_a.py",
+    "composition-demo/runtime_b.py",
+]
+
+
+@pytest.mark.parametrize("rel", BUNDLE_COPIES)
+def test_bundle_file_equals_the_jax_app(rel):
+    jax_src = (REPO / "apps" / rel).read_text().replace("bioengine_tpu.", "bioengine_tpu_torch.")
+    port_src = (REPO / "bioengine_tpu_torch" / "apps" / "bundles" / rel).read_text()
+    ref, ours = _items(ast.parse(jax_src).body, "", set()), _items(ast.parse(port_src).body, "", set())
+    assert ref.keys() == ours.keys()
+    assert [k for k in ref if ref[k] != ours[k]] == []
 
 
 def _listed_differences() -> str:
