@@ -66,13 +66,10 @@ class TpuCluster:
         self.is_ready = False
 
     def _make_provisioner(self, cfg: dict) -> Provisioner:
-        if self.mode in ("slurm", "gke"):
-            # their sbatch/startup scripts exec a worker host process,
-            # which the port does not have yet
-            raise NotImplementedError(
-                f"mode '{self.mode}' launches bioengine_tpu_torch.worker_host, "
-                "which is not ported yet (ROADMAP A12c)"
-            )
+        if self.mode == "slurm":
+            return SlurmProvisioner(**cfg)
+        if self.mode == "gke":
+            return GkeProvisioner(**cfg)
         return NullProvisioner()
 
     # ---- lock file (one manager per workspace) ------------------------------

@@ -310,6 +310,11 @@ def convert_checkpoint(
     return params
 
 
+def count_params(params: Any) -> int:
+    """Scalars in a nested params tree (the leaves of ``flatten_params``)."""
+    return sum(int(np.prod(np.shape(x))) for x in flatten_params(params).values())
+
+
 # ---- flax trees <-> the port's state_dicts ------------------------------------
 
 

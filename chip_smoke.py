@@ -178,8 +178,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    composition-demo's ``fan_out(7)``; after every undeploy the chips are
    free and the allocated memory is back within 64 MiB; the attention
    kernel's count stays 0; one ``apps`` JSON line;
-15. one JSON line of the kernels' numbers;
-16. the result line ``{"ok": true, "device": {...}}``, printed last.
+15. worker hosts and the CLI (slice 11), ``phase_hosts``: an ``RpcServer``
+   and a ``ServeController`` with no chips of its own in process;
+   ``python -m bioengine_tpu_torch.worker_host`` with no device flag joins
+   with the card as its one chip; the cell-image-search bundle at ViT-B/14
+   width is placed on it as a ``RemoteReplica`` leasing the chip, ingests 8
+   synthetic 896^2 fields from a local directory, and answers 16 searches x
+   3 rounds through the controller's handle, each equal in ids and scores,
+   bit for bit, to ``CellImageSearch(device="cuda")`` built here over the
+   index the host wrote, with ms per search through the host and in
+   process in turns and the hop's cost; the host's own ``torch.profiler``
+   trace around 2 searches holds 12 ``flash_attn`` kernel events per
+   bucket forward, its ``memory_profile`` names the card, and it loaded the
+   library ``phase_build`` left; a second host joins on the same card, the
+   first is SIGKILLed, health ticks re-place the replica there and the
+   searches are equal again; then ``python -m bioengine_tpu_torch.worker``
+   as a subprocess with a third host joined, driven by ``python -m
+   bioengine_tpu_torch.cli`` (``cluster status`` 2 chips across 2 hosts,
+   ``status``, ``apps deploy`` of gpu-test, ``call gpu_info``, ``apps
+   stop``, ``cluster profile --memory``, ``debug bundle`` 1 of 1 hosts,
+   ``models convert --arch dinov2`` of a seeded ViT-B/14 checkpoint whose
+   npz loads as the embedder's weights), each exiting 0; the hosts and the
+   worker exit 0 on SIGTERM and the card's used memory is back within 64
+   MiB; one ``hosts`` JSON line;
+16. one JSON line of the kernels' numbers;
+17. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -197,6 +220,7 @@ import os
 import re
 import runpy
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -213,6 +237,7 @@ from bioengine_tpu_torch.apps.builder import AppBuilder
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
 from bioengine_tpu_torch.apps.cell_image_search.index import (
     IVFFLAT_MAX_CELLS,
+    FlatIPIndex,
     IVFFlatIndex,
     IVFPQIndex,
     PQFlatIndex,
@@ -230,7 +255,7 @@ from bioengine_tpu_torch.apps.generate.service import GenerateDeployment
 from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment, HttpCollectionSource
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.cluster.state import ClusterState
-from bioengine_tpu_torch.cluster.topology import detect_topology
+from bioengine_tpu_torch.cluster.topology import TpuTopology, detect_topology
 from bioengine_tpu_torch.datasets import codecs, zarr_codec
 from bioengine_tpu_torch.models.cellpose import (
     CellposeConfig,
@@ -281,6 +306,8 @@ from bioengine_tpu_torch.runtime.weight_stream import write_manifest
 from bioengine_tpu_torch.serving.decode import DecodeLoop
 from bioengine_tpu_torch.native import store as native_store
 from bioengine_tpu_torch.rpc import connect_to_server
+from bioengine_tpu_torch.rpc.server import RpcServer
+from bioengine_tpu_torch.serving.remote import RemoteReplica
 from bioengine_tpu_torch.serving import (
     DeploymentHandle,
     DeploymentSpec,
@@ -3540,45 +3567,64 @@ def _unlink_shm(name: str) -> None:
         pass
 
 
+def _repo_env(**extra) -> dict:
+    """This process's environment with the checkout on ``PYTHONPATH``."""
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]), **extra}
+
+
+def _log_tail(path: str) -> str:
+    with open(path) as f:
+        return f.read()[-3000:]
+
+
+def start_worker_cli(device: str, ws: str, log_path: str, store_name: str) -> tuple:
+    """``python -m bioengine_tpu_torch.worker`` as a subprocess on a free
+    port, its RPC server's shared-memory segment ``store_name``; waits until
+    ``/health/liveness`` answers. Returns the process, its port, the admin
+    token it wrote and the seconds it took to answer."""
+    import urllib.request
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "bioengine_tpu_torch.worker", "--mode", "single-machine", "--host",
+           "127.0.0.1", "--port", str(port), "--workspace-dir", ws, "--log-file", "off"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=_repo_env(BIOENGINE_RPC_STORE_NAME=store_name), stdout=log,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                check(False, f"the worker CLI exited with {proc.returncode}: {_log_tail(log_path)}")
+            check(time.perf_counter() - t0 < WORKER_CLI_START_S, "the worker CLI did not answer within 60 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health/liveness", timeout=2) as resp:
+                    if resp.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.2)
+        with open(os.path.join(ws, "admin_token")) as f:
+            token = f.read().strip()
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return proc, port, token, time.perf_counter() - t0
+
+
 def worker_cli(card: str, device: str, root: str, store_name: str) -> dict:
     """``python -m bioengine_tpu_torch.worker`` as a subprocess: liveness,
     get_status through the bridge with the admin token it wrote, SIGTERM.
     Its RPC server's shared-memory segment is ``store_name``, unlinked
     after."""
-    import signal
     import urllib.request
 
-    port, ws = _free_port(), os.path.join(root, "cli")
-    cmd = [sys.executable, "-m", "bioengine_tpu_torch.worker", "--mode", "single-machine", "--host",
-           "127.0.0.1", "--port", str(port), "--workspace-dir", ws, "--log-file", "off"]
-    if device != "cuda":
-        cmd += ["--device", device]
-    env = {**os.environ, "BIOENGINE_RPC_STORE_NAME": store_name, "PYTHONPATH": os.pathsep.join(
-        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])}
-    base = f"http://127.0.0.1:{port}"
     log_path = os.path.join(root, "cli.log")
-
-    def log_tail() -> str:
-        with open(log_path) as f:
-            return f.read()[-3000:]
-
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc, port, token, live_s = start_worker_cli(device, os.path.join(root, "cli"), log_path, store_name)
+    base = f"http://127.0.0.1:{port}"
     try:
-        while True:
-            if proc.poll() is not None:
-                check(False, f"the worker CLI exited with {proc.returncode}: {log_tail()}")
-            check(time.perf_counter() - t0 < WORKER_CLI_START_S, "the worker CLI did not answer within 60 s")
-            try:
-                with urllib.request.urlopen(f"{base}/health/liveness", timeout=2) as resp:
-                    if resp.status == 200:
-                        break
-            except OSError:
-                time.sleep(0.2)
-        live_s = time.perf_counter() - t0
-        with open(os.path.join(ws, "admin_token")) as f:
-            token = f.read().strip()
         req = urllib.request.Request(f"{base}/call/bioengine-worker/get_status", data=b"{}", method="POST",
                                      headers={"Authorization": f"Bearer {token}",
                                               "Content-Type": "application/json"})
@@ -3596,7 +3642,7 @@ def worker_cli(card: str, device: str, root: str, store_name: str) -> dict:
         check(rc is not None, f"the worker CLI did not stop within {WORKER_CLI_STOP_S} s of SIGTERM")
         stop_s = time.perf_counter() - t1
         if rc != 0:
-            check(False, f"the worker CLI exited {rc} on SIGTERM: {log_tail()}")
+            check(False, f"the worker CLI exited {rc} on SIGTERM: {_log_tail(log_path)}")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4219,6 +4265,463 @@ def phase_apps(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 11: worker hosts and the CLI -----------------------------------------
+
+
+HOSTS_FIELDS = 8  # synthetic 896^2 fields in a local directory both hosts read
+HOSTS_CROPS_PER_FIELD = 50
+HOSTS_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
+HOSTS_SEARCHES = 16
+HOSTS_ROUNDS = 3  # rounds over the queries, through the host and in process in turns
+HOSTS_PROFILED_SEARCHES = 2
+HOSTS_JOIN_S = 120
+HOSTS_HEALTHY_S = 300
+HOSTS_STOP_S = 30
+HOSTS_MEMORY_SLACK = 64 << 20
+HOSTS_CLI_S = 120  # one CLI command, models convert at full width included
+HOSTS_CONVERT_DEPTH = 12  # the seeded DINOv2 ViT-B/14 checkpoint converted by the CLI
+
+
+def _host_cmd(server_url: str, token: str, host_id: str, ws: str, device: str) -> list:
+    cmd = [sys.executable, "-m", "bioengine_tpu_torch.worker_host", "--server-url", server_url,
+           f"--token={token}", "--host-id", host_id, "--workspace-dir", ws]
+    return cmd + (["--device", device] if device != "cuda" else [])  # no flag: the card
+
+
+class _Hosts:
+    """Worker-host subprocesses, each logging to ``<root>/<id>.log``."""
+
+    def __init__(self, root: str):
+        self.root, self.procs = root, {}
+
+    def spawn(self, host_id: str, cmd: list) -> subprocess.Popen:
+        with open(os.path.join(self.root, f"{host_id}.log"), "w") as log:
+            self.procs[host_id] = subprocess.Popen(cmd, env=_repo_env(), stdout=log, stderr=subprocess.STDOUT)
+        return self.procs[host_id]
+
+    def log(self, host_id: str) -> str:
+        return _log_tail(os.path.join(self.root, f"{host_id}.log"))
+
+    def stop(self, host_id: str) -> int:
+        """SIGTERM, and the exit code within HOSTS_STOP_S (None past it)."""
+        proc = self.procs[host_id]
+        proc.send_signal(signal.SIGTERM)
+        try:
+            return proc.wait(timeout=HOSTS_STOP_S)
+        except subprocess.TimeoutExpired:
+            return None
+
+    def kill_all(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+async def _wait_join(hosts: _Hosts, host_id: str, joined) -> float:
+    """Poll ``joined()`` until it is true; ms from now."""
+    t0 = time.perf_counter()
+    while not joined():
+        proc = hosts.procs[host_id]
+        check(proc.poll() is None, f"host {host_id} exited with {proc.returncode}: {hosts.log(host_id)}")
+        check(time.perf_counter() - t0 < HOSTS_JOIN_S, f"host {host_id} did not join: {hosts.log(host_id)}")
+        await asyncio.sleep(0.05)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _flash_events(trace_dir: str) -> int:
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel" and "flash_attn" in e.get("name", ""))
+
+
+def _library_stamp() -> tuple:
+    path = _build.library_path(attention.KERNEL_NAME)
+    st = path.stat()
+    return str(path), st.st_ino, st.st_mtime_ns
+
+
+HOSTS_WARM_THREADS = 4
+
+
+def _warm_reference(device: str, query) -> None:
+    """This process computes the reference: ViT-B/14 bucket forwards and
+    FlatIP top-k on the event loop's worker threads. Run the same work once,
+    on as many threads at a time, before the reading the phase is held to:
+    CUDA loads modules on a kernel's first launch, and each thread that
+    runs a GEMM or a convolution takes cuBLAS and cuDNN handles from
+    PyTorch's pools (kept by the pool when the thread ends), so these count
+    in that reading and the check measures what the hosts leave."""
+    import concurrent.futures
+
+    warm = ViTEmbedder(device=device, seed=SEED, batch_bucket=BUCKET, model_overrides=HOSTS_VIT)
+    warm.load()
+    dim = HOSTS_VIT.get("dim", 768)  # ViT-B/14
+    corpus = FlatIPIndex(np.random.default_rng(SEED).standard_normal((256, dim), np.float32), device=device)
+
+    def work(_):
+        vec = warm.embed_batch([query])
+        corpus.search(vec[0], TOP_K)
+
+    with concurrent.futures.ThreadPoolExecutor(HOSTS_WARM_THREADS) as pool:
+        list(pool.map(work, range(HOSTS_WARM_THREADS)))
+
+
+def _used_bytes(device: str) -> int:
+    """The card's used memory (total - free) after this process has
+    released what it caches; 0 on the CPU."""
+    gc.collect()
+    if device != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+async def drive_hosts(card: str, device: str, root: str, fields_dir: str, queries, hosts: _Hosts) -> dict:
+    """A controller with no chips of its own in process; worker hosts as
+    subprocesses serve cell-image-search from the card."""
+    r: dict = {}
+    server = RpcServer(host="127.0.0.1", admin_users=["admin"])
+    await server.start()
+    token = server.issue_token("admin", is_admin=True)
+    controller = ServeController(ClusterState(TpuTopology(chips=(), n_hosts=1, platform="gpu")),
+                                 health_check_period=3600)
+    controller.attach_rpc(server, admin_users=["admin"])
+    await controller.start()
+    state = controller.cluster_state
+    shared = os.path.join(root, "cis")  # the index path both hosts' replicas get
+    kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    try:
+        def alive(host_id):
+            return lambda: host_id in state.hosts and state.hosts[host_id].alive
+
+        stamp = _library_stamp() if device == "cuda" else None
+        hosts.spawn("h1", _host_cmd(server.url, token, "h1", os.path.join(root, "ws-h1"), device))
+        r["join_ms"] = await _wait_join(hosts, "h1", alive("h1"))
+        h1 = state.hosts["h1"]
+        chips = h1.topology["chips"]
+        check(h1.n_chips == 1 and chips[0]["kind"] == kind and not state.topology.n_chips,
+              f"h1 joined with {h1.n_chips} chip(s) {[c['kind'] for c in chips]}, expected 1 {kind!r}")
+        print(f"[{card}] hosts: `python -m bioengine_tpu_torch.worker_host` with no device flag joined the "
+              f"controller (no chips of its own) in {r['join_ms']:.3f} ms from spawn with 1 chip, {chips[0]['kind']!r}")
+
+        built = AppBuilder(workdir_root=os.path.join(root, "apps")).build(
+            app_id=WORKER_CIS, local_path=os.path.join(WORKER_BUNDLES, WORKER_CIS),
+            deployment_kwargs={"main": {"workspace_dir": shared, "device": device, "seed": SEED,
+                                        "batch_bucket": BUCKET, "n_crops_per_image": HOSTS_CROPS_PER_FIELD,
+                                        "model_overrides": HOSTS_VIT}})
+        t0 = time.perf_counter()
+        await controller.deploy(WORKER_CIS, built.specs)
+        r["deploy_ms"] = (time.perf_counter() - t0) * 1e3
+        (replica,) = controller.apps[WORKER_CIS].replicas["main"]
+        check(isinstance(replica, RemoteReplica) and replica.host_id == "h1" and list(replica.device_ids) == [0]
+              and h1.chips_in_use == {0: replica.replica_id},
+              f"the replica is a {type(replica).__name__} on {getattr(replica, 'host_id', None)} with chips "
+              f"{replica.device_ids}; h1 leases {h1.chips_in_use}")
+        handle = controller.get_handle(WORKER_CIS, "main")
+        await handle.call("add_dataset", name="cells", source="local", path=fields_dir)
+        t0 = time.perf_counter()
+        await handle.call("start_ingestion", dataset_name="cells", session_id="hosts")
+        while True:
+            st = await handle.call("get_ingestion_status", session_id="hosts")
+            if st["status"] in ("completed", "failed", "stopped"):
+                break
+            check(time.perf_counter() - t0 < WORKER_INGEST_TIMEOUT_S, f"ingestion stuck: {st}")
+            await asyncio.sleep(0.05)
+        r["ingest_ms"] = (time.perf_counter() - t0) * 1e3
+        check(st["status"] == "completed" and st["n_embedded"] > 0, f"ingestion {st}")
+        stats = await handle.call("get_index_stats")
+        check(stats["loaded"] and stats["n_cells"] == st["n_embedded"], f"index stats {stats}")
+        r["n_cells"] = stats["n_cells"]
+        print(f"[{card}] hosts: {WORKER_CIS} (ViT-B/14, bucket {BUCKET}) placed on h1 as a RemoteReplica "
+              f"leasing its chip {replica.device_ids} (deploy {r['deploy_ms']:.3f} ms); h1 ingested "
+              f"{HOSTS_FIELDS} {WORKER_FIELD_SIZE}^2 fields from a local directory into {r['n_cells']} cells "
+              f"({stats['index_type']}) in {r['ingest_ms']:.3f} ms")
+
+        # the same searches in this process, on the same seed over the index h1 wrote
+        ref = CellImageSearch(workspace_dir=shared, device=device, seed=SEED, batch_bucket=BUCKET,
+                              model_overrides=HOSTS_VIT)
+        await ref.async_init()
+        paths = {"host": lambda q: handle.call("search", image=q, top_k=TOP_K),
+                 "in_process": lambda q: ref.search(image=q, top_k=TOP_K)}
+        for call in paths.values():  # one untimed call per path
+            await call(queries[0])
+        timed = await _interleaved(paths, queries, HOSTS_ROUNDS, ())
+        for i, (a, b) in enumerate(zip(timed["host"]["outs"], timed["in_process"]["outs"])):
+            check(_results(a) == _results(b) and len(a["results"]) == TOP_K,
+                  f"search {i % len(queries)} through h1 differs from CellImageSearch(device={device!r}) here")
+        mine = timed["in_process"]["outs"][:len(queries)]
+        r["search_ms"] = {n: _spread(timed[n]["ms"]) for n in paths}
+        r["hop_ms"] = _paired(timed["host"]["ms"], timed["in_process"]["ms"])
+        print(f"[{card}] hosts: {len(queries)} searches x {HOSTS_ROUNDS} rounds through the controller's "
+              f"handle to h1 and on CellImageSearch(device={device!r}) here, in turns, equal in ids and scores "
+              f"bit for bit; ms per search: through h1 {_fmt(r['search_ms']['host'])}; in process "
+              f"{_fmt(r['search_ms']['in_process'])}; the hop, call minus the in-process call beside it: "
+              f"{_fmt(r['hop_ms'])}")
+
+        # the kernel in h1's process, read from its own trace
+        trace_dir = os.path.join(root, "h1-trace")
+        forwards0 = ref.embedder.forward_count
+        for q in queries[:HOSTS_PROFILED_SEARCHES]:
+            await ref.search(image=q, top_k=TOP_K)
+        forwards = ref.embedder.forward_count - forwards0  # bucket forwards of these searches
+        started = await controller._call_host(h1.service_id, "start_profiling", trace_dir=trace_dir)
+        for q in queries[:HOSTS_PROFILED_SEARCHES]:
+            await handle.call("search", image=q, top_k=TOP_K)
+        stopped = await controller._call_host(h1.service_id, "stop_profiling")
+        check(started["profiling"] and not stopped["profiling"] and stopped["trace_dir"] == trace_dir,
+              f"h1's profiling verbs {started} {stopped}")
+        r["flash_launches"] = _flash_events(trace_dir)
+        depth = HOSTS_VIT.get("depth", VIT_DEPTH)
+        want = depth * forwards if device == "cuda" else 0
+        check(r["flash_launches"] == want and forwards > 0,
+              f"h1's trace holds {r['flash_launches']} flash_attn kernel events, expected {depth} x {forwards}")
+        mem = await controller._call_host(h1.service_id, "memory_profile")
+        if device == "cuda":
+            (dev,) = mem["devices"]
+            r["h1_allocated"] = dev["memory_stats"]["allocated_bytes.all.current"]
+            check(dev["kind"] == kind and r["h1_allocated"] > 0, f"h1's memory_profile: {dev['kind']}")
+            check(_library_stamp() == stamp, "h1 rebuilt the flash kernel's library")
+        print(f"[{card}] hosts: h1's torch.profiler trace around {HOSTS_PROFILED_SEARCHES} searches holds "
+              f"{r['flash_launches']} flash_attn kernel events = {depth} x {forwards} bucket forwards; h1's "
+              f"memory_profile: {r.get('h1_allocated', 'no CUDA device')} B allocated on {kind!r}; h1 loaded "
+              f"{stamp[0] if stamp else 'no library (CPU)'} as phase_build left it")
+
+        # failover: h2 on the same card, h1 killed
+        hosts.spawn("h2", _host_cmd(server.url, token, "h2", os.path.join(root, "ws-h2"), device))
+        r["join_ms_h2"] = await _wait_join(hosts, "h2", alive("h2"))
+        hosts.procs["h1"].send_signal(signal.SIGKILL)
+        await asyncio.to_thread(hosts.procs["h1"].wait, 30)
+        t0 = time.perf_counter()
+        while True:
+            await controller.health_tick()
+            reps = controller.apps[WORKER_CIS].replicas["main"]
+            healthy = [x for x in reps if x.state in (ReplicaState.HEALTHY, ReplicaState.TESTING)]
+            if healthy and getattr(healthy[0], "host_id", None) == "h2":
+                break
+            check(time.perf_counter() - t0 < HOSTS_HEALTHY_S, f"no healthy replica on h2: {hosts.log('h2')}")
+            await asyncio.sleep(0.1)
+        r["failover_ms"] = (time.perf_counter() - t0) * 1e3
+        check(not state.hosts["h1"].alive and state.hosts["h2"].chips_in_use == {0: healthy[0].replica_id},
+              f"after the failover h1 alive {state.hosts['h1'].alive}, h2 leases {state.hosts['h2'].chips_in_use}")
+        again = [await handle.call("search", image=queries[0], top_k=TOP_K)]  # builds h2's ViT
+        r["first_search_ms"] = (time.perf_counter() - t0) * 1e3
+        again += [await handle.call("search", image=q, top_k=TOP_K) for q in queries[1:]]
+        for i, (a, b) in enumerate(zip(again, mine)):
+            check(_results(a) == _results(b), f"search {i} through h2 differs from the in-process app")
+        print(f"[{card}] hosts: h2 joined in {r['join_ms_h2']:.3f} ms; h1 SIGKILLed; health_tick re-placed the "
+              f"replica on h2 (same card, same index path) and it was healthy {r['failover_ms']:.3f} ms after the "
+              f"kill; its first search (which builds the ViT there) answered {r['first_search_ms']:.3f} ms after the "
+              f"kill; the {len(queries)} searches through h2 equal the in-process app bit for bit")
+        await controller.undeploy(WORKER_CIS)
+        check(state.hosts["h2"].chips_in_use == {}, f"h2 still leases {state.hosts['h2'].chips_in_use}")
+        rc = await asyncio.to_thread(hosts.stop, "h2")  # the loop answers its deregister_host
+        check(rc == 0, f"h2 exited {rc} on SIGTERM: {hosts.log('h2')}")
+        deadline = time.perf_counter() + HOSTS_STOP_S
+        while "h2" in state.hosts and state.hosts["h2"].alive:
+            check(time.perf_counter() < deadline, "h2 is still registered after its exit")
+            await asyncio.sleep(0.05)
+        r["h2_exit"] = rc
+    finally:
+        hosts.kill_all()
+        await controller.stop()
+        await server.stop()
+    return r
+
+
+def _cli(args: list, server_url: str, token: str, cwd: str) -> tuple[int, dict, float]:
+    """``python -m bioengine_tpu_torch.cli <args>``: exit code, its JSON
+    (the last line) and its wall ms."""
+    cmd = [sys.executable, "-m", "bioengine_tpu_torch.cli", *args]
+    if server_url:
+        cmd += [f"--server-url={server_url}", f"--token={token}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=_repo_env(), cwd=cwd, capture_output=True, text=True, timeout=HOSTS_CLI_S)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(out.returncode == 0, f"bioengine-torch {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
+    text = out.stdout.strip()
+    try:
+        payload = json.loads(text)
+    except json.JSONDecodeError:
+        payload = json.loads(text.splitlines()[-1])
+    return out.returncode, payload, ms
+
+
+def dinov2_hub_state_dict(seed: int, depth: int, n_tokens: int, dim: int = 768) -> dict:
+    """A seeded ViT-B/14 state dict under DINOv2's torch-hub key names
+    (``mask_token`` included), its position table ``n_tokens`` long."""
+    rng = np.random.default_rng(seed)
+    shapes = {"cls_token": (1, 1, dim), "pos_embed": (1, n_tokens, dim), "mask_token": (1, dim),
+              "patch_embed.proj.weight": (dim, 3, 14, 14), "patch_embed.proj.bias": (dim,),
+              "norm.weight": (dim,), "norm.bias": (dim,)}
+    for i in range(depth):
+        b = f"blocks.{i}."
+        shapes.update({b + "norm1.weight": (dim,), b + "norm1.bias": (dim,),
+                       b + "attn.qkv.weight": (3 * dim, dim), b + "attn.qkv.bias": (3 * dim,),
+                       b + "attn.proj.weight": (dim, dim), b + "attn.proj.bias": (dim,),
+                       b + "ls1.gamma": (dim,), b + "ls2.gamma": (dim,),
+                       b + "norm2.weight": (dim,), b + "norm2.bias": (dim,),
+                       b + "mlp.fc1.weight": (4 * dim, dim), b + "mlp.fc1.bias": (4 * dim,),
+                       b + "mlp.fc2.weight": (dim, 4 * dim), b + "mlp.fc2.bias": (dim,)})
+    return {k: torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.02) for k, s in shapes.items()}
+
+
+def hosts_cli(card: str, device: str, root: str, store_name: str, query) -> dict:
+    """The port's worker as a subprocess, a host h3 joined to it, and
+    ``python -m bioengine_tpu_torch.cli`` against both."""
+    r: dict = {"commands": {}}
+    hosts = _Hosts(root)
+    kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    worker, port, token, _ = start_worker_cli(device, os.path.join(root, "cli-worker"),
+                                              os.path.join(root, "cli-worker.log"), store_name)
+    url = f"ws://127.0.0.1:{port}/ws"
+    try:
+        def run(name: str, *args, server: bool = True):
+            rc, payload, ms = _cli(list(args), url if server else "", token, root)
+            r["commands"][name] = {"rc": rc, "ms": ms}
+            return payload
+
+        hosts.spawn("h3", _host_cmd(url, token, "h3", os.path.join(root, "ws-h3"), device))
+        t0 = time.perf_counter()
+        while True:  # the worker's own chips in its topology, a joined host's in state.current.hosts
+            cluster = run("cluster status", "cluster", "status")
+            joined = cluster["state"]["current"].get("hosts") or {}
+            if "h3" in joined and joined["h3"]["alive"]:
+                break
+            check(hosts.procs["h3"].poll() is None, f"h3 exited: {hosts.log('h3')}")
+            check(time.perf_counter() - t0 < HOSTS_JOIN_S, f"h3 never showed in cluster status: {cluster}")
+            time.sleep(0.2)
+        topo = cluster["topology"]
+        n_chips = topo["n_chips"] + sum(h["n_chips"] for h in joined.values())
+        n_hosts = topo["n_hosts"] + len(joined)
+        check((n_chips, n_hosts) == (2, 2) and {c["kind"] for c in topo["chips"]} == {kind},
+              f"cluster status: {n_chips} chips across {n_hosts} hosts, {[c['kind'] for c in topo['chips']]}")
+        status = run("status", "status")
+        check(status["cluster"]["topology"]["chips"][0]["kind"] == kind, "status does not name the card")
+        gpu_test = os.path.join(WORKER_BUNDLES, "gpu-test")
+        if device == "cuda":
+            deployed = run("apps deploy", "apps", "deploy", gpu_test)
+        else:  # the CPU rehearsal passes the bundle its device
+            deployed = run("apps deploy", "apps", "run", "--local-path", gpu_test, "--deployment-kwargs",
+                           json.dumps({"gpu_test_deployment": {"device": device}}))
+        info = run("call gpu_info", "call", deployed["app_id"], "gpu_info")
+        names = [d.get("device_kind") for d in info.get("devices", [])]
+        check(not info["error"] and (device != "cuda" or names == [kind]), f"gpu_info: {info}")
+        run("apps stop", "apps", "stop", deployed["app_id"])
+        mem = run("cluster profile --memory", "cluster", "profile", "--memory")
+        check(device != "cuda" or (mem["allocator_snapshot_bytes"] > 0 and mem["devices"][0]["kind"] == kind),
+              f"cluster profile --memory: {mem.get('allocator_snapshot_bytes')} B")
+        bundle = run("debug bundle", "debug", "bundle", "-o", os.path.join(root, "bundle.json"))
+        check((bundle["hosts_reachable"], bundle["hosts_total"]) == (1, 1), f"debug bundle: {bundle}")
+
+        # models convert of a seeded DINOv2 ViT-B/14 checkpoint at full width;
+        # its position table fits the embedder's 224^2 input (257 tokens)
+        ckpt, npz = os.path.join(root, "dinov2_vitb14.pth"), os.path.join(root, "dinov2_vitb14.npz")
+        n_tokens = (ViTEmbedder.INPUT_SIZE // 14) ** 2 + 1
+        sd = dinov2_hub_state_dict(SEED, HOSTS_CONVERT_DEPTH, n_tokens)
+        want = sum(v.numel() for k, v in sd.items() if k != "mask_token")  # the ViT has no mask token
+        torch.save(sd, ckpt)
+        del sd
+        converted = run("models convert", "models", "convert", ckpt, npz, "--arch", "dinov2", server=False)
+        check(converted["top_level"] and converted["n_params"] == want,
+              f"models convert: {converted['n_params']} parameters, expected {want}")
+        emb = ViTEmbedder(weights_path=npz, device=device, model_overrides={"depth": HOSTS_CONVERT_DEPTH})
+        vec = emb.embed_batch([query])
+        check(vec.shape == (1, 768) and np.isfinite(vec).all(), f"the converted weights embed to {vec.shape}")
+        del emb
+        r.update(n_params=converted["n_params"], cluster_chips=n_chips, cluster_hosts=n_hosts,
+                 gpu_info_devices=names, allocator_snapshot_bytes=mem["allocator_snapshot_bytes"],
+                 bundle_hosts=[bundle["hosts_reachable"], bundle["hosts_total"]])
+        rc_h3 = hosts.stop("h3")
+        check(rc_h3 == 0, f"h3 exited {rc_h3} on SIGTERM: {hosts.log('h3')}")
+        r["h3_exit"] = rc_h3
+        worker.send_signal(signal.SIGTERM)
+        try:
+            r["worker_exit"] = worker.wait(timeout=HOSTS_STOP_S)
+        except subprocess.TimeoutExpired:
+            r["worker_exit"] = None
+        check(r["worker_exit"] == 0, f"the worker exited {r['worker_exit']} on SIGTERM")
+    finally:
+        hosts.kill_all()
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        _unlink_shm(store_name)
+    ms = {k: round(v["ms"], 3) for k, v in r["commands"].items()}
+    print(f"[{card}] hosts: `python -m bioengine_tpu_torch.worker` with host h3 joined: cluster status reports "
+          f"{r['cluster_chips']} chips across {r['cluster_hosts']} hosts, status and gpu_info name {kind!r}, "
+          f"cluster profile --memory reports a {r['allocator_snapshot_bytes']} B allocator snapshot, debug bundle "
+          f"{r['bundle_hosts'][0]} of {r['bundle_hosts'][1]} hosts reachable; models convert --arch dinov2 "
+          f"reported {r['n_params']} parameters and its npz loaded as the embedder's weights_path; every command "
+          f"exited 0 (ms {json.dumps(ms)}); h3 and the worker exited 0 on SIGTERM")
+    return r
+
+
+def phase_hosts(card: str, device: str = "cuda") -> dict:
+    """Slice 11: worker hosts on the card. A controller with no chips of its
+    own here; ``python -m bioengine_tpu_torch.worker_host`` subprocesses
+    serve cell-image-search (the flash kernel in their own process) and fail
+    over; then the CLI against a worker subprocess with a host joined. One
+    ``hosts`` JSON line."""
+    os.environ["BIOENGINE_DISABLE_GEOLOCATION"] = "1"  # no egress
+    t_phase = time.perf_counter()
+    try:
+        importlib.import_module("click")
+        has_click = True
+    except ImportError:
+        has_click = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hosts_") as root:
+        fields_dir = os.path.join(root, "fields")
+        os.makedirs(fields_dir)
+        crops = []
+        for name, field in make_synthetic_images(n_images=HOSTS_FIELDS, size=WORKER_FIELD_SIZE, seed=SEED + 11):
+            np.save(os.path.join(fields_dir, f"{name}.npy"), field)
+            if len(crops) < HOSTS_SEARCHES:
+                crops += extract_cell_crops(field, crop_size=224, n_crops=HOSTS_SEARCHES - len(crops))
+        queries = [c.astype(np.float64) for c in crops[:HOSTS_SEARCHES]]
+        check(len(queries) == HOSTS_SEARCHES, f"{len(queries)} query crops")
+        _warm_reference(device, queries[0])
+        base = _used_bytes(device)
+        store_name = f"bioengine-rpc-smoke-hosts-{os.getpid()}"
+        os.environ["BIOENGINE_RPC_STORE_NAME"] = store_name
+        attention.launch_count = 0
+        hosts = _Hosts(root)
+        try:
+            r = asyncio.run(drive_hosts(card, device, root, fields_dir, queries, hosts))
+        finally:
+            del os.environ["BIOENGINE_RPC_STORE_NAME"]
+            _unlink_shm(store_name)
+        if has_click:
+            r["cli"] = hosts_cli(card, device, root, f"{store_name}-cli", queries[0])
+        else:
+            print("cli: click absent")
+            r["cli"] = None
+    after = _used_bytes(device)
+    r["used_before"], r["used_after"] = base, after
+    check(after - base <= HOSTS_MEMORY_SLACK, f"the card's used memory {after} B after the phase against {base} B "
+          f"before it (slack {HOSTS_MEMORY_SLACK} B)")
+    r["phase_s"] = time.perf_counter() - t_phase
+    reserved = torch.cuda.memory_reserved() if device == "cuda" else 0
+    print(f"[{card}] hosts: the card's used memory {base} B before the phase, {after} B after "
+          f"({(after - base) / 2**20:.3f} MiB apart, limit 64 MiB; this process's allocator reserves {reserved} B "
+          f"after it); flash_attn_fwd launches in this process "
+          f"{attention.launch_count} (the in-process reference app's)")
+    out = {"card": card, "join_ms": r["join_ms"], "deploy_ms": r["deploy_ms"],
+           "ms_per_search_host": r["search_ms"]["host"]["median"],
+           "ms_per_search_in_process": r["search_ms"]["in_process"]["median"],
+           "hop_ms": r["hop_ms"]["median"], "failover_ms_to_healthy": r["failover_ms"],
+           "failover_ms_to_first_search": r["first_search_ms"],
+           "flash_launches_h1": r["flash_launches"],
+           "cli": None if r["cli"] is None else {k: v["rc"] for k, v in r["cli"]["commands"].items()},
+           "detail": r}
+    print(f"[{card}] hosts phase: {r['phase_s']:.3f} s")
+    print("hosts " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -4236,6 +4739,7 @@ def main() -> int:
     serving = phase_serving(card)
     worker = phase_worker(card)
     apps = phase_apps(card)
+    hosts = phase_hosts(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -4254,7 +4758,9 @@ def main() -> int:
                              "decode": decode["flash_attn_fwd_launches"],
                              "serving": serving["flash_attn_fwd_launches"],
                              "worker": worker["flash_attn_fwd_launches"],
-                             "apps": apps["flash_attn_fwd_launches"]},
+                             "apps": apps["flash_attn_fwd_launches"],
+                             # slice 11: read from worker host h1's own trace
+                             "hosts": hosts["flash_launches_h1"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

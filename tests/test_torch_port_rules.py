@@ -61,6 +61,11 @@ SLICE9_MODULES = [
     "datasets/proxy_server.py", "datasets/__main__.py",
     "worker/__init__.py", "worker/code_executor.py", "worker/worker.py", "worker/__main__.py",
 ]
+# the modules of slice 11: the worker host and the CLI
+SLICE11_MODULES = [
+    "worker_host.py", "cli/__init__.py", "cli/utils.py", "cli/call.py", "cli/cluster.py",
+    "cli/apps.py", "cli/debug.py", "cli/slo.py", "cli/models.py", "cli/cli.py",
+]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -131,6 +136,11 @@ def test_port_files_exist():
     assert bundles == (jax_apps - {"tpu-test"}) | {"gpu-test"}
     for app in ("cellpose-finetuning", "cell-image-search", "fibsem-mito-analysis", "composition-demo"):
         assert (BUNDLES / app / "frontend" / "index.html").is_file(), app
+    # slice 11: the worker host and the CLI (no analyze, fuzz or scenarios)
+    for rel in SLICE11_MODULES + ["cli/__main__.py"]:
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
+    for rel in ("cli/analyze.py", "cli/fuzz.py", "cli/scenarios.py"):
+        assert not (REPO / "bioengine_tpu_torch" / rel).exists(), rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -376,3 +386,48 @@ def test_app_entry_points_of_slice10_default_to_cuda(no_cuda, tmp_path, monkeypa
     cpu.bioengine_device_ids = [0]
     asyncio.run(cpu.async_init())
     assert cpu.device == torch.device("cpu")
+
+
+def test_slice11_imports_load_nothing_forbidden():
+    """In a fresh interpreter, the worker host and every module of the
+    CLI import, the CLI's command tree loads, and no module of jax, flax,
+    ``bioengine_tpu`` or the other forbidden packages has been imported."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+        for rel in SLICE11_MODULES
+    ]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+from bioengine_tpu_torch.cli.cli import main
+assert {{"call", "apps", "cluster", "debug", "models", "slo", "top", "status", "worker"}} == set(main.commands)
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_worker_host_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """``WorkerHost`` and ``python -m bioengine_tpu_torch.worker_host``
+    default to ``cuda``: without CUDA ``WorkerHost.start`` and ``main``
+    raise before they connect; ``--device cpu`` detects a CPU topology."""
+    import inspect
+
+    from bioengine_tpu_torch import worker_host
+
+    assert inspect.signature(worker_host.WorkerHost).parameters["device"].default == "cuda"
+    host = worker_host.WorkerHost("ws://127.0.0.1:9/ws", workspace_dir=tmp_path / "ws", log_file="off")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(host.start())
+    assert host.connection is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker_host.main(["--server-url", "ws://127.0.0.1:9/ws", "--workspace-dir", str(tmp_path / "ws")])
+    cpu = worker_host.WorkerHost("ws://127.0.0.1:9/ws", workspace_dir=tmp_path / "ws", device="cpu",
+                                 n_devices=4, log_file="off")
+    with pytest.raises(OSError):  # the topology is detected, then the connect fails
+        asyncio.run(cpu.start())
+    assert cpu.topology.platform == "cpu" and cpu.topology.n_chips == 4

@@ -6,11 +6,12 @@ must each app bundle file copied from a JAX app (``BUNDLE_COPIES``).
 
 The comparison is ``ast.dump`` of each top-level statement, keyed by what
 it defines: a function or class by name, an import by its text, an
-assignment by its targets, a ``try`` by its first statement, the module
+assignment by its targets, a ``try`` by its first statement, an ``if`` by
+its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8 or slice-9 differences.
+ROADMAP.md's slice-8, slice-9 or slice-11 differences.
 """
 
 import ast
@@ -76,9 +77,7 @@ COPIES = {
     "apps/artifact_http.py": {},
     "apps/manager.py": {},
     "cluster/provisioner.py": {},
-    "cluster/cluster.py": {
-        "TpuCluster._make_provisioner": "slurm/gke exec a worker host the port lacks (ROADMAP A12c)",
-    },
+    "cluster/cluster.py": {},
     "cluster/__init__.py": {},
     "datasets/net.py": {},
     "datasets/chunk_cache.py": {},
@@ -121,6 +120,49 @@ COPIES = {
         "worker_kwargs_from_args": "--device",
     },
     "worker/__init__.py": {},
+    # slice 11: the worker host and the CLI
+    "worker_host.py": {
+        "__doc__": "device argument, torch.profiler, no compile-cache tier",
+        "from bioengine_tpu_torch.utils import compile_cache, flight": "no compile-cache tier (ROADMAP A11)",
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
+        "from bioengine_tpu_torch.utils import flight": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost.__init__": "device and n_devices in place of compile_cache_dir",
+        "WorkerHost.start": "topology on the device; no compile-cache tier (ROADMAP A11)",
+        "WorkerHost._cache_dir": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost._sync_compile_cache": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost._publish_compile_cache": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost._tier_publish_loop": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost.stop": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost.start_replica": "no compile-cache tier (ROADMAP A11)",
+        "WorkerHost.describe": "compile_tier with cache_dir None",
+        "WorkerHost.start_profiling": "torch.profiler in place of jax.profiler",
+        "WorkerHost.stop_profiling": "torch.profiler in place of jax.profiler",
+        "WorkerHost.memory_profile": "torch.cuda memory stats and allocator snapshot",
+        "main": "--device/--n-devices in place of --platform; no compile cache",
+    },
+    "cli/__init__.py": {},
+    "cli/__main__.py": {},
+    "cli/utils.py": {},
+    "cli/call.py": {},
+    "cli/cluster.py": {
+        "profile_command": "the allocator snapshot's size in place of pprof_bytes",
+    },
+    "cli/apps.py": {},
+    "cli/debug.py": {
+        "profile_command": "the allocator snapshot left out of the human output in place of pprof_b64",
+    },
+    "cli/slo.py": {},
+    "cli/models.py": {},
+    "cli/cli.py": {
+        "from bioengine_tpu_torch.cli.analyze import analyze_command": "analysis/ is not ported (Queue A)",
+        "from bioengine_tpu_torch.cli.fuzz import fuzz_command": "testing/fuzz.py is not ported (Queue A)",
+        "from bioengine_tpu_torch.cli.scenarios import scenarios_group":
+            "testing/scenarios.py is not ported (Queue A)",
+        "main.add_command(analyze_command)": "analysis/ is not ported (Queue A)",
+        "main.add_command(fuzz_command)": "testing/fuzz.py is not ported (Queue A)",
+        "main.add_command(scenarios_group)": "testing/scenarios.py is not ported (Queue A)",
+        "main": "prog name bioengine-torch; the docstring names what is not ported",
+    },
 }
 # the port holds only these of the JAX module's statements
 SUBSETS = {
@@ -146,6 +188,10 @@ def _key(i: int, node: ast.stmt) -> str:
         return ast.unparse(node.target)
     if isinstance(node, ast.Try):
         return "try: " + ast.unparse(node.body[0])
+    if isinstance(node, ast.If):
+        return "if " + ast.unparse(node.test)
+    if isinstance(node, ast.Expr):
+        return ast.unparse(node)
     return f"{type(node).__name__}@{i}"
 
 
@@ -212,10 +258,11 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 
 def _listed_differences() -> str:
-    """ROADMAP's "Slice 8 (" and "Slice 9 (" differences sections."""
+    """ROADMAP's "Slice 8 (", "Slice 9 (" and "Slice 11 (" differences
+    sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
-    for heading in ("Slice 8 (", "Slice 9 ("):
+    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
