@@ -15,7 +15,9 @@ from bioengine_tpu_torch.cli.apps import apps_group
 from bioengine_tpu_torch.cli.call import call_command
 from bioengine_tpu_torch.cli.cluster import cluster_group
 from bioengine_tpu_torch.cli.debug import debug_group
+from bioengine_tpu_torch.cli.fuzz import fuzz_command
 from bioengine_tpu_torch.cli.models import models_group
+from bioengine_tpu_torch.cli.scenarios import scenarios_group
 from bioengine_tpu_torch.cli.slo import slo_group, top_command
 
 
@@ -23,15 +25,16 @@ from bioengine_tpu_torch.cli.slo import slo_group, top_command
 @click.version_option(package_name="bioengine-tpu", prog_name="bioengine-torch")
 def main() -> None:
     """BioEngine command line interface for the PyTorch/CUDA worker
-    (no analyze, fuzz or scenarios commands: their modules are not
-    ported)."""
+    (no analyze command: the analysis modules are not ported)."""
 
 
 main.add_command(call_command)
 main.add_command(apps_group)
 main.add_command(cluster_group)
 main.add_command(debug_group)
+main.add_command(fuzz_command)
 main.add_command(models_group)
+main.add_command(scenarios_group)
 main.add_command(slo_group)
 main.add_command(top_command)
 

@@ -216,7 +216,7 @@ class ClusterState:
         worker_tag: Optional[str] = None,
         clock_skew_s: float = 0.0,
     ) -> None:
-        self.hosts[host_id] = HostRecord(
+        record = HostRecord(
             host_id=host_id,
             service_id=service_id,
             topology=dict(topology),
@@ -224,6 +224,18 @@ class ClusterState:
             worker_tag=worker_tag,
             clock_skew_s=float(clock_skew_s or 0.0),
         )
+        previous = self.hosts.get(host_id)
+        if previous is not None and previous.alive:
+            # a live host rejoining (a connection blip) keeps the leases
+            # held on it: a replica still starting there leased its chips
+            # on the record this one replaces and is not yet among the
+            # warm replicas the host reports, so a fresh table would
+            # leave that replica routed with no lease behind it
+            chips = {c["device_id"] for c in record.topology.get("chips", [])}
+            record.chips_in_use = {
+                d: rid for d, rid in previous.chips_in_use.items() if d in chips
+            }
+        self.hosts[host_id] = record
 
     def mark_host_dead(self, host_id: str) -> list[str]:
         """Drop a host; returns the replica_ids that were leased its

@@ -201,8 +201,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    npz loads as the embedder's weights), each exiting 0; the hosts and the
    worker exit 0 on SIGTERM and the card's used memory is back within 64
    MiB; one ``hosts`` JSON line;
-16. one JSON line of the kernels' numbers;
-17. the result line ``{"ok": true, "device": {...}}``, printed last.
+16. the scenario engine, the fuzzer and the controller process (slice 12),
+   ``phase_scenarios``: (a) each catalog scenario with worker hosts
+   (slow_replica with defenses on and off, preemption_storm, diurnal_wave,
+   blip_storm, controller_crash, token_streaming) at one chip a replica
+   (``dataclasses.replace``, as bench.py cuts it for one device), its
+   in-process hosts on the card and then on one CPU chip at seed 7 (every
+   time constant doubled, ``BIOENGINE_SCENARIO_SCALE=2.0``): equal
+   outcome signatures, every required invariant green with defenses, and
+   ``p99_recovery`` red without; the host-less ones (hot_signature,
+   tenant_flood, fleet_scale, router_loss) once; each run's wall time and
+   red set; (b) ``python -m bioengine_tpu_torch.cli`` ``scenarios list``,
+   ``scenarios run router_loss --device cuda --check-determinism`` and
+   ``fuzz --replay tests/fuzz_corpus/host_blip_drain_starvation.json
+   --device cpu --n-devices 8`` exit 0 (the replay's signature equal to the
+   pinned one), and ``scenarios run slow_replica --device cuda`` on one card
+   exits non-zero with the placement error; (c) ``python -m
+   bioengine_tpu_torch.testing.controller_proc`` deploys the
+   cell-image-search bundle as shipped (ViT-B/14, bf16, bucket 64) onto a
+   ``WorkerHost(device="cuda")`` in this process, which ingests 8 896^2
+   fields and answers 16 searches; the controller is SIGKILLed under
+   idempotent searches and its ``--recover`` life prints ``RECONCILED
+   adopted=1 replaced=0``; every search across the crash and 16 after it
+   equal the 16 before bit for bit, none failed, and the host's
+   ``torch.profiler`` trace of the 16 after holds 12 ``flash_attn`` events
+   per bucket forward; the times from the SIGKILL to ``RECONCILED`` and to
+   the first answered search; one ``scenarios`` JSON line;
+17. one JSON line of the kernels' numbers;
+18. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -315,7 +341,9 @@ from bioengine_tpu_torch.serving import (
     RequestOptions,
     ServeController,
 )
+from bioengine_tpu_torch.testing import fuzz, scenarios
 from bioengine_tpu_torch.worker.worker import BioEngineWorker
+from bioengine_tpu_torch.worker_host import WorkerHost
 
 SEED = 0
 BUCKET = 64
@@ -4329,10 +4357,29 @@ async def _wait_join(hosts: _Hosts, host_id: str, joined) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _flash_events(trace_dir: str) -> int:
+def _flash_events(trace_dir: str, within: str = None) -> int:
+    """The trace's ``flash_attn`` kernel events; with ``within``, those that
+    start inside the range annotated with that name."""
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f).get("traceEvents", [])
-    return sum(1 for e in events if e.get("cat") == "kernel" and "flash_attn" in e.get("name", ""))
+    lo, hi = -float("inf"), float("inf")
+    if within is not None:
+        (span,) = [e for e in events if e.get("name") == within and e.get("cat") == "user_annotation"]
+        lo, hi = span["ts"], span["ts"] + span["dur"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and "flash_attn" in e.get("name", "")
+               and lo <= e.get("ts", 0) <= hi)
+
+
+def _flash_event_census(trace_dir: str) -> dict:
+    """The trace's events whose name holds ``flash_attn``, counted by
+    category, with the first and last one's start (us)."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if "flash_attn" in str(e.get("name", ""))]
+    census: dict = {}
+    for e in events:
+        census[e.get("cat")] = census.get(e.get("cat"), 0) + 1
+    starts = sorted(e.get("ts", 0) for e in events if e.get("cat") == "kernel")
+    return {"by_category": census, "first_last_ts": starts[:1] + starts[-1:]}
 
 
 def _library_stamp() -> tuple:
@@ -4660,6 +4707,22 @@ def hosts_cli(card: str, device: str, root: str, store_name: str, query) -> dict
     return r
 
 
+def hosts_fields(root: str) -> tuple[str, list]:
+    """HOSTS_FIELDS synthetic 896^2 fields as ``.npy`` files in
+    ``<root>/fields`` (a local dataset) and HOSTS_SEARCHES query crops cut
+    from them."""
+    fields_dir = os.path.join(root, "fields")
+    os.makedirs(fields_dir)
+    crops = []
+    for name, field in make_synthetic_images(n_images=HOSTS_FIELDS, size=WORKER_FIELD_SIZE, seed=SEED + 11):
+        np.save(os.path.join(fields_dir, f"{name}.npy"), field)
+        if len(crops) < HOSTS_SEARCHES:
+            crops += extract_cell_crops(field, crop_size=224, n_crops=HOSTS_SEARCHES - len(crops))
+    queries = [c.astype(np.float64) for c in crops[:HOSTS_SEARCHES]]
+    check(len(queries) == HOSTS_SEARCHES, f"{len(queries)} query crops")
+    return fields_dir, queries
+
+
 def phase_hosts(card: str, device: str = "cuda") -> dict:
     """Slice 11: worker hosts on the card. A controller with no chips of its
     own here; ``python -m bioengine_tpu_torch.worker_host`` subprocesses
@@ -4674,15 +4737,7 @@ def phase_hosts(card: str, device: str = "cuda") -> dict:
     except ImportError:
         has_click = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hosts_") as root:
-        fields_dir = os.path.join(root, "fields")
-        os.makedirs(fields_dir)
-        crops = []
-        for name, field in make_synthetic_images(n_images=HOSTS_FIELDS, size=WORKER_FIELD_SIZE, seed=SEED + 11):
-            np.save(os.path.join(fields_dir, f"{name}.npy"), field)
-            if len(crops) < HOSTS_SEARCHES:
-                crops += extract_cell_crops(field, crop_size=224, n_crops=HOSTS_SEARCHES - len(crops))
-        queries = [c.astype(np.float64) for c in crops[:HOSTS_SEARCHES]]
-        check(len(queries) == HOSTS_SEARCHES, f"{len(queries)} query crops")
+        fields_dir, queries = hosts_fields(root)
         _warm_reference(device, queries[0])
         base = _used_bytes(device)
         store_name = f"bioengine-rpc-smoke-hosts-{os.getpid()}"
@@ -4722,6 +4777,372 @@ def phase_hosts(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 12: the scenario engine, the fuzzer and the controller process ----
+
+SCENARIO_SEED = 7
+# the catalog's scenarios with worker hosts, (name, defenses): each runs with
+# its hosts on the card and on one CPU chip, at one chip a replica
+SCENARIO_HOST_RUNS = (("slow_replica", True), ("slow_replica", False), ("preemption_storm", True),
+                      ("diurnal_wave", True), ("blip_storm", True), ("controller_crash", True),
+                      ("token_streaming", True))
+SCENARIO_HOSTLESS = ("hot_signature", "tenant_flood", "fleet_scale", "router_loss")
+SCENARIO_REPLAY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fuzz_corpus",
+                               "host_blip_drain_starvation.json")
+SCENARIO_CLI_S = 300  # one scenarios or fuzz command
+# BIOENGINE_SCENARIO_SCALE for parts (a) and (b): every time constant of a
+# run doubled, its request plan (and so its signature) unchanged; at 1.0 a
+# host stall on the card's shared machine once flipped a latency verdict of
+# one leg of slow_replica
+SCENARIO_SCALE = "2.0"
+CRASH_TOKEN = "chip-smoke-controller-token"
+CRASH_GRACE_S = 60  # BIOENGINE_RECONCILE_GRACE_S: how long the second life waits for hosts to rejoin
+CRASH_MARKER_S = 300  # a controller process's READY / DEPLOYED / RECONCILED
+CRASH_CALL_S = 60  # one attempt of an idempotent call
+CRASH_BUDGET_S = 180  # one idempotent call's attempts, across the crash
+CRASH_PACE_S = 0.05  # between searches across the crash
+CRASH_RANGE = "chip_smoke.searches_after_recovery"  # the profiler range of the searches counted
+
+
+def signature_diff(a: dict, b: dict) -> str:
+    """Where two scenario results' outcome signatures part: the invariant
+    verdicts that differ and the first requests whose outcome class does."""
+    verdicts = {k: (v["ok"], b["invariants"].get(k, {}).get("ok")) for k, v in a["invariants"].items()
+                if v["ok"] != b["invariants"].get(k, {}).get("ok")}
+    outcomes = [(i, x, y) for i, (x, y) in enumerate(zip(a["outcomes"], b["outcomes"])) if x != y]
+    return (f"verdicts {verdicts}; {len(outcomes)} outcome(s) differ, first {outcomes[:5]}; "
+            f"details {[(k, a['invariants'][k]['detail'], b['invariants'][k]['detail']) for k in verdicts]}")
+
+
+async def scenario_catalog(card: str, device: str) -> dict:
+    """(a) Each scenario with hosts, cut to one chip a replica as bench.py's
+    gray-failure stage cuts it for one device (``chips_per_replica`` 2 does
+    not fit one card), with its in-process hosts on ``device`` and on one CPU
+    chip at the same seed; then the host-less ones once on ``device``, which
+    they never touch."""
+    r: dict = {"host_runs": {}, "hostless": {}}
+    for name, defenses in SCENARIO_HOST_RUNS:
+        scenario = dataclasses.replace(scenarios.get_scenario(name), chips_per_replica=1)
+        legs = {}
+        for leg, where in (("card", {"device": device}), ("cpu", {"device": "cpu", "n_devices": 1})):
+            t0 = time.perf_counter()
+            res = await scenarios.run_scenario_async(scenario, seed=SCENARIO_SEED, defenses=defenses, **where)
+            legs[leg] = {"s": time.perf_counter() - t0, "red": sorted(fuzz.red_set(res)), "passed": res["passed"],
+                         "signature": scenarios.outcome_signature(res), "requests": res["requests"],
+                         "p99_recovery": res["invariants"].get("p99_recovery", {}).get("ok"), "result": res}
+        card_leg, cpu_leg = legs["card"], legs["cpu"]
+        key = f"{name}{'' if defenses else '_undefended'}"
+        check(card_leg["signature"] == cpu_leg["signature"],
+              f"{key}: the outcome signature with hosts on {device} differs from the one on the CPU: "
+              f"{signature_diff(card_leg['result'], cpu_leg['result'])}")
+        for leg in legs.values():
+            del leg["result"]
+        if defenses:
+            check(card_leg["passed"] and cpu_leg["passed"], f"{key}: red {card_leg['red']} / {cpu_leg['red']}")
+        else:  # the acceptance proof's other direction: the same incident, undefended, shows
+            check(card_leg["p99_recovery"] is False and cpu_leg["p99_recovery"] is False,
+                  f"{key}: p99_recovery held without defenses")
+        r["host_runs"][key] = legs
+        print(f"[{card}] scenarios: {key} (chips_per_replica 1, seed {SCENARIO_SEED}, "
+              f"scale {os.environ.get('BIOENGINE_SCENARIO_SCALE', '1')}), hosts on {device}: "
+              f"{card_leg['s']:.3f} s, red {card_leg['red']}, p99_recovery ok {card_leg['p99_recovery']}")
+        print(f"[{card}] scenarios: {key}, hosts on one CPU chip: {cpu_leg['s']:.3f} s, red {cpu_leg['red']}; "
+              f"outcome signature ({card_leg['requests']} requests) equal to the {device} leg's")
+    for name in SCENARIO_HOSTLESS:
+        t0 = time.perf_counter()
+        res = await scenarios.run_scenario_async(scenarios.get_scenario(name), seed=SCENARIO_SEED, device=device)
+        run = {"s": time.perf_counter() - t0, "red": sorted(fuzz.red_set(res)), "requests": res["requests"]}
+        check(res["passed"], f"{name}: red {run['red']}")
+        r["hostless"][name] = run
+        print(f"[{card}] scenarios: {name} (no hosts): {run['s']:.3f} s, red {run['red']}, {run['requests']} requests")
+    return r
+
+
+def scenario_commands(card: str, device: str, root: str) -> dict:
+    """(b) ``bioengine-torch scenarios`` and ``fuzz`` as subprocesses; a host
+    scenario at 2 chips a replica on fewer chips fails with the placement
+    error, nothing shrunk."""
+    r: dict = {"commands": {}}
+
+    def run(name: str, *args):
+        rc, payload, ms = _cli(list(args), "", "", root)
+        r["commands"][name] = {"rc": rc, "ms": ms}
+        return payload
+
+    listed = run("scenarios list", "scenarios", "list")
+    check({s["name"] for s in listed} == set(scenarios.NAMED_SCENARIOS), f"scenarios list: {len(listed)} rows")
+    routed = run("scenarios run router_loss", "scenarios", "run", "router_loss", "--device", device,
+                 "--check-determinism")
+    check(routed["deterministic"] is True and routed["result"]["passed"], f"router_loss: {routed['result']}")
+    replay = run("fuzz --replay", "fuzz", "--replay", SCENARIO_REPLAY, "--device", "cpu", "--n-devices", "8")
+    (row,) = replay["replays"]
+    check(row["matches_expect"] and row["deterministic"] is True, f"fuzz --replay: {row}")
+    pinned = fuzz.load_artifact(SCENARIO_REPLAY)
+    verdict = asyncio.run(fuzz.replay_artifact(pinned, check_determinism=False, device="cpu", n_devices=8))
+    check(verdict["signature"] == pinned["outcome_signature"] and verdict["red"] == pinned["expect"]["red"],
+          "the replay's outcome signature differs from the one the artifact pins")
+
+    # slow_replica leases 2 chips a replica: on one card it must not run
+    have = torch.cuda.device_count() if device == "cuda" else 1
+    args = ["scenarios", "run", "slow_replica", "--device", device] + (["--n-devices", "1"] if device == "cpu" else [])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "bioengine_tpu_torch.cli", *args], env=_repo_env(), cwd=root,
+                         capture_output=True, text=True, timeout=SCENARIO_CLI_S)
+    r["commands"]["scenarios run slow_replica"] = {"rc": out.returncode, "ms": (time.perf_counter() - t0) * 1e3}
+    fix = "--device cpu" if device == "cuda" else "--n-devices 2"
+    if have < 2:
+        error = out.stderr.strip().splitlines()[-1] if out.stderr.strip() else ""
+        check(out.returncode != 0 and "places replicas of 2 chips" in error and fix in error,
+              f"slow_replica on {have} chip(s) exited {out.returncode}: {out.stderr[-2000:]}")
+        r["placement_error"] = error
+    else:
+        check(out.returncode == 0, f"slow_replica on {have} cards exited {out.returncode}: {out.stderr[-2000:]}")
+        r["placement_error"] = None
+    ms = {k: round(v["ms"], 3) for k, v in r["commands"].items()}
+    print(f"[{card}] scenarios: `bioengine-torch scenarios list` ({len(listed)} scenarios), `scenarios run "
+          f"router_loss --device {device} --check-determinism` (identical) and `fuzz --replay "
+          f"{os.path.basename(SCENARIO_REPLAY)} --device cpu --n-devices 8` exited 0, the replay's signature "
+          f"equal to the pinned one; `{' '.join(args)}` on {have} chip(s) exited "
+          f"{out.returncode}: {r['placement_error']!r} (ms {json.dumps(ms)})")
+    return r
+
+
+async def _marker(proc, marker: str, log: str) -> tuple[str, float]:
+    """The controller process's next stdout line starting with ``marker``,
+    and when it came (perf_counter)."""
+    deadline = time.perf_counter() + CRASH_MARKER_S
+    while True:
+        remaining = deadline - time.perf_counter()
+        check(remaining > 0, f"the controller process never printed {marker}: {_log_tail(log)}")
+        try:
+            line = await asyncio.wait_for(proc.stdout.readline(), timeout=remaining)
+        except asyncio.TimeoutError:
+            line = None
+        check(bool(line), f"the controller process ended before {marker}: {_log_tail(log)}")
+        text = line.decode().strip()
+        if text.startswith(marker):
+            return text, time.perf_counter()
+
+
+async def drive_controller_crash(card: str, device: str, root: str, fields_dir: str, queries) -> dict:
+    """(c) ``python -m bioengine_tpu_torch.testing.controller_proc`` deploys
+    the port's cell-image-search bundle as shipped onto a worker host in this
+    process on ``device``; it is SIGKILLed under idempotent search traffic and
+    its ``--recover`` life adopts the warm replica."""
+    r: dict = {}
+    port = _free_port()
+    url = f"ws://127.0.0.1:{port}/ws"
+    control_dir = os.path.join(root, "control")
+    env = _repo_env(BIOENGINE_ADMIN_TOKEN=CRASH_TOKEN, BIOENGINE_RECONCILE_GRACE_S=str(CRASH_GRACE_S))
+    logs = [os.path.join(root, f"controller-{i}.log") for i in (1, 2)]
+
+    async def spawn(life: int, *extra):
+        with open(logs[life - 1], "w") as log:
+            return await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "bioengine_tpu_torch.testing.controller_proc", "--port", str(port),
+                "--control-dir", control_dir, *extra, stdout=asyncio.subprocess.PIPE, stderr=log, env=env)
+
+    async def search(client, q) -> tuple[dict, int]:
+        """route_call's search, retried as a client retries an idempotent
+        call until it answers or CRASH_BUDGET_S runs out; (result, retries)."""
+        deadline = time.perf_counter() + CRASH_BUDGET_S
+        retries = 0
+        while True:
+            try:
+                return await asyncio.wait_for(client.call(
+                    "serve-router", "route_call", WORKER_CIS, "main", "search", [],
+                    {"image": q, "top_k": TOP_K}), CRASH_CALL_S), retries
+            except Exception as e:  # noqa: BLE001 — the controller is dead or recovering
+                check(time.perf_counter() < deadline, f"an idempotent search failed for good: {e!r}")
+                retries += 1
+                await asyncio.sleep(CRASH_PACE_S)
+
+    bundle = os.path.join(WORKER_BUNDLES, WORKER_CIS)
+    proc1 = await spawn(1, "--deploy-dir", bundle, "--app-id", WORKER_CIS)
+    proc2 = host = client = None
+    try:
+        ready, _ = await _marker(proc1, "READY", logs[0])
+        check("epoch=1" in ready, ready)
+        host = WorkerHost(server_url=url, token=CRASH_TOKEN, host_id="c1", workspace_dir=os.path.join(root, "ws-c1"),
+                          rejoin=True, orphan_grace_s=600.0, device=device)
+        t0 = time.perf_counter()
+        await host.start()
+        host.connection.reconnect_max_backoff_s = 0.3
+        _, t_deployed = await _marker(proc1, "DEPLOYED", logs[0])
+        r["join_deploy_ms"] = (t_deployed - t0) * 1e3
+        ((rid, replica),) = host.replicas.items()
+        instance = replica.instance
+        embedder = instance.embedder
+        check(instance.device.type == device and host.topology.n_chips == 1,
+              f"the replica computes on {instance.device}; the host holds {host.topology.n_chips} chip(s)")
+
+        client = await connect_to_server({"server_url": url, "token": CRASH_TOKEN, "reconnect": True})
+        client.reconnect_max_backoff_s = 0.3
+
+        async def call(method, **kwargs):
+            return await client.call("serve-router", "route_call", WORKER_CIS, "main", method, [], kwargs)
+
+        await call("add_dataset", name="cells", source="local", path=fields_dir)
+        t0 = time.perf_counter()
+        await call("start_ingestion", dataset_name="cells", session_id="crash")
+        while True:
+            st = await call("get_ingestion_status", session_id="crash")
+            if st["status"] in ("completed", "failed", "stopped"):
+                break
+            check(time.perf_counter() - t0 < WORKER_INGEST_TIMEOUT_S, f"ingestion stuck: {st}")
+            await asyncio.sleep(0.05)
+        r["ingest_ms"] = (time.perf_counter() - t0) * 1e3
+        stats = await call("get_index_stats")
+        check(st["status"] == "completed" and stats["n_cells"] == st["n_embedded"] > 0, f"ingestion {st} {stats}")
+        r["n_cells"] = stats["n_cells"]
+        vit = embedder._model
+        r["model"] = {"dim": vit.dim, "depth": vit.depth, "patch": vit.patch_size, "dtype": str(vit.dtype),
+                      "bucket": embedder.batch_bucket}
+        check(device != "cuda" or r["model"] == {"dim": 768, "depth": VIT_DEPTH, "patch": 14,
+                                                 "dtype": "torch.bfloat16", "bucket": BUCKET},
+              f"the bundle as shipped built {r['model']}, expected ViT-B/14 in bf16 at bucket {BUCKET}")
+        before = [(await search(client, q))[0] for q in queries]
+
+        # idempotent searches in flight across the SIGKILL and the recovery
+        answers: list = []  # (perf_counter, query index, result, retries)
+        stop = asyncio.Event()
+
+        async def traffic():
+            i = 0
+            while not stop.is_set():
+                out, tries = await search(client, queries[i % len(queries)])
+                answers.append((time.perf_counter(), i % len(queries), out, tries))
+                i += 1
+                await asyncio.sleep(CRASH_PACE_S)
+
+        crossing = asyncio.create_task(traffic())
+        await asyncio.sleep(0.5)
+        t_kill = time.perf_counter()
+        proc1.send_signal(signal.SIGKILL)
+        await proc1.wait()
+        proc2 = await spawn(2, "--recover")
+        ready2, _ = await _marker(proc2, "READY", logs[1])
+        check("epoch=2" in ready2 and "phase=RECOVERING" in ready2, ready2)
+        reconciled, t_reconciled = await _marker(proc2, "RECONCILED", logs[1])
+        r["reconciled"] = reconciled
+        r["kill_to_reconciled_ms"] = (t_reconciled - t_kill) * 1e3
+        while sum(1 for a in answers if a[0] > t_reconciled) < len(queries):
+            if crossing.done():
+                await crossing  # its failure, raised here
+            await asyncio.sleep(0.05)
+        stop.set()
+        await crossing
+        after_kill = [a for a in answers if a[0] > t_kill]
+        r["kill_to_first_answer_ms"] = (after_kill[0][0] - t_kill) * 1e3
+        r["crossing"] = {"answered": len(answers), "after_kill": len(after_kill),
+                         "retries": sum(a[3] for a in answers), "failed": 0}
+        counts = dict(kv.split("=") for kv in reconciled.split()[1:])
+        check(counts == {"adopted": "1", "replaced": "0", "dropped": "0"},
+              f"the second life reconciled {reconciled!r}, expected the warm replica adopted")
+        check(host.replicas.get(rid) is not None and host.replicas[rid].instance is instance,
+              "the replica was rebuilt across the crash")
+        check(r["crossing"]["retries"] > 0, "no search felt the crash")
+        for _, i, out, _ in answers:
+            check(_results(out) == _results(before[i]), f"search {i} across the crash differs from before it")
+        t0 = time.perf_counter()
+        while host.controller_epoch < 2:
+            check(time.perf_counter() - t0 < HOSTS_JOIN_S, f"the host serves epoch {host.controller_epoch}")
+            await asyncio.sleep(0.05)
+
+        # the searches after the recovery, under the host's own profiler; a
+        # search before and after them keeps the trace's edges off them, and
+        # the kernels counted are those inside their annotated range
+        trace_dir = os.path.join(root, "c1-trace")
+        host.start_profiling(trace_dir=trace_dir)
+        await search(client, queries[0])
+        forwards0, launches0 = embedder.forward_count, attention.launch_count
+        with torch.profiler.record_function(CRASH_RANGE):
+            after = [(await search(client, q))[0] for q in queries]
+        forwards = embedder.forward_count - forwards0
+        r["window_launches"] = attention.launch_count - launches0
+        await search(client, queries[0])
+        host.stop_profiling()
+        for i, (a, b) in enumerate(zip(after, before)):
+            check(_results(a) == _results(b) and len(a["results"]) == TOP_K,
+                  f"search {i} after the recovery differs from before the crash")
+        r["depth"] = depth = vit.depth
+        r["flash_events"] = _flash_events(trace_dir, within=CRASH_RANGE)
+        check(r["flash_events"] == (depth * forwards if device == "cuda" else 0) and forwards > 0,
+              f"the trace of the searches holds {r['flash_events']} flash_attn events, expected {depth} x {forwards} "
+              f"({r['window_launches']} launches counted in the window; {_flash_event_census(trace_dir)})")
+        r["forwards"] = embedder.forward_count
+    finally:
+        if client is not None:
+            await client.disconnect()
+        if host is not None:
+            await host.stop()
+        for proc in (proc1, proc2):
+            if proc is not None and proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+    print(f"[{card}] scenarios: `python -m bioengine_tpu_torch.testing.controller_proc --deploy-dir` the "
+          f"{WORKER_CIS} bundle as shipped (ViT {r['model']}) onto host c1 in this process on "
+          f"{device} (join and deploy {r['join_deploy_ms']:.3f} ms); {r['n_cells']} cells ingested in "
+          f"{r['ingest_ms']:.3f} ms; {len(queries)} searches, then SIGKILL under idempotent searches: "
+          f"{r['reconciled']} {r['kill_to_reconciled_ms']:.3f} ms after the kill, the first search answered "
+          f"{r['kill_to_first_answer_ms']:.3f} ms after it; {r['crossing']['answered']} searches across the crash "
+          f"({r['crossing']['retries']} retried attempts, 0 failed) and {len(queries)} after the recovery equal the "
+          f"{len(queries)} before bit for bit; the trace of those {len(queries)} holds {r['flash_events']} "
+          f"flash_attn kernel events")
+    return r
+
+
+def phase_scenarios(card: str, device: str = "cuda") -> dict:
+    """Slice 12: (a) the scenario catalog with worker hosts on the card and on
+    the CPU, equal outcome signatures; (b) the ``scenarios`` and ``fuzz``
+    commands; (c) a real controller process SIGKILLed and recovered with the
+    flash kernel on the path. One ``scenarios`` JSON line."""
+    os.environ["BIOENGINE_DISABLE_GEOLOCATION"] = "1"  # no egress
+    t_phase = time.perf_counter()
+    store_name = f"bioengine-rpc-smoke-scenarios-{os.getpid()}"
+    os.environ["BIOENGINE_RPC_STORE_NAME"] = store_name
+    home = os.environ.get("HOME")
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_scenarios_") as root:
+            os.environ["BIOENGINE_SCENARIO_SCALE"] = SCENARIO_SCALE
+            attention.launch_count = 0
+            catalog = asyncio.run(scenario_catalog(card, device))
+            scenario_launches = attention.launch_count
+            check(scenario_launches == 0, f"the synthetic app launched flash_attn_fwd {scenario_launches} times")
+            commands = scenario_commands(card, device, root)
+            del os.environ["BIOENGINE_SCENARIO_SCALE"]
+            fields_dir, queries = hosts_fields(root)
+            # the bundle's default workspace_dir is ~/.bioengine/cell-image-search
+            os.environ["HOME"] = root
+            attention.launch_count = 0
+            crash = asyncio.run(drive_controller_crash(card, device, root, fields_dir, queries))
+            crash_launches = attention.launch_count
+            check(crash_launches == (crash["depth"] * crash["forwards"] if device == "cuda" else 0),
+                  f"flash_attn_fwd launched {crash_launches} times for {crash['forwards']} bucket forwards")
+    finally:
+        os.environ.pop("BIOENGINE_RPC_STORE_NAME", None)
+        os.environ.pop("BIOENGINE_SCENARIO_SCALE", None)
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+        _unlink_shm(store_name)
+    phase_s = time.perf_counter() - t_phase
+    out = {"card": card,
+           "host_runs_s": {k: {leg: round(v["s"], 3) for leg, v in legs.items()}
+                           for k, legs in catalog["host_runs"].items()},
+           "hostless_s": {k: round(v["s"], 3) for k, v in catalog["hostless"].items()},
+           "commands": {k: v["rc"] for k, v in commands["commands"].items()},
+           "kill_to_reconciled_ms": crash["kill_to_reconciled_ms"],
+           "kill_to_first_answer_ms": crash["kill_to_first_answer_ms"],
+           "crossing": crash["crossing"], "flash_events": crash["flash_events"],
+           "flash_attn_fwd_launches": {"scenarios": scenario_launches, "controller_crash": crash_launches},
+           "phase_s": phase_s}
+    print(f"[{card}] scenarios phase: {phase_s:.3f} s; flash_attn_fwd launches: {scenario_launches} in the "
+          f"scenario runs, {crash_launches} on the controller-crash path")
+    print("scenarios " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     card, name = phase_device()
     ptxas = phase_build(card)
@@ -4740,6 +5161,7 @@ def main() -> int:
     worker = phase_worker(card)
     apps = phase_apps(card)
     hosts = phase_hosts(card)
+    scenario_runs = phase_scenarios(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -4760,7 +5182,10 @@ def main() -> int:
                              "worker": worker["flash_attn_fwd_launches"],
                              "apps": apps["flash_attn_fwd_launches"],
                              # slice 11: read from worker host h1's own trace
-                             "hosts": hosts["flash_launches_h1"]},
+                             "hosts": hosts["flash_launches_h1"],
+                             # slice 12: the synthetic app has no attention; the
+                             # controller process's crash drives cell-image-search
+                             **scenario_runs["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

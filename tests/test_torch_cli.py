@@ -12,8 +12,10 @@ platform's names. ``cluster profile --memory`` is the one listed
 difference: the port reports the CUDA allocator snapshot's size
 (``allocator_snapshot_bytes``, 0 without CUDA) where the JAX CLI reports
 ``pprof_bytes``. ``models convert`` writes npz files that must be equal
-member by member. The standalone uploader and ``analyze`` stay JAX-only:
-their script and commands are not ported. Each worker runs in a thread of
+member by member. ``scenarios`` and ``fuzz`` need no worker: both CLIs
+run them in process, the port's hosts on ``--device cpu``, and their JSON
+must be equal with the timings left out. The standalone uploader and
+``analyze`` stay JAX-only: their script and commands are not ported. Each worker runs in a thread of
 its own with its own event loop, workspace, ``HOME`` and shared-memory
 segment, with geolocation and the JAX compile cache off.
 """
@@ -292,8 +294,9 @@ def test_usage_errors(workers, monkeypatch):
 
 
 def test_command_tree():
-    """The port's CLI has every command of the JAX CLI's but analyze, fuzz
-    and scenarios, with the same options."""
+    """The port's CLI has every command of the JAX CLI's but analyze, with
+    the same options; ``scenarios run`` and ``fuzz`` also take ``--device``
+    and ``--n-devices`` (where the in-process worker hosts run)."""
     def tree(group):
         out = {}
         for name, cmd in group.commands.items():
@@ -302,9 +305,12 @@ def test_command_tree():
         return out
 
     jax_tree = tree(jax_cli.main)
-    for name in ("analyze", "fuzz", "scenarios"):
-        jax_tree.pop(name)
+    jax_tree.pop("analyze")
+    for opts in (jax_tree["scenarios"]["run"], jax_tree["fuzz"]):
+        opts[:] = sorted(opts + ["--device", "--n-devices"])
     assert tree(torch_cli.main) == jax_tree
+    device = {p.name: p.default for p in torch_cli.main.commands["fuzz"].params}
+    assert (device["device"], device["n_devices"]) == ("cuda", None)
 
 
 # ---- commands against the live workers ----------------------------------------
@@ -524,3 +530,83 @@ def test_cluster_modes_build_their_provisioner(mode, tmp_path):
                          else prov.build_startup_script("w1"))
     assert scripts["torch"] == scripts["jax"].replace("bioengine_tpu.", "bioengine_tpu_torch.")
     assert "exec python -m bioengine_tpu_torch.worker_host --worker-tag w1" in scripts["torch"]
+
+
+# ---- scenarios and fuzz: in process, no worker --------------------------------
+
+# invariants whose detail carries a measured sample (a queue's peak depth, a
+# latency quantile): the verdict is compared, the sample is not
+SAMPLED = ("bounded_queues", "slo_attainment", "p99_recovery")
+
+
+@pytest.fixture
+def logging_restored():
+    """``scenarios run`` and ``fuzz`` silence logging below ERROR for the
+    process (``logging.disable``), as in JAX; give it back after the test."""
+    import logging
+
+    level = logging.root.manager.disable
+    yield
+    logging.disable(level)
+
+
+def _local(main, *args) -> tuple[int, dict]:
+    result = CliRunner().invoke(main, list(args), catch_exceptions=False)
+    return result.exit_code, json.loads(result.stdout)
+
+
+def _untimed(out: dict) -> dict:
+    """``scenarios run``'s JSON without its timings: wall and latency figures
+    and the sampled invariants' details."""
+    result = {k: v for k, v in out["result"].items() if k not in ("wall_s", "latency_ms", "phases")}
+    result["invariants"] = {k: {f: x for f, x in v.items() if not (k in SAMPLED and f == "detail")}
+                            for k, v in result["invariants"].items()}
+    return {**out, "result": result}
+
+
+def test_scenarios_list_equals_jax():
+    outs = {name: _local(pkg.main, "scenarios", "list") for name, pkg in PACKAGES.items()}
+    assert outs["torch"] == outs["jax"] and outs["torch"][0] == 0
+    assert {"slow_replica", "controller_crash", "router_loss"} <= {s["name"] for s in outs["torch"][1]}
+
+
+def test_scenarios_run_equals_jax(logging_restored):
+    """A scenario with worker hosts, the port's on ``--device cpu`` (8 CPU
+    chips each, the JAX layout), through both CLIs with one seed."""
+    args = ["scenarios", "run", "controller_crash", "--seed", "7"]
+    rc_jax, jax_out = _local(jax_cli.main, *args)
+    rc, out = _local(torch_cli.main, *args, "--device", "cpu")
+    assert rc == rc_jax == 0 and out["result"]["passed"]
+    differ = _diff(_untimed(out), _untimed(jax_out))
+    assert not differ, "\n".join(differ)
+
+
+def test_fuzz_replay_equals_jax(logging_restored):
+    path = str(REPO / "tests" / "fuzz_corpus" / "host_blip_drain_starvation.json")
+    rc_jax, jax_out = _local(jax_cli.main, "fuzz", "--replay", path)
+    rc, out = _local(torch_cli.main, "fuzz", "--replay", path, "--device", "cpu", "--n-devices", "8")
+    assert rc == rc_jax == 0 and out == jax_out
+    assert out["replays"][0]["matches_expect"] and out["replays"][0]["deterministic"] is True
+
+
+def test_host_scenario_on_one_card_fails_with_a_placement_error(monkeypatch, logging_restored):
+    """On a stood-in one-card ``torch.cuda`` a scenario whose replicas lease
+    2 chips fails before it runs, naming the chip it lacks and ``--device
+    cpu``; nothing is shrunk and nothing drops to the CPU. A host-less
+    scenario runs on the default device, which it never touches."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda i=0: (70 << 30, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    runner = CliRunner()
+    path = str(REPO / "tests" / "fuzz_corpus" / "drill_lease_leak.json")
+    for args in (["scenarios", "run", "slow_replica"], ["fuzz", "--replay", path]):
+        result = runner.invoke(torch_cli.main, args)
+        assert result.exit_code == 1, result.output
+        assert "places replicas of 2 chips" in result.stderr and "holds 1 (1 chip(s) short)" in result.stderr
+        assert "--device cpu" in result.stderr
+    result = runner.invoke(torch_cli.main, ["scenarios", "run", "slow_replica", "--device", "cpu",
+                                            "--n-devices", "1"])
+    assert result.exit_code == 1 and "run it with --n-devices 2" in result.stderr
+    rc, out = _local(torch_cli.main, "scenarios", "run", "hot_signature", "--seed", "5")
+    assert rc == 0 and out["result"]["passed"]

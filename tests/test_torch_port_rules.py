@@ -66,6 +66,11 @@ SLICE11_MODULES = [
     "worker_host.py", "cli/__init__.py", "cli/utils.py", "cli/call.py", "cli/cluster.py",
     "cli/apps.py", "cli/debug.py", "cli/slo.py", "cli/models.py", "cli/cli.py",
 ]
+# the modules of slice 12: the scenario engine, the fuzzer, the controller process
+SLICE12_MODULES = [
+    "testing/invariants.py", "testing/scenarios.py", "testing/fuzz.py", "testing/controller_proc.py",
+    "cli/scenarios.py", "cli/fuzz.py",
+]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -136,11 +141,11 @@ def test_port_files_exist():
     assert bundles == (jax_apps - {"tpu-test"}) | {"gpu-test"}
     for app in ("cellpose-finetuning", "cell-image-search", "fibsem-mito-analysis", "composition-demo"):
         assert (BUNDLES / app / "frontend" / "index.html").is_file(), app
-    # slice 11: the worker host and the CLI (no analyze, fuzz or scenarios)
-    for rel in SLICE11_MODULES + ["cli/__main__.py"]:
+    # slice 11: the worker host and the CLI; slice 12: the scenario engine,
+    # the fuzzer and their commands (no analyze: analysis/ is not ported)
+    for rel in SLICE11_MODULES + SLICE12_MODULES + ["cli/__main__.py"]:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
-    for rel in ("cli/analyze.py", "cli/fuzz.py", "cli/scenarios.py"):
-        assert not (REPO / "bioengine_tpu_torch" / rel).exists(), rel
+    assert not (REPO / "bioengine_tpu_torch" / "cli" / "analyze.py").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -401,7 +406,8 @@ import importlib, sys
 for module in {modules!r}:
     importlib.import_module(module)
 from bioengine_tpu_torch.cli.cli import main
-assert {{"call", "apps", "cluster", "debug", "models", "slo", "top", "status", "worker"}} == set(main.commands)
+assert {{"call", "apps", "cluster", "debug", "fuzz", "models", "scenarios", "slo", "top", "status",
+         "worker"}} == set(main.commands)
 bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
 assert not bad, bad
 print("ok")
@@ -431,3 +437,33 @@ def test_worker_host_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(OSError):  # the topology is detected, then the connect fails
         asyncio.run(cpu.start())
     assert cpu.topology.platform == "cpu" and cpu.topology.n_chips == 4
+
+
+def test_slice12_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 12 imports, the catalog
+    and the fuzz topologies load, ``python -m
+    bioengine_tpu_torch.testing.controller_proc --help`` parses, and no
+    module of jax, flax, ``bioengine_tpu`` or the other forbidden packages
+    has been imported along the way."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").replace("/", ".") for rel in SLICE12_MODULES
+    ]
+    script = f"""
+import contextlib, importlib, io, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+from bioengine_tpu_torch.testing import controller_proc, fuzz, scenarios
+assert len(scenarios.list_scenarios()) >= 8 and "small_multihost" in fuzz.TOPOLOGIES
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    try:
+        controller_proc.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0
+assert "--control-dir" in out.getvalue()
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

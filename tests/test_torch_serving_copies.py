@@ -11,7 +11,7 @@ its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8, slice-9 or slice-11 differences.
+ROADMAP.md's slice-8, slice-9, slice-11 or slice-12 differences.
 """
 
 import ast
@@ -40,7 +40,9 @@ COPIES = {
             "CUDA in place of jax.devices()",
         "detect_topology": "CUDA in place of jax.devices()",
     },
-    "cluster/state.py": {},
+    "cluster/state.py": {
+        "ClusterState.register_host": "a live host's rejoin keeps the leases held on it (slice 12)",
+    },
     "serving/errors.py": {},
     "serving/replica.py": {},
     "serving/batching.py": {},
@@ -155,13 +157,46 @@ COPIES = {
     "cli/models.py": {},
     "cli/cli.py": {
         "from bioengine_tpu_torch.cli.analyze import analyze_command": "analysis/ is not ported (Queue A)",
-        "from bioengine_tpu_torch.cli.fuzz import fuzz_command": "testing/fuzz.py is not ported (Queue A)",
-        "from bioengine_tpu_torch.cli.scenarios import scenarios_group":
-            "testing/scenarios.py is not ported (Queue A)",
         "main.add_command(analyze_command)": "analysis/ is not ported (Queue A)",
-        "main.add_command(fuzz_command)": "testing/fuzz.py is not ported (Queue A)",
-        "main.add_command(scenarios_group)": "testing/scenarios.py is not ported (Queue A)",
         "main": "prog name bioengine-torch; the docstring names what is not ported",
+    },
+    # slice 12: the scenario engine, the fuzzer, the controller process, their commands
+    "testing/invariants.py": {},
+    "testing/scenarios.py": {
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
+        "_Plane.__init__": "device and n_devices kept for the hosts",
+        "_Plane.spawn_host": "WorkerHost(device=, n_devices=)",
+        "run_scenario_async": "device and n_devices",
+        "run_scenario": "device and n_devices",
+    },
+    "testing/fuzz.py": {
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
+        "run_schedule": "device and n_devices passed through",
+        "replay_artifact": "device and n_devices passed through",
+        "fuzz": "device and n_devices passed through",
+    },
+    "testing/controller_proc.py": {
+        "main": "no jax platform to pin: the controller holds no chips",
+    },
+    "cli/scenarios.py": {
+        "__doc__": "--device/--n-devices in place of forced XLA CPU devices",
+        "import os": "--device/--n-devices in place of forced XLA CPU devices",
+        "import sys": "--device/--n-devices in place of forced XLA CPU devices",
+        "from typing import Optional": "--device/--n-devices",
+        "_prepare_cpu_devices": "--device/--n-devices in place of forced XLA CPU devices",
+        "CPU_CHIPS_PER_HOST": "--device/--n-devices",
+        "device_option": "--device/--n-devices",
+        "n_devices_option": "--device/--n-devices",
+        "_host_chips": "the placement error on too few chips",
+        "scenarios_run_command": "--device/--n-devices",
+    },
+    "cli/fuzz.py": {
+        "__doc__": "--device/--n-devices",
+        "from bioengine_tpu_torch.cli.scenarios import _prepare_cpu_devices":
+            "--device/--n-devices in place of forced XLA CPU devices",
+        "from bioengine_tpu_torch.cli.scenarios import _host_chips, device_option, n_devices_option":
+            "--device/--n-devices",
+        "fuzz_command": "--device/--n-devices",
     },
 }
 # the port holds only these of the JAX module's statements
@@ -258,11 +293,11 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 
 def _listed_differences() -> str:
-    """ROADMAP's "Slice 8 (", "Slice 9 (" and "Slice 11 (" differences
-    sections."""
+    """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (" and "Slice 12 ("
+    differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
-    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 ("):
+    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
