@@ -8,6 +8,12 @@ kernel only at 1024 tokens and more was measured on a TPU and does not
 apply). Without ``weights_path`` the weights are random, from
 ``np.random.default_rng(seed)``; with one, they are a flat ``jax_params``
 npz of the flax ViT, carried over by ``state_dict_from_flax``.
+
+The built model becomes the one program of the embedder's
+``CompiledProgramCache`` once its kernels are loaded: on the card that
+loads the flash kernel's library, so the cache tags it as it tags a graph
+build, a persistent hit when the library came from the compile cache's
+directory (or the tier) and a real build when nvcc had to run.
 """
 
 from __future__ import annotations
@@ -19,16 +25,32 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from bioengine_tpu_torch.apps.cell_image_search.normalizer import to_model_input
+from bioengine_tpu_torch.apps.cell_image_search.normalizer import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    to_model_input,
+)
 from bioengine_tpu_torch.models.vit import ViT
+from bioengine_tpu_torch.ops import attention
 from bioengine_tpu_torch.ops.attention import make_attn_fn
 from bioengine_tpu_torch.runtime.convert import (
     load_params_npz,
     state_dict_from_flax,
 )
 from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
+from bioengine_tpu_torch.runtime.program_cache import CompiledProgramCache
 
 logger = logging.getLogger(__name__)
+
+
+def model_input(rgb: torch.Tensor) -> torch.Tensor:
+    """(n, 224, 224, 3) uint8 RGB crops, on any device -> the rows
+    ``to_model_input`` makes of them (ImageNet-scaled float32, the same
+    operations in the same order), computed where the crops are: a batch
+    streamed onto the card is scaled there."""
+    mean = torch.from_numpy(IMAGENET_MEAN).to(rgb.device)
+    std = torch.from_numpy(IMAGENET_STD).to(rgb.device)
+    return (rgb.float() / 255.0 - mean) / std
 
 
 class ViTEmbedder:
@@ -52,6 +74,7 @@ class ViTEmbedder:
         self.weights_path = weights_path
         self.batch_bucket = batch_bucket
         self.seed = seed
+        self.flash = attn_fn is None
         self.attn_fn = attn_fn or make_attn_fn()
         self.model_overrides = dict(model_overrides or {})
         self.embed_dim = self.model_overrides.get("dim", self.EMBED_DIM)
@@ -59,6 +82,7 @@ class ViTEmbedder:
         self.forward_count = 0  # bucket forwards run so far
         self._model: Optional[ViT] = None
         self._lock = threading.Lock()  # guards loading and forward_count
+        self.programs = CompiledProgramCache(max_programs=1)
 
     @property
     def loaded(self) -> bool:
@@ -67,7 +91,17 @@ class ViTEmbedder:
     def load(self) -> None:
         with self._lock:
             if self._model is None:
-                self._model = self._build()
+                model = self._build()
+                key = ("vit-embedder", str(self.device), str(self.model_overrides))
+                self._model = self.programs.get_or_compile(key, lambda: self._prepare(model))
+
+    def _prepare(self, model: ViT) -> ViT:
+        """The program: the built model once its kernels are loaded (on
+        the card, the flash kernel's library from the compile cache, built
+        with nvcc only if missing)."""
+        if self.flash and self.device.type == "cuda":
+            attention.load_kernel()
+        return model
 
     def _build(self) -> ViT:
         kw = {"patch_size": 14, "dim": 768, "depth": 12, "num_heads": 12}
@@ -109,12 +143,29 @@ class ViTEmbedder:
             if n < bucket:
                 chunk = np.pad(chunk, ((0, bucket - n), (0, 0), (0, 0), (0, 0)))
             x = torch.from_numpy(chunk).to(self.device)
-            with self._lock, torch.inference_mode():
-                emb = self._model(x)
-                emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
-                self.forward_count += 1
-            out.append(emb[:n].cpu().numpy())
+            out.append(self._forward(x)[:n].cpu().numpy())
         return np.vstack(out)
+
+    def embed_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch of model input already on the embedder's device, (n,
+        224, 224, 3) float32 as ``to_model_input`` makes its rows, n at most
+        the bucket -> (n, dim) L2-normalised embeddings, on the device. The
+        batch pads to ``batch_bucket`` rows with zeros, as ``embed_batch``
+        pads."""
+        self.load()
+        n = x.shape[0]
+        if n > self.batch_bucket:
+            raise ValueError(f"{n} rows exceed the bucket of {self.batch_bucket}")
+        if n < self.batch_bucket:
+            x = torch.cat([x, x.new_zeros((self.batch_bucket - n, *x.shape[1:]))])
+        return self._forward(x)[:n]
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        with self._lock, torch.inference_mode():
+            emb = self._model(x)
+            emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+            self.forward_count += 1
+        return emb
 
     def embed_single(self, image_rgb: np.ndarray) -> np.ndarray:
         return self.embed_batch([image_rgb])[0]

@@ -1,9 +1,9 @@
-"""Dataset streaming plane: zarr-over-HTTP with LRU caching.
+"""Dataset streaming plane: zarr-over-HTTP with LRU caching + CUDA prefetch.
 
 Own copy of ``bioengine_tpu/datasets/`` (client, HttpZarrStore,
 ChunkCache, proxy server, and the zarr v2/v3 codec layer with no
-external ``zarr`` dependency). The device-prefetch path
-(``prefetch.py``) is not ported yet (ROADMAP A11).
+external ``zarr`` dependency), with the device-prefetch path
+(``prefetch.py``) feeding the card over pinned memory and a copy stream.
 """
 
 from bioengine_tpu_torch.datasets.chunk_cache import ChunkCache, default_cache
@@ -13,6 +13,7 @@ from bioengine_tpu_torch.datasets.http_zarr_store import (
     RemoteZarrArray,
     RemoteZarrGroup,
 )
+from bioengine_tpu_torch.datasets.prefetch import ZarrBatchLoader, prefetch_to_device
 from bioengine_tpu_torch.datasets.proxy_server import DatasetsServer, start_proxy_server
 
 __all__ = [
@@ -22,6 +23,8 @@ __all__ = [
     "HttpZarrStore",
     "RemoteZarrArray",
     "RemoteZarrGroup",
+    "ZarrBatchLoader",
     "default_cache",
+    "prefetch_to_device",
     "start_proxy_server",
 ]

@@ -1,0 +1,199 @@
+"""CUDA-aware prefetch: overlap chunk fetch, host staging, and the upload.
+
+Own copy of ``bioengine_tpu/datasets/prefetch.py``. This is a NEW
+capability over the reference (whose data path stops at process RAM, ref
+bioengine/datasets/http_zarr_store.py): batches are pipelined chunk ->
+host numpy -> pinned host memory -> the card, so the accelerator never
+waits on the network. Double-buffering depth is configurable.
+
+On the card each array is staged into pinned (page-locked) host memory,
+because a ``non_blocking`` copy from pageable memory is synchronous, and
+copied on a dedicated copy stream; an event recorded after a batch's
+copies is what the consumer's stream waits on before the batch is
+yielded, and ``record_stream`` keeps the copy stream's allocator from
+handing a yielded tensor's memory to a later batch while the consumer
+still reads it. PyTorch's pinned-memory allocator records each copy on
+its stream, so a staging buffer is not reused before its copy is done.
+``sharding`` waits for the parallel layer (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import threading
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from bioengine_tpu_torch.datasets.http_zarr_store import RemoteZarrArray
+from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
+
+
+def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of dicts, lists and tuples, as
+    ``jax.tree_util.tree_map`` walks them (None is an empty node)."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        items = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def prefetch_to_device(
+    iterator: Iterable[Any],
+    size: int = 2,
+    device: DeviceLike = None,
+    sharding: Optional[Any] = None,
+) -> Iterator[Any]:
+    """Wrap a host-batch iterator, keeping ``size`` batches in flight on
+    device. Works on dicts, lists and tuples of numpy arrays. ``device``
+    None is ``cuda:0`` (raising without CUDA); ``"cpu"`` yields plain
+    tensors, no stream involved."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "prefetch_to_device(sharding=...): the parallel layer is not "
+            "ported yet (ROADMAP A10)"
+        )
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        put = lambda batch: (  # noqa: E731
+            _tree_map(lambda x: torch.from_numpy(np.array(x)), batch), None
+        )
+    else:
+        put = _CopyStream(dev).put
+    return _prefetch(iter(iterator), size, put)
+
+
+def _prefetch(it: Iterator[Any], size: int, put) -> Iterator[Any]:
+    queue: collections.deque = collections.deque()
+    try:
+        for _ in range(size):
+            queue.append(put(next(it)))
+    except StopIteration:
+        pass
+    while queue:
+        batch, ready = queue.popleft()
+        if ready is not None:
+            ready(batch)
+        yield batch
+        try:
+            queue.append(put(next(it)))
+        except StopIteration:
+            continue
+
+
+class _CopyStream:
+    """Host batches onto ``device`` over pinned staging and a copy stream."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+
+    def put(self, batch: Any) -> tuple[Any, Callable[[Any], None]]:
+        def copy(x):
+            host = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+            return host.to(self.device, non_blocking=True)
+
+        with torch.cuda.stream(self.stream):
+            out = _tree_map(copy, batch)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+
+        def ready(tensors: Any) -> None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(done)
+            _tree_map(lambda t: t.record_stream(consumer), tensors)
+
+        return out, ready
+
+
+class ZarrBatchLoader:
+    """Stream batches of rows from a RemoteZarrArray into device memory.
+
+    Reads ``batch_size`` leading-axis slices ahead of the consumer on a
+    background thread running its own event loop (the training loop is
+    synchronous code), then hands them to :func:`prefetch_to_device` on
+    ``device`` (None: ``cuda:0``; ``"cpu"``: plain tensors).
+    """
+
+    def __init__(
+        self,
+        array: RemoteZarrArray,
+        batch_size: int,
+        indices: Optional[Sequence[int]] = None,
+        prefetch_batches: int = 2,
+        drop_remainder: bool = True,
+        device: DeviceLike = None,
+    ):
+        self.array = array
+        self.batch_size = batch_size
+        self.indices = list(
+            indices if indices is not None else range(array.shape[0])
+        )
+        self.prefetch_batches = prefetch_batches
+        self.drop_remainder = drop_remainder
+        self.device = resolve_device(device)
+
+    def __len__(self) -> int:
+        n = len(self.indices)
+        return n // self.batch_size if self.drop_remainder else -(-n // self.batch_size)
+
+    def _batches(self) -> Iterator[list[int]]:
+        for i in range(0, len(self.indices), self.batch_size):
+            batch = self.indices[i : i + self.batch_size]
+            if len(batch) < self.batch_size and self.drop_remainder:
+                return
+            yield batch
+
+    def host_batches(self) -> Iterator[np.ndarray]:
+        """Yield numpy batches, fetched by a background asyncio thread."""
+        q: "collections.deque[Any]" = collections.deque()
+        done = threading.Event()
+        error: list[BaseException] = []
+        sem = threading.Semaphore(self.prefetch_batches)
+
+        async def _fetch_all():
+            for batch in self._batches():
+                rows = await asyncio.gather(
+                    *(
+                        self.array.read(
+                            (slice(idx, idx + 1),)
+                            + tuple(slice(0, s) for s in self.array.shape[1:])
+                        )
+                        for idx in batch
+                    )
+                )
+                await asyncio.to_thread(sem.acquire)
+                q.append(np.concatenate(rows, axis=0))
+
+        def _runner():
+            try:
+                asyncio.run(_fetch_all())
+            except BaseException as e:  # surfaced to the consumer
+                error.append(e)
+            finally:
+                done.set()
+
+        thread = threading.Thread(target=_runner, daemon=True)
+        thread.start()
+        while True:
+            if q:
+                yield q.popleft()
+                sem.release()
+            elif done.is_set():
+                if error:
+                    raise error[0]
+                if not q:
+                    return
+            else:
+                done.wait(timeout=0.005)
+
+    def __iter__(self) -> Iterator[Any]:
+        return prefetch_to_device(
+            self.host_batches(), size=self.prefetch_batches, device=self.device
+        )

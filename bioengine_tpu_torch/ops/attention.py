@@ -141,7 +141,9 @@ def tf32x3_land_stages(d: int) -> int:
     return 2 if d == 32 else 1
 
 
-def _kernel():
+def load_kernel():
+    """The kernel's library and entry point, loaded from the compile cache
+    (built there first if missing)."""
     lib = _build.load(KERNEL_NAME)
     fn = lib.flash_attn_fwd
     if not fn.argtypes:
@@ -172,7 +174,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     plan = launch_plan(q.shape, q.dtype)
     q, k, v = (_aligned(x) for x in (q, k, v))
     out = torch.empty_like(q)
-    lib, fn = _kernel()
+    lib, fn = load_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(

@@ -30,7 +30,9 @@ from typing import Optional
 from bioengine_tpu_torch.utils import flight, metrics
 from bioengine_tpu_torch.utils.compile_cache import _safe_entry_name
 
-DEFAULT_TIER_DIR = "~/.cache/bioengine-tpu/xla-tier"
+# not the JAX package's xla-tier: a port host would fetch the JAX hosts'
+# XLA programs into its kernel-library cache, and publish them back
+DEFAULT_TIER_DIR = "~/.cache/bioengine-tpu/kernel-tier"
 
 TIER_SERVED = metrics.counter(
     "compile_tier_served_total",

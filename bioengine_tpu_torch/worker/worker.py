@@ -17,7 +17,8 @@ service surface onto a remote control plane as well.
 Own copy of ``bioengine_tpu/worker/worker.py``. It takes ``device``
 (default ``cuda``; ``"cpu"`` for tests): the topology is detected on it
 at ``start()``, which raises there without CUDA. Profiling goes through
-``torch.profiler``; there is no persistent compile cache.
+``torch.profiler``; the persistent compile cache it enables at ``start()``
+holds the kernel libraries (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -114,6 +115,11 @@ class BioEngineWorker:
     async def start(self, blocking: bool = False) -> dict:
         """Bring the worker up (ref worker.py:925-1001). Returns the
         service endpoints."""
+        from bioengine_tpu_torch.utils.compile_cache import (
+            enable_persistent_compilation_cache,
+        )
+
+        enable_persistent_compilation_cache()
         if self.cluster.state is None and self.cluster._topology is None:
             # the worker's device decides the topology; without CUDA a
             # cuda worker raises here, before it takes the workspace lock

@@ -36,8 +36,10 @@ Own copy of ``bioengine_tpu/worker_host.py``. The host takes ``device``
 (default ``cuda``; ``"cpu"`` with ``n_devices`` CPU chips for tests): the
 topology is detected on it at ``start()``, which raises there without
 CUDA. Profiling goes through ``torch.profiler`` and the CUDA allocator.
-There is no persistent compile cache, so the host neither fetches from
-nor publishes to the controller's compile-cache tier.
+The compile-cache tier carries the port's kernel libraries
+(``utils/compile_cache.py``): a host fetches the fleet's libraries at join
+and before each replica build, so a fresh host loads the flash kernel
+without running nvcc, and publishes the libraries it built.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from bioengine_tpu_torch.rpc import protocol
 from bioengine_tpu_torch.rpc.client import ServerConnection, connect_to_server
 from bioengine_tpu_torch.testing import faults
 from bioengine_tpu_torch.runtime.devices import DeviceLike
-from bioengine_tpu_torch.utils import flight
+from bioengine_tpu_torch.utils import compile_cache, flight
 from bioengine_tpu_torch.utils.logger import create_logger
 
 
@@ -105,6 +107,7 @@ class WorkerHost:
         worker_tag: Optional[str] = None,
         log_file: Optional[str] = "off",
         rejoin: bool = True,
+        compile_cache_dir: str | Path | None = None,
         orphan_grace_s: Optional[float] = None,
         device: DeviceLike = "cuda",
         n_devices: Optional[int] = None,
@@ -150,6 +153,18 @@ class WorkerHost:
         # merged incident timelines order correctly
         self.clock_skew_s = 0.0
         self._telemetry_task: Optional[asyncio.Task] = None
+        # shared compile-cache tier: entries sync between this host's
+        # kernel-library cache directory and the controller's tier
+        # (fetch at join + before each replica build, publish after
+        # builds land). Default = the process-enabled cache dir; tests
+        # override to exercise per-host directories in-process.
+        self._compile_cache_dir = (
+            str(compile_cache_dir) if compile_cache_dir else None
+        )
+        self._tier_published: set[str] = set()
+        self._tier_publish_task: Optional[asyncio.Task] = None
+        self.tier_fetched = 0
+        self.tier_published_count = 0
 
     # ---- lifecycle ----------------------------------------------------------
 
@@ -205,6 +220,20 @@ class WorkerHost:
             logger=self.logger,
         )
         joined = await self._register_host()
+        # pull the fleet's compiled programs BEFORE any replica lands
+        # here — a fresh autoscaled host starts with the tier's entries
+        # in its local persistent cache, so its first compile is a disk
+        # read; publish whatever this host already has in return, and
+        # keep publishing periodically (compiles land AFTER start_replica
+        # returns: background test_deployment, lazily-compiled hot-path
+        # shapes — a start-time-only publish would miss all of them)
+        await self._sync_compile_cache()
+        await self._publish_compile_cache()
+        self._tier_publish_task = spawn_supervised(
+            self._tier_publish_loop(),
+            name="compile-tier-publish",
+            logger=self.logger,
+        )
         # push-telemetry (capability telem1, same negotiation pattern as
         # oob1/trace1): periodic registry-delta snapshots to the
         # controller's store. A legacy control plane that never
@@ -314,6 +343,129 @@ class WorkerHost:
                 raise
             except Exception as e:  # noqa: BLE001 — telemetry is best-effort
                 self.logger.debug(f"telemetry push failed (tolerated): {e}")
+
+    # ---- shared compile-cache tier ------------------------------------------
+
+    def _cache_dir(self) -> Optional[str]:
+        return self._compile_cache_dir or compile_cache.enabled_dir()
+
+    async def _sync_compile_cache(self) -> None:
+        """Fetch tier entries this host's local persistent cache lacks.
+        Entry names are jax's own on-disk keys, so an installed file IS
+        a local cache hit. A legacy controller without the verbs (or a
+        disabled local cache) degrades to a no-op, never an error."""
+        directory = self._cache_dir()
+        if directory is None or self.connection is None:
+            return
+        try:
+            listing = await self.connection.call(
+                "serve-router", "compile_cache_list"
+            )
+        except Exception as e:  # noqa: BLE001 — tier is best-effort
+            self.logger.debug(f"compile tier list failed (tolerated): {e}")
+            return
+        local = compile_cache.list_entries(directory)
+        fetched = 0
+        for name in listing or {}:
+            if name in local:
+                continue
+            try:
+                blob = await self.connection.call(
+                    "serve-router", "compile_cache_fetch", name
+                )
+            except Exception as e:  # noqa: BLE001 — tier is best-effort
+                self.logger.debug(
+                    f"compile tier fetch failed (tolerated): {e}"
+                )
+                return
+            if not blob:
+                continue
+            if compile_cache.write_entry(name, bytes(blob), directory):
+                fetched += 1
+                self.tier_fetched += 1
+                self._tier_published.add(name)  # never re-publish a fetch
+                compile_cache.TIER_FETCHES.inc()
+                compile_cache.TIER_FETCH_BYTES.inc(len(blob))
+                flight.record(
+                    "program.cache_fetch",
+                    host=self.host_id,
+                    entry=name[:120],
+                    bytes=len(blob),
+                )
+        if fetched:
+            self.logger.info(
+                f"compile tier: fetched {fetched} compiled-program "
+                f"entries into {directory}"
+            )
+
+    async def _publish_compile_cache(self) -> None:
+        """Publish locally-compiled entries the tier lacks (idempotent:
+        a name is offered at most once per host lifetime; the tier
+        keeps its first copy)."""
+        directory = self._cache_dir()
+        if directory is None or self.connection is None:
+            return
+        try:
+            have = set(
+                await self.connection.call(
+                    "serve-router", "compile_cache_list"
+                )
+                or {}
+            )
+        except Exception as e:  # noqa: BLE001 — tier is best-effort
+            self.logger.debug(f"compile tier list failed (tolerated): {e}")
+            return
+        for name in compile_cache.list_entries(directory):
+            if name in have or name in self._tier_published:
+                continue
+            # compiled-program blobs run to tens of MB — read off-loop
+            blob = await asyncio.to_thread(
+                compile_cache.read_entry, name, directory
+            )
+            if blob is None:
+                continue
+            try:
+                result = await self.connection.call(
+                    "serve-router", "compile_cache_publish", name, blob
+                )
+            except Exception as e:  # noqa: BLE001 — tier is best-effort
+                self.logger.debug(
+                    f"compile tier publish failed (tolerated): {e}"
+                )
+                return
+            self._tier_published.add(name)
+            if isinstance(result, dict) and result.get("stored"):
+                self.tier_published_count += 1
+                compile_cache.TIER_PUBLISHES.inc()
+                compile_cache.TIER_PUBLISH_BYTES.inc(len(blob))
+
+    async def _tier_publish_loop(self) -> None:
+        """Periodic publish of NEW local cache entries
+        (``BIOENGINE_COMPILE_TIER_PUBLISH_S``, default 30 s). The cheap
+        local listing gates the RPC: no new entries, no round trip."""
+        interval = float(
+            os.environ.get("BIOENGINE_COMPILE_TIER_PUBLISH_S", "30")
+        )
+        while not self._stop_event.is_set():
+            await asyncio.sleep(interval)
+            if self.connection is None or not self.connection.connected:
+                continue
+            directory = self._cache_dir()
+            if directory is None:
+                continue
+            if all(
+                name in self._tier_published
+                for name in compile_cache.list_entries(directory)
+            ):
+                continue
+            try:
+                await self._publish_compile_cache()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — tier is best-effort
+                self.logger.debug(
+                    f"periodic tier publish failed (tolerated): {e}"
+                )
 
     def _replica_inventory(self) -> list[dict]:
         return [
@@ -493,6 +645,9 @@ class WorkerHost:
         if self._telemetry_task is not None:
             self._telemetry_task.cancel()
             self._telemetry_task = None
+        if self._tier_publish_task is not None:
+            self._tier_publish_task.cancel()
+            self._tier_publish_task = None
         if getattr(self, "_loop_lag_task", None):
             self._loop_lag_task.cancel()
             self._loop_lag_task = None
@@ -550,6 +705,11 @@ class WorkerHost:
                 f"control plane never negotiated '{protocol.PROTO_MESH1}'"
             )
 
+        # tier entries published since our join (another host's compile
+        # of the same model) turn this replica's compiles into disk
+        # reads — worth one cheap list round trip before a 20-40 s build
+        await self._sync_compile_cache()
+
         app_id = payload["app_id"]
         deployment = payload["deployment"]
         app_src = self.workspace_dir / "artifacts" / f"{app_id}-{replica_id}"
@@ -594,6 +754,15 @@ class WorkerHost:
         self.logger.info(
             f"replica {replica_id} ({app_id}/{deployment}) started "
             f"(state={replica.state})"
+        )
+        # whatever this replica's build just compiled belongs to the
+        # fleet — publish in the background, off the start critical path
+        from bioengine_tpu_torch.utils.tasks import spawn_supervised as _spawn
+
+        _spawn(
+            self._publish_compile_cache(),
+            name=f"compile-tier-publish-{replica_id}",
+            logger=self.logger,
         )
         return {"replica_id": replica_id, "state": replica.state.value}
 
@@ -818,8 +987,11 @@ class WorkerHost:
             "replicas": {
                 rid: r.describe() for rid, r in self.replicas.items()
             },
-            # no persistent compile cache: the tier's keys, nothing synced
-            "compile_tier": {"cache_dir": None, "fetched": 0, "published": 0},
+            "compile_tier": {
+                "cache_dir": self._cache_dir(),
+                "fetched": self.tier_fetched,
+                "published": self.tier_published_count,
+            },
         }
         if self.connection is not None:
             # transport counters for the host<->controller link: on a
@@ -865,6 +1037,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = parser.parse_args(argv)
     if not args.server_url:
         parser.error("--server-url (or BIOENGINE_SERVER_URL) is required")
+    from bioengine_tpu_torch.utils.compile_cache import (
+        enable_persistent_compilation_cache,
+    )
+
+    enable_persistent_compilation_cache()
 
     async def run() -> int:
         host = WorkerHost(

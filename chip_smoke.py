@@ -189,10 +189,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    index the host wrote, with ms per search through the host and in
    process in turns and the hop's cost; the host's own ``torch.profiler``
    trace around 2 searches holds 12 ``flash_attn`` kernel events per
-   bucket forward, its ``memory_profile`` names the card, and it loaded the
-   library ``phase_build`` left; a second host joins on the same card, the
-   first is SIGKILLed, health ticks re-place the replica there and the
-   searches are equal again; then ``python -m bioengine_tpu_torch.worker``
+   bucket forward and its ``memory_profile`` names the card; the shared
+   compile-cache tier (slice 13): h1 starts with an empty kernel cache
+   (``BIOENGINE_COMPILE_CACHE``), builds the flash kernel's library with
+   nvcc (its embedder build tagged a real build) and its publish loop puts
+   the entry on the controller's tier; a client times the list, fetch and
+   install a joining host does; a second host h2 joins on the same card
+   with an empty cache and no nvcc (``PATH`` without it, ``CUDA_HOME`` an
+   empty directory: a probe process there fails to find it), fetches the
+   entry (``describe()["compile_tier"]["fetched"]``, the same bytes as h1's,
+   no nvcc log, a ``program.cache_fetch`` event, its embedder build tagged
+   a persistent hit); h1 is SIGKILLed, health ticks re-place the replica on
+   h2 and the searches are equal again, and h2's own trace holds 12
+   ``flash_attn`` events per bucket forward; then ``python -m bioengine_tpu_torch.worker``
    as a subprocess with a third host joined, driven by ``python -m
    bioengine_tpu_torch.cli`` (``cluster status`` 2 chips across 2 hosts,
    ``status``, ``apps deploy`` of gpu-test, ``call gpu_info``, ``apps
@@ -227,8 +236,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``torch.profiler`` trace of the 16 after holds 12 ``flash_attn`` events
    per bucket forward; the times from the SIGKILL to ``RECONCILED`` and to
    the first answered search; one ``scenarios`` JSON line;
-17. one JSON line of the kernels' numbers;
-18. the result line ``{"ok": true, "device": {...}}``, printed last.
+17. device prefetch (slice 13), ``phase_prefetch``: 1024 seeded 224^2 RGB
+   crops (uint8, as ``to_rgb_uint8`` makes them) in a zarr array on the
+   datasets plane (a ``DatasetsServer`` on loopback), streamed in 16
+   batches of 64 by ``ZarrBatchLoader(prefetch_batches=2)`` onto the card,
+   scaled there (``model_input``) and embedded by the cell-image-search
+   ``ViTEmbedder`` (ViT-B/14, bf16): every run equal bit for bit to the
+   rows uploaded whole; images/s with the prefetch and with synchronous
+   uploads of the same host batches, in turns; the same from host memory
+   (``prefetch_to_device`` over the batches, 4 passes a run); in a
+   ``torch.profiler`` run of each, the batch copies are ``Memcpy HtoD
+   (Pinned -> Device)`` on a stream other than the ``flash_attn`` kernels',
+   with the share of copy time that overlaps kernels; 12 launches per
+   batch; one ``prefetch`` JSON line;
+18. train-state checkpoints (slice 13), ``phase_checkpoints``: a
+   ``CellposeNet`` (32, 64, 128, 256) ``TrainState`` on the card saved by
+   ``CheckpointService`` before each of 5 steps at 8 x 256^2 with
+   ``max_to_keep=2`` (cuDNN deterministic): ``steps()`` is [3, 4],
+   ``restore_latest`` onto a fresh state gives the parameters and AdamW
+   moments of step 4 bit for bit, and a step after it equals the
+   uninterrupted step 5 bit for bit; a step taken right after ``save``
+   leaves the checkpoint as saved; ``save``'s return and commit ms and the
+   bytes a step; one ``checkpoints`` JSON line;
+19. one JSON line of the kernels' numbers;
+20. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -251,6 +282,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import aiohttp
@@ -260,7 +292,7 @@ import torch.nn.functional as F
 from scipy import ndimage
 
 from bioengine_tpu_torch.apps.builder import AppBuilder
-from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder
+from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder, model_input
 from bioengine_tpu_torch.apps.cell_image_search.index import (
     IVFFLAT_MAX_CELLS,
     FlatIPIndex,
@@ -282,7 +314,17 @@ from bioengine_tpu_torch.apps.model_runner.entry import EntryDeployment, HttpCol
 from bioengine_tpu_torch.apps.model_runner.runtime import RuntimeDeployment
 from bioengine_tpu_torch.cluster.state import ClusterState
 from bioengine_tpu_torch.cluster.topology import TpuTopology, detect_topology
-from bioengine_tpu_torch.datasets import codecs, zarr_codec
+from bioengine_tpu_torch.apps.cell_image_search.normalizer import to_rgb_uint8
+from bioengine_tpu_torch.datasets import (
+    ChunkCache,
+    DatasetsServer,
+    HttpZarrStore,
+    RemoteZarrArray,
+    ZarrBatchLoader,
+    codecs,
+    prefetch_to_device,
+    zarr_codec,
+)
 from bioengine_tpu_torch.models.cellpose import (
     CellposeConfig,
     CellposeNet,
@@ -321,6 +363,7 @@ from bioengine_tpu_torch.runtime.convert import (
     unflatten_params,
 )
 from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
+from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
 from bioengine_tpu_torch.runtime.decode_engine import (
     DecodeEngine,
     DecoderConfig,
@@ -333,6 +376,7 @@ from bioengine_tpu_torch.serving.decode import DecodeLoop
 from bioengine_tpu_torch.native import store as native_store
 from bioengine_tpu_torch.rpc import connect_to_server
 from bioengine_tpu_torch.rpc.server import RpcServer
+from bioengine_tpu_torch.serving.compile_tier import CompileCacheTier
 from bioengine_tpu_torch.serving.remote import RemoteReplica
 from bioengine_tpu_torch.serving import (
     DeploymentHandle,
@@ -342,6 +386,7 @@ from bioengine_tpu_torch.serving import (
     ServeController,
 )
 from bioengine_tpu_torch.testing import fuzz, scenarios
+from bioengine_tpu_torch.utils import compile_cache
 from bioengine_tpu_torch.worker.worker import BioEngineWorker
 from bioengine_tpu_torch.worker_host import WorkerHost
 
@@ -4308,6 +4353,7 @@ HOSTS_STOP_S = 30
 HOSTS_MEMORY_SLACK = 64 << 20
 HOSTS_CLI_S = 120  # one CLI command, models convert at full width included
 HOSTS_CONVERT_DEPTH = 12  # the seeded DINOv2 ViT-B/14 checkpoint converted by the CLI
+HOSTS_TIER_PUBLISH_S = "1"  # h1's BIOENGINE_COMPILE_TIER_PUBLISH_S: its publish loop's period
 
 
 def _host_cmd(server_url: str, token: str, host_id: str, ws: str, device: str) -> list:
@@ -4322,9 +4368,9 @@ class _Hosts:
     def __init__(self, root: str):
         self.root, self.procs = root, {}
 
-    def spawn(self, host_id: str, cmd: list) -> subprocess.Popen:
+    def spawn(self, host_id: str, cmd: list, **env) -> subprocess.Popen:
         with open(os.path.join(self.root, f"{host_id}.log"), "w") as log:
-            self.procs[host_id] = subprocess.Popen(cmd, env=_repo_env(), stdout=log, stderr=subprocess.STDOUT)
+            self.procs[host_id] = subprocess.Popen(cmd, env=_repo_env(**env), stdout=log, stderr=subprocess.STDOUT)
         return self.procs[host_id]
 
     def log(self, host_id: str) -> str:
@@ -4382,10 +4428,38 @@ def _flash_event_census(trace_dir: str) -> dict:
     return {"by_category": census, "first_last_ts": starts[:1] + starts[-1:]}
 
 
-def _library_stamp() -> tuple:
-    path = _build.library_path(attention.KERNEL_NAME)
-    st = path.stat()
-    return str(path), st.st_ino, st.st_mtime_ns
+def _no_nvcc_env(root: str) -> dict:
+    """A PATH without any directory that holds nvcc and CUDA_HOME at an
+    empty directory: ``_build._nvcc()`` raises in a process started with
+    these, so a kernel library it loads cannot have been built there."""
+    empty = os.path.join(root, "no-cuda")
+    os.makedirs(empty, exist_ok=True)
+    path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                           if d and not os.path.isfile(os.path.join(d, "nvcc")))
+    return {"PATH": path, "CUDA_HOME": empty}
+
+
+def _embedder_builds(record: dict) -> list:
+    """The ``cache_hit`` tags of the embedder's builds in a host's flight
+    record (``program.compile`` events of the ``vit-embedder`` program)."""
+    return [e["attrs"]["cache_hit"] for e in record["events"]
+            if e["type"] == "program.compile" and "vit-embedder" in e["attrs"]["key"]]
+
+
+async def _timed_tier_fetch(server_url: str, token: str, name: str, directory: str) -> tuple[float, bytes]:
+    """What a joining host's ``_sync_compile_cache`` does for one entry,
+    timed here by a client of the same controller: list the tier, fetch
+    the entry, install it with ``write_entry``. (seconds, the bytes)."""
+    conn = await connect_to_server({"server_url": server_url, "token": token})
+    try:
+        t0 = time.perf_counter()
+        listing = await conn.call("serve-router", "compile_cache_list")
+        blob = bytes(await conn.call("serve-router", "compile_cache_fetch", name))
+        check(name in listing and compile_cache.write_entry(name, blob, directory),
+              f"the timed fetch of {name} from the tier failed")
+        return time.perf_counter() - t0, blob
+    finally:
+        await conn.disconnect()
 
 
 HOSTS_WARM_THREADS = 4
@@ -4436,17 +4510,22 @@ async def drive_hosts(card: str, device: str, root: str, fields_dir: str, querie
     token = server.issue_token("admin", is_admin=True)
     controller = ServeController(ClusterState(TpuTopology(chips=(), n_hosts=1, platform="gpu")),
                                  health_check_period=3600)
+    controller.compile_tier = CompileCacheTier(os.path.join(root, "tier"))
     controller.attach_rpc(server, admin_users=["admin"])
     await controller.start()
     state = controller.cluster_state
     shared = os.path.join(root, "cis")  # the index path both hosts' replicas get
     kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    # each host's kernel-library cache starts empty: h1 builds the flash
+    # kernel with nvcc and publishes it; h2, with no nvcc, fetches it
+    kernels = {h: os.path.join(root, f"kernels-{h}") for h in ("h1", "h2")}
+    entry = _build.entry_name(attention.KERNEL_NAME)
     try:
         def alive(host_id):
             return lambda: host_id in state.hosts and state.hosts[host_id].alive
 
-        stamp = _library_stamp() if device == "cuda" else None
-        hosts.spawn("h1", _host_cmd(server.url, token, "h1", os.path.join(root, "ws-h1"), device))
+        hosts.spawn("h1", _host_cmd(server.url, token, "h1", os.path.join(root, "ws-h1"), device),
+                    BIOENGINE_COMPILE_CACHE=kernels["h1"], BIOENGINE_COMPILE_TIER_PUBLISH_S=HOSTS_TIER_PUBLISH_S)
         r["join_ms"] = await _wait_join(hosts, "h1", alive("h1"))
         h1 = state.hosts["h1"]
         chips = h1.topology["chips"]
@@ -4531,14 +4610,21 @@ async def drive_hosts(card: str, device: str, root: str, fields_dir: str, querie
             (dev,) = mem["devices"]
             r["h1_allocated"] = dev["memory_stats"]["allocated_bytes.all.current"]
             check(dev["kind"] == kind and r["h1_allocated"] > 0, f"h1's memory_profile: {dev['kind']}")
-            check(_library_stamp() == stamp, "h1 rebuilt the flash kernel's library")
         print(f"[{card}] hosts: h1's torch.profiler trace around {HOSTS_PROFILED_SEARCHES} searches holds "
               f"{r['flash_launches']} flash_attn kernel events = {depth} x {forwards} bucket forwards; h1's "
-              f"memory_profile: {r.get('h1_allocated', 'no CUDA device')} B allocated on {kind!r}; h1 loaded "
-              f"{stamp[0] if stamp else 'no library (CPU)'} as phase_build left it")
+              f"memory_profile: {r.get('h1_allocated', 'no CUDA device')} B allocated on {kind!r}")
+        if device == "cuda":
+            r["tier"] = await hosts_tier_publish(card, controller, h1, kernels["h1"], entry, server.url, token, root)
 
-        # failover: h2 on the same card, h1 killed
-        hosts.spawn("h2", _host_cmd(server.url, token, "h2", os.path.join(root, "ws-h2"), device))
+        # failover: h2 on the same card, h1 killed; h2 has no nvcc and an
+        # empty kernel cache, so the library it serves with is the tier's
+        h2_env = {"BIOENGINE_COMPILE_CACHE": kernels["h2"], **_no_nvcc_env(root)}
+        if device == "cuda":
+            probe = subprocess.run([sys.executable, "-c", "from bioengine_tpu_torch.ops import _build; _build._nvcc()"],
+                                   env=_repo_env(**h2_env), capture_output=True, text=True, timeout=120)
+            check(probe.returncode != 0 and "nvcc not found" in probe.stderr,
+                  f"nvcc is reachable in h2's environment: rc {probe.returncode} {probe.stderr[-500:]}")
+        hosts.spawn("h2", _host_cmd(server.url, token, "h2", os.path.join(root, "ws-h2"), device), **h2_env)
         r["join_ms_h2"] = await _wait_join(hosts, "h2", alive("h2"))
         hosts.procs["h1"].send_signal(signal.SIGKILL)
         await asyncio.to_thread(hosts.procs["h1"].wait, 30)
@@ -4563,6 +4649,10 @@ async def drive_hosts(card: str, device: str, root: str, fields_dir: str, querie
               f"replica on h2 (same card, same index path) and it was healthy {r['failover_ms']:.3f} ms after the "
               f"kill; its first search (which builds the ViT there) answered {r['first_search_ms']:.3f} ms after the "
               f"kill; the {len(queries)} searches through h2 equal the in-process app bit for bit")
+        if device == "cuda":
+            h2 = state.hosts["h2"]
+            r["tier"].update(await hosts_tier_fetched(card, controller, h2, kernels, entry, handle, queries,
+                                                      forwards, root))
         await controller.undeploy(WORKER_CIS)
         check(state.hosts["h2"].chips_in_use == {}, f"h2 still leases {state.hosts['h2'].chips_in_use}")
         rc = await asyncio.to_thread(hosts.stop, "h2")  # the loop answers its deregister_host
@@ -4576,6 +4666,74 @@ async def drive_hosts(card: str, device: str, root: str, fields_dir: str, querie
         hosts.kill_all()
         await controller.stop()
         await server.stop()
+    return r
+
+
+async def hosts_tier_publish(card: str, controller, h1, kernels_h1: str, entry: str, server_url: str,
+                             token: str, root: str) -> dict:
+    """h1 built the flash kernel's library with nvcc into its empty cache
+    and its publish loop put the entry on the controller's tier."""
+    r: dict = {"entry": entry}
+    lib = os.path.join(kernels_h1, entry)
+    log = _build.build_log(attention.KERNEL_NAME, kernels_h1)
+    r["nvcc_s_h1"] = _build.build_seconds(log)
+    check(os.path.isfile(lib) and r["nvcc_s_h1"] is not None,
+          f"h1 left no library {entry} or no nvcc log in its cache {sorted(os.listdir(kernels_h1))}")
+    builds = _embedder_builds(await controller._call_host(h1.service_id, "get_flight_record", limit=None))
+    check(builds[:1] == [False], f"h1's first embedder build is tagged {builds}, expected a real build (False)")
+    t0 = time.perf_counter()
+    while entry not in controller.compile_tier.list():
+        check(time.perf_counter() - t0 < HOSTS_JOIN_S, f"h1 never published {entry}: {controller.compile_tier.list()}")
+        await asyncio.sleep(0.1)
+    r["publish_wait_s"] = time.perf_counter() - t0
+    with open(lib, "rb") as f:
+        r["bytes"] = len(f.read())
+    desc = await controller._call_host(h1.service_id, "describe")
+    check(desc["compile_tier"]["cache_dir"] == kernels_h1 and desc["compile_tier"]["published"] >= 1,
+          f"h1's compile_tier {desc['compile_tier']}")
+    probe = os.path.join(root, "kernels-probe")
+    r["fetch_s"], blob = await _timed_tier_fetch(server_url, token, entry, probe)
+    check(blob == open(lib, "rb").read(), "the tier's bytes differ from h1's library")
+    print(f"[{card}] hosts: h1 built {entry} with nvcc in {r['nvcc_s_h1']} s into its empty cache (its embedder "
+          f"build tagged a real build); its publish loop put the entry on the controller's tier "
+          f"({r['bytes']} B, seen {r['publish_wait_s']:.3f} s after the check began); listing and fetching it over "
+          f"the tier's RPC and installing it, as a joining host does, took {r['fetch_s']:.6f} s here")
+    return r
+
+
+async def hosts_tier_fetched(card: str, controller, h2, kernels: dict, entry: str, handle, queries, forwards: int,
+                             root: str) -> dict:
+    """h2, without nvcc, fetched the library from the tier, loaded it and
+    serves the searches with the kernel in its own process."""
+    r: dict = {}
+    desc = await controller._call_host(h2.service_id, "describe")
+    tier = desc["compile_tier"]
+    check(tier["cache_dir"] == kernels["h2"] and tier["fetched"] >= 1, f"h2's compile_tier {tier}")
+    r["fetched_h2"] = tier["fetched"]
+    got = os.path.join(kernels["h2"], entry)
+    check(os.path.isfile(got) and open(got, "rb").read() == open(os.path.join(kernels["h1"], entry), "rb").read(),
+          f"h2's cache {sorted(os.listdir(kernels['h2']))} lacks h1's {entry} or holds other bytes")
+    check(not _build.build_log(attention.KERNEL_NAME, kernels["h2"]), "nvcc wrote a log in h2's cache")
+    record = await controller._call_host(h2.service_id, "get_flight_record", limit=None)
+    fetches = [e for e in record["events"] if e["type"] == "program.cache_fetch" and e["attrs"]["entry"] == entry]
+    builds = _embedder_builds(record)
+    check(len(fetches) == 1 and builds and all(builds),
+          f"h2's flight record: {len(fetches)} program.cache_fetch of {entry}; embedder builds tagged {builds}")
+    r["h2_embedder_builds"] = builds
+    trace_dir = os.path.join(root, "h2-trace")
+    started = await controller._call_host(h2.service_id, "start_profiling", trace_dir=trace_dir)
+    for q in queries[:HOSTS_PROFILED_SEARCHES]:
+        await handle.call("search", image=q, top_k=TOP_K)
+    stopped = await controller._call_host(h2.service_id, "stop_profiling")
+    check(started["profiling"] and not stopped["profiling"], f"h2's profiling verbs {started} {stopped}")
+    r["flash_launches_h2"] = _flash_events(trace_dir)
+    depth = HOSTS_VIT.get("depth", VIT_DEPTH)
+    check(r["flash_launches_h2"] == depth * forwards,
+          f"h2's trace holds {r['flash_launches_h2']} flash_attn kernel events, expected {depth} x {forwards}")
+    print(f"[{card}] hosts: h2 (no nvcc on its PATH, CUDA_HOME empty) fetched {tier['fetched']} entry from the tier "
+          f"into its empty cache, the same bytes as h1's and no nvcc log beside them; its embedder builds are "
+          f"tagged persistent hits {builds}; its own torch.profiler trace around {HOSTS_PROFILED_SEARCHES} searches "
+          f"holds {r['flash_launches_h2']} flash_attn kernel events = {depth} x {forwards} bucket forwards")
     return r
 
 
@@ -4770,6 +4928,9 @@ def phase_hosts(card: str, device: str = "cuda") -> dict:
            "hop_ms": r["hop_ms"]["median"], "failover_ms_to_healthy": r["failover_ms"],
            "failover_ms_to_first_search": r["first_search_ms"],
            "flash_launches_h1": r["flash_launches"],
+           # slice 13: h1's nvcc build, the tier's entry, h2's library fetched from it
+           "tier": {k: r.get("tier", {}).get(k) for k in ("entry", "bytes", "nvcc_s_h1", "fetch_s", "fetched_h2",
+                                                          "flash_launches_h2")},
            "cli": None if r["cli"] is None else {k: v["rc"] for k, v in r["cli"]["commands"].items()},
            "detail": r}
     print(f"[{card}] hosts phase: {r['phase_s']:.3f} s")
@@ -5143,7 +5304,328 @@ def phase_scenarios(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 13: device prefetch and train-state checkpoints --------------------
+
+PREFETCH_BATCHES = 16  # bucket-64 batches of 224^2 RGB crops, streamed per run
+PREFETCH_DEPTH = 2  # ZarrBatchLoader(prefetch_batches=...)
+PREFETCH_SOURCE_CROPS = 128  # distinct crops cut from synthetic fields; rows mix three of them
+PREFETCH_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width, bf16
+PREFETCH_TURNS = ("prefetch", "sync", "sync", "prefetch")
+PREFETCH_MEMORY_PASSES = 4  # passes over the batches in a run of the in-memory leg
+CKPT_STEPS = 5  # train steps, a save before each
+CKPT_KEEP = 2
+CKPT_TIMED_SAVES = 3
+
+
+def prefetch_rows(n: int, seed: int) -> np.ndarray:
+    """``n`` seeded 224^2 RGB crops, (n, 224, 224, 3) uint8 as the app's
+    ``to_rgb_uint8`` makes them: each row's channels are three crops of
+    synthetic fields (rotated and flipped at random), so every row differs."""
+    crops = []
+    for i, (_, field) in enumerate(make_synthetic_images(n_images=64, size=WORKER_FIELD_SIZE, n_cells=60,
+                                                         seed=seed)):
+        crops += extract_cell_crops(field, crop_size=224, n_crops=PREFETCH_SOURCE_CROPS - len(crops))
+        if len(crops) >= PREFETCH_SOURCE_CROPS:
+            break
+    check(len(crops) >= 3, f"{len(crops)} source crops")
+    rng = np.random.default_rng(seed)
+    rows = np.empty((n, 224, 224, 3), np.uint8)
+    for i in range(n):
+        picks = [np.rot90(crops[j], rng.integers(4)) for j in rng.choice(len(crops), 3, replace=False)]
+        rows[i] = to_rgb_uint8(np.stack([p[:, ::-1] if rng.integers(2) else p for p in picks], axis=-1))
+    return rows
+
+
+class _LoopThread:
+    """An event loop on a thread of its own (the datasets server's)."""
+
+    def __init__(self):
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 120):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+async def _open_rows(url: str) -> RemoteZarrArray:
+    """The dataset's array, over a fresh chunk cache (each run reads every
+    chunk over HTTP), with the store's client closed: the loader reads on
+    its own thread's event loop, where a connection pooled on this loop
+    cannot be used."""
+    store = HttpZarrStore(url, cache=ChunkCache())
+    arr = await RemoteZarrArray.open(store, "rgb")
+    await store.aclose()
+    return arr
+
+
+def _stream_embed(source, embedder: ViTEmbedder, mode: str, device: str) -> tuple[torch.Tensor, float]:
+    """Every row through the embedder, batch by batch. ``source`` is the
+    dataset's URL (the batches read by ``ZarrBatchLoader`` from the
+    datasets plane) or a list of host batches already in memory.
+    ``prefetch`` streams the batches onto the card over pinned memory and
+    a copy stream (``ZarrBatchLoader.__iter__``, or ``prefetch_to_device``
+    for batches in memory); ``sync`` uploads each host batch from pageable
+    memory before its forward. (embeddings on the device, wall s)."""
+    if isinstance(source, str):
+        arr = asyncio.run(_open_rows(source))
+        loader = ZarrBatchLoader(arr, batch_size=BUCKET, prefetch_batches=PREFETCH_DEPTH, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    if mode == "prefetch":
+        batches = iter(loader) if isinstance(source, str) else prefetch_to_device(
+            iter(source), size=PREFETCH_DEPTH, device=device)
+    else:
+        host = loader.host_batches() if isinstance(source, str) else iter(source)
+        batches = (torch.from_numpy(b).to(device) for b in host)
+    out = torch.cat([embedder.embed_tensor(model_input(b)) for b in batches])
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _profiled_stream(source, warm: list, embedder: ViTEmbedder, device: str,
+                     path: str) -> tuple[torch.Tensor, dict, int]:
+    """One ``prefetch`` run as the active step of a ``torch.profiler``
+    schedule whose warm-up step streams the batches ``warm`` (the tracer
+    records nothing until it is running, and the in-memory leg's first
+    copies start within a millisecond of the profiler's start); its
+    embeddings, the batches' copies read from the active step's trace
+    (``_copy_overlap``) and its flash_attn_fwd launches."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: p.export_chrome_trace(path),
+    ) as prof:
+        _stream_embed(warm, embedder, "prefetch", device)
+        prof.step()
+        launches0 = attention.launch_count
+        out, _ = _stream_embed(source, embedder, "prefetch", device)
+        launches = attention.launch_count - launches0
+        prof.step()
+    return out, _copy_overlap(path, BUCKET * 224 * 224 * 3), launches
+
+
+def _copy_overlap(trace_path: str, batch_bytes: int) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the batches' host-to-device
+    copies (memcpy events of ``batch_bytes``), their kinds and streams, the
+    streams of the flash_attn kernels, and the share of the copies' time
+    that overlaps some kernel."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")
+              and e.get("args", {}).get("bytes") == batch_bytes]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash_streams = sorted({e["args"].get("stream") for e in kernels if "flash_attn" in e["name"]})
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    merged: list = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    copy_us = sum(e["dur"] for e in copies)
+    overlap_us = sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"])) for e in copies for a, b in merged)
+    return {"copies": len(copies), "kinds": sorted({e["name"] for e in copies}),
+            "flash_events": sum(1 for e in kernels if "flash_attn" in e["name"]),
+            "copy_streams": sorted({e["args"].get("stream") for e in copies}), "flash_streams": flash_streams,
+            "copy_us": copy_us, "overlap_us": overlap_us, "htod_sample": [
+                {"name": e["name"], "args": e.get("args")} for e in htod[:3]],
+            "overlap_share": overlap_us / copy_us if copy_us else 0.0}
+
+
+def phase_prefetch(card: str, device: str = "cuda") -> dict:
+    """Slice 13: a seeded zarr dataset of 224^2 RGB crops on the datasets
+    plane, streamed by ``ZarrBatchLoader(prefetch_batches=2)`` onto the
+    card and embedded by the cell-image-search ViT-B/14 (bf16, bucket 64);
+    then the same batches from host memory through ``prefetch_to_device``,
+    where the card and not the plane sets the pace. One ``prefetch`` JSON
+    line."""
+    t_phase = time.perf_counter()
+    n = PREFETCH_BATCHES * BUCKET
+    rows = prefetch_rows(n, SEED + 13)
+    r: dict = {"rows": n}
+    loop = _LoopThread()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_") as root:
+        ds = os.path.join(root, "data", "crops")
+        os.makedirs(ds)
+        with open(os.path.join(ds, "manifest.yaml"), "w") as f:
+            f.write("description: 224^2 RGB cell crops\nauthorized_users: ['*']\n")
+        zarr_codec.write_group(os.path.join(ds, "crops.zarr"))
+        zarr_codec.write_array(os.path.join(ds, "crops.zarr"), "rgb", rows, chunks=(1, 224, 224, 3))
+        server = DatasetsServer(os.path.join(root, "data"), host="127.0.0.1", write_discovery_file=False)
+        loop.run(server.start())
+        try:
+            url = f"{server.url}/data/crops/crops.zarr"
+            emb = ViTEmbedder(device=device, seed=SEED, batch_bucket=BUCKET, model_overrides=PREFETCH_VIT)
+            # the same rows uploaded whole, embedded bucket by bucket
+            whole = torch.from_numpy(rows).to(device)
+            ref = torch.cat([emb.embed_tensor(model_input(whole[i:i + BUCKET])) for i in range(0, n, BUCKET)])
+            del whole
+            host = [rows[i:i + BUCKET] for i in range(0, n, BUCKET)]
+            # in turns, from the datasets plane and from host memory (a run
+            # there passes over the batches PREFETCH_MEMORY_PASSES times)
+            for source, label, passes in ((url, "plane", 1), (host * PREFETCH_MEMORY_PASSES, "memory",
+                                                                PREFETCH_MEMORY_PASSES)):
+                times: dict = {"prefetch": [], "sync": []}
+                for mode in PREFETCH_TURNS:
+                    out, wall = _stream_embed(source, emb, mode, device)
+                    check(out.shape == (passes * n, ref.shape[1]) and torch.equal(out, ref.repeat(passes, 1)),
+                          f"{label} {mode}: the embeddings differ from those of the rows uploaded whole")
+                    times[mode].append(passes * n / wall)
+                r[f"images_per_s_{label}"] = times
+            r["flash_attn_fwd_launches"] = 0
+            if device == "cuda":
+                for source, label in ((url, "plane"), (host, "memory")):
+                    out, t, launches = _profiled_stream(source, host[:2], emb, device,
+                                                        os.path.join(root, f"{label}-trace.json"))
+                    r["flash_attn_fwd_launches"] += launches
+                    check(torch.equal(out, ref), f"the profiled {label} run's embeddings differ from the whole upload's")
+                    check(t["copies"] == PREFETCH_BATCHES and t["kinds"] == ["Memcpy HtoD (Pinned -> Device)"],
+                          f"the {label} batches' copies in the trace: {t['copies']} of {t['kinds']}, expected "
+                          f"{PREFETCH_BATCHES} pinned; {t['flash_events']} flash_attn events beside them; "
+                          f"host-to-device copies seen: {t['htod_sample']}")
+                    check(t["flash_streams"] and not set(t["copy_streams"]) & set(t["flash_streams"]),
+                          f"{label}: copies on streams {t['copy_streams']}, flash_attn kernels on {t['flash_streams']}")
+                    r[f"trace_{label}"] = t
+            depth = PREFETCH_VIT.get("depth", VIT_DEPTH)
+            want = 2 * depth * PREFETCH_BATCHES if device == "cuda" else 0
+            check(r["flash_attn_fwd_launches"] == want,
+                  f"{r['flash_attn_fwd_launches']} flash_attn_fwd launches on the two prefetch runs, expected {want}")
+        finally:
+            loop.run(server.stop())
+            loop.close()
+    med = {(label, k): statistics.median(v) for label in ("plane", "memory")
+           for k, v in r[f"images_per_s_{label}"].items()}
+    share = {label: r.get(f"trace_{label}", {}).get("overlap_share") for label in ("plane", "memory")}
+    for label, what in (("plane", "from the datasets plane by ZarrBatchLoader"),
+                        ("memory", "from host memory by prefetch_to_device")):
+        t = r.get(f"trace_{label}", {})
+        print(f"[{card}] prefetch: {n} 224^2 RGB crops ({PREFETCH_BATCHES} batches of {BUCKET}) streamed {what} "
+              f"(prefetch_batches={PREFETCH_DEPTH}) and embedded by ViT-B/14 (bf16): equal bit for bit to the rows "
+              f"uploaded whole in every run; images/s in turns {json.dumps(r[f'images_per_s_{label}'])} (median "
+              f"prefetch {med[label, 'prefetch']:.3f}, synchronous uploads {med[label, 'sync']:.3f}); the profiled "
+              f"run's {t.get('copies')} batch copies are {t.get('kinds')} on streams {t.get('copy_streams')}, the "
+              f"flash_attn kernels on {t.get('flash_streams')}; copy time {t.get('copy_us')} us, of it overlapping "
+              f"kernels {t.get('overlap_us')} us (share {share[label]})")
+    print(f"[{card}] prefetch: flash_attn_fwd launches {r['flash_attn_fwd_launches']} on the two profiled runs "
+          f"(their active steps)")
+    r["phase_s"] = time.perf_counter() - t_phase
+    out = {"card": card, "images_per_s": {f"{a}_{b}": v for (a, b), v in med.items()},
+           "copy_overlap_share": share, "flash_attn_fwd_launches": r["flash_attn_fwd_launches"], "detail": r}
+    print(f"[{card}] prefetch phase: {r['phase_s']:.3f} s")
+    print("prefetch " + json.dumps(out, default=str))
+    return out
+
+
+def _state_on_host(state: TrainState) -> dict:
+    """Parameters, AdamW moments and step, copied to the host."""
+    opt = state.optimizer.state_dict()
+    return {"step": state.step,
+            "module": {k: v.detach().cpu().clone() for k, v in state.module.state_dict().items()},
+            "moments": {i: {k: v.detach().cpu().clone() for k, v in s.items()} for i, s in opt["state"].items()}}
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    return (a["step"] == b["step"] and a["module"].keys() == b["module"].keys()
+            and all(torch.equal(a["module"][k], b["module"][k]) for k in a["module"])
+            and a["moments"].keys() == b["moments"].keys()
+            and all(a["moments"][i].keys() == b["moments"][i].keys()
+                    and all(torch.equal(a["moments"][i][k], b["moments"][i][k]) for k in a["moments"][i])
+                    for i in a["moments"]))
+
+
+def phase_checkpoints(card: str, device: str = "cuda") -> dict:
+    """Slice 13: ``CheckpointService`` over a ``CellposeNet`` train state
+    at the registry's default width on the card. One ``checkpoints`` JSON
+    line."""
+    t_phase = time.perf_counter()
+    n = CELLPOSE_CFG["batch_size"]
+    images, masks = synthetic_cell_fields(n, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED + 13)
+    base = _train_batch(images, masks, n, CELLPOSE_CFG["tile"], device)
+    batches = [[torch.roll(t, i, 0) for t in base] for i in range(CKPT_STEPS)]  # the fields in turn
+    cfg = CellposeConfig(features=CELLPOSE_FEATURES)
+    step = make_train_step()
+    r: dict = {}
+    launches0 = attention.launch_count
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+            _, state = create_model_and_state(cfg, seed=SEED, device=device)
+            with CheckpointService(os.path.join(root, "every-step"), max_to_keep=CKPT_KEEP) as ckpt:
+                for i in range(CKPT_STEPS):
+                    check(ckpt.save(i, state), f"save {i} was skipped")
+                    if i == CKPT_STEPS - 1:
+                        at_last_save = _state_on_host(state)
+                    step(state, *batches[i])
+                ckpt.wait()
+                uninterrupted = _state_on_host(state)
+                r["steps"] = ckpt.steps()
+                check(r["steps"] == list(range(CKPT_STEPS - CKPT_KEEP, CKPT_STEPS)),
+                      f"steps() {r['steps']} after {CKPT_STEPS} saves with max_to_keep={CKPT_KEEP}")
+                _, fresh = create_model_and_state(cfg, seed=SEED + 1, device=device)
+                restored = ckpt.restore_latest(fresh)
+            where = {str(p.device) for p in restored.module.parameters()} | {
+                str(v.device) for s in restored.optimizer.state.values() for k, v in s.items() if k != "step"}
+            check(where == {str(torch.device(device, 0) if device == "cuda" else device)},
+                  f"restored tensors on {where}")
+            check(_states_equal(_state_on_host(restored), at_last_save),
+                  f"the state restored from step {CKPT_STEPS - 1} differs from the state saved there")
+            step(restored, *batches[CKPT_STEPS - 1])
+            check(_states_equal(_state_on_host(restored), uninterrupted),
+                  f"the step after the restore differs from the uninterrupted step {CKPT_STEPS}")
+            # a save followed at once by a step, before the write is done
+            with CheckpointService(os.path.join(root, "save-then-step")) as ckpt:
+                at_save = _state_on_host(state)
+                ckpt.save(state.step, state)
+                step(state, *batches[0])
+                ckpt.wait()
+                _, fresh = create_model_and_state(cfg, seed=SEED + 2, device=device)
+                check(_states_equal(_state_on_host(ckpt.restore_latest(fresh)), at_save),
+                      "a step taken right after save changed the checkpoint")
+                # timed saves: the host return of save, and its commit
+                save_ms, commit_ms = [], []
+                for j in range(CKPT_TIMED_SAVES):
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    ckpt.save(state.step + 1 + j, state)
+                    save_ms.append((time.perf_counter() - t0) * 1e3)
+                    ckpt.wait()
+                    commit_ms.append((time.perf_counter() - t0) * 1e3)
+                r["bytes"] = os.path.getsize(os.path.join(root, "save-then-step", str(ckpt.latest_step()),
+                                                          "state.pt"))
+            r["save_ms"], r["commit_ms"] = save_ms, commit_ms
+            r["n_params"] = sum(p.numel() for p in state.module.parameters())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    r["flash_attn_fwd_launches"] = attention.launch_count - launches0
+    check(r["flash_attn_fwd_launches"] == 0, f"{r['flash_attn_fwd_launches']} flash launches training CellposeNet")
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] checkpoints: CellposeNet {CELLPOSE_FEATURES} ({r['n_params']} parameters) train state on "
+          f"{device}, saved before each of {CKPT_STEPS} steps ({n} x {CELLPOSE_CFG['tile']}^2, cuDNN deterministic) "
+          f"with max_to_keep={CKPT_KEEP}: steps() {r['steps']}; restore_latest onto a fresh state equals the "
+          f"parameters and AdamW moments at step {CKPT_STEPS - 1} bit for bit, and the step after it the "
+          f"uninterrupted step {CKPT_STEPS}; a step right after save leaves the checkpoint as saved; save returns "
+          f"in {[round(x, 3) for x in save_ms]} ms, committed in {[round(x, 3) for x in commit_ms]} ms, "
+          f"{r['bytes']} B a step")
+    out = {"card": card, "save_ms": statistics.median(save_ms), "commit_ms": statistics.median(commit_ms),
+           "bytes": r["bytes"], "flash_attn_fwd_launches": r["flash_attn_fwd_launches"], "detail": r}
+    print(f"[{card}] checkpoints phase: {r['phase_s']:.3f} s")
+    print("checkpoints " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
+    # every controller this run starts keeps its compile-cache tier in a
+    # temporary directory (the default is under the home directory)
+    tier_root = tempfile.TemporaryDirectory(prefix="chip_smoke_tier_")
+    os.environ.setdefault("BIOENGINE_COMPILE_TIER_DIR", tier_root.name)
     card, name = phase_device()
     ptxas = phase_build(card)
     main_cases = phase_kernels(card)
@@ -5162,6 +5644,8 @@ def main() -> int:
     apps = phase_apps(card)
     hosts = phase_hosts(card)
     scenario_runs = phase_scenarios(card)
+    prefetch = phase_prefetch(card)
+    checkpoints = phase_checkpoints(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -5185,7 +5669,13 @@ def main() -> int:
                              "hosts": hosts["flash_launches_h1"],
                              # slice 12: the synthetic app has no attention; the
                              # controller process's crash drives cell-image-search
-                             **scenario_runs["flash_attn_fwd_launches"]},
+                             **scenario_runs["flash_attn_fwd_launches"],
+                             # slice 13: host h2's own trace, from the library it
+                             # fetched through the tier; the batches streamed by
+                             # the prefetch loader; the checkpoints have no attention
+                             "hosts_h2_fetched_library": hosts["tier"]["flash_launches_h2"],
+                             "prefetch": prefetch["flash_attn_fwd_launches"],
+                             "checkpoints": checkpoints["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],
@@ -5204,6 +5694,7 @@ def main() -> int:
         "f32_smem_bytes": attention.launch_plan(f32_case["shape"], torch.float32).smem_bytes,
         "card": card,
     }]}))
+    tier_root.cleanup()
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},

@@ -16,6 +16,8 @@
 """
 
 import base64
+import functools
+import gzip
 import json
 import os
 import subprocess
@@ -116,7 +118,11 @@ def _tree(root: Path) -> dict:
     (2, None), (2, "gzip"), (2, "zlib"), (2, "zstd"), (2, "lz4"),
     (3, None), (3, "gzip"), (3, "zstd"),
 ])
-def test_zarr_arrays_cross_packages(tmp_path, zarr_format, compressor):
+def test_zarr_arrays_cross_packages(tmp_path, monkeypatch, zarr_format, compressor):
+    # a gzip member's header holds the wall-clock second it was written:
+    # both packages write at one pinned second, else the two trees differ
+    # whenever their writes straddle a second boundary
+    monkeypatch.setattr(gzip, "compress", functools.partial(gzip.compress, mtime=1_700_000_000))
     data = np.random.default_rng(zarr_format).normal(size=(20, 30)).astype(np.float32)
     written = {}
     for writer in ("jax", "torch"):

@@ -32,7 +32,7 @@ from bioengine_tpu_torch.runtime.kv_cache import PagedKVCache
 from bioengine_tpu_torch.runtime.torch_runner import TorchRunner
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "bioengine_tpu", "sklearn", "pandas"}
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "bioengine_tpu", "sklearn", "pandas"}
 PORT_FILES = sorted((REPO / "bioengine_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
@@ -70,6 +70,11 @@ SLICE11_MODULES = [
 SLICE12_MODULES = [
     "testing/invariants.py", "testing/scenarios.py", "testing/fuzz.py", "testing/controller_proc.py",
     "cli/scenarios.py", "cli/fuzz.py",
+]
+# the modules of slice 13: the compile cache, device prefetch, checkpoints
+SLICE13_MODULES = [
+    "utils/compile_cache.py", "ops/_build.py", "runtime/program_cache.py", "datasets/prefetch.py",
+    "datasets/__init__.py", "runtime/checkpoints.py", "worker_host.py", "worker/worker.py",
 ]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
@@ -134,7 +139,9 @@ def test_port_files_exist():
         "apps/bundles/demo-app/manifest.yaml",
     ]:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
-    assert not (REPO / "bioengine_tpu_torch" / "datasets" / "prefetch.py").exists()  # A11
+    # slice 13: the compile cache whole, device prefetch, checkpoints
+    for rel in SLICE13_MODULES:
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 10: a bundle for every app of the JAX repo (tpu-test's twin is gpu-test)
     jax_apps = {p.name for p in (REPO / "apps").iterdir() if (p / "manifest.yaml").is_file()}
     bundles = {p.name for p in BUNDLES.iterdir() if (p / "manifest.yaml").is_file()}
@@ -160,6 +167,7 @@ def test_import_walk_sees_forbidden_imports(tmp_path):
         "import jax.numpy as jnp\nfrom flax import linen\nimport optax\n"
         "from bioengine_tpu.ops import knn\nimport bioengine_tpu_torch\n"
         "from sklearn.cluster import MiniBatchKMeans\nimport pandas as pd\n"
+        "import orbax.checkpoint as ocp\n"
     )
     assert _imported_top_levels(probe) & FORBIDDEN == FORBIDDEN
 
@@ -467,3 +475,43 @@ print("ok")
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_slice13_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 13 imports, the
+    kernel's cache entry is named, and no module of jax, flax, orbax,
+    ``bioengine_tpu`` or the other forbidden packages has been imported."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+        for rel in SLICE13_MODULES
+    ]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+from bioengine_tpu_torch.ops import _build
+assert _build.entry_name("flash_attn_fwd").endswith("-cache")
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_slice13_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """``prefetch_to_device`` and ``ZarrBatchLoader`` default to ``cuda:0``
+    and raise without it; a checkpoint restores onto its template's device,
+    so ``CheckpointService`` takes none."""
+    import inspect
+
+    from bioengine_tpu_torch.datasets import ZarrBatchLoader, prefetch_to_device
+    from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
+
+    assert inspect.signature(prefetch_to_device).parameters["device"].default is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prefetch_to_device(iter([np.zeros(2)]))
+    assert list(prefetch_to_device(iter([np.zeros(2)]), device="cpu"))[0].device.type == "cpu"
+    assert inspect.signature(ZarrBatchLoader).parameters["device"].default is None
+    assert "device" not in inspect.signature(CheckpointService).parameters

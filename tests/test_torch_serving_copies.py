@@ -11,7 +11,7 @@ its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8, slice-9, slice-11 or slice-12 differences.
+ROADMAP.md's slice-8, slice-9, slice-11, slice-12 or slice-13 differences.
 """
 
 import ast
@@ -57,7 +57,9 @@ COPIES = {
     "serving/mesh_plan.py": {
         "MeshConfig.mesh_shape": "the parallel layer is not ported (ROADMAP A10)",
     },
-    "serving/compile_tier.py": {},
+    "serving/compile_tier.py": {
+        "DEFAULT_TIER_DIR": "the port's tier holds kernel libraries, apart from the JAX tier (slice 13)",
+    },
     "serving/controller.py": {},
     "serving/__init__.py": {},
     "apps/manifest.py": {},
@@ -90,10 +92,7 @@ COPIES = {
     "datasets/proxy_server.py": {},
     "datasets/__main__.py": {},
     "datasets/__init__.py": {
-        "__doc__": "no device prefetch (ROADMAP A11)",
-        "from bioengine_tpu_torch.datasets.prefetch import ZarrBatchLoader, prefetch_to_device":
-            "no device prefetch (ROADMAP A11)",
-        "__all__": "no device prefetch (ROADMAP A11)",
+        "__doc__": "CUDA prefetch in place of TPU prefetch",
     },
     "utils/profiling.py": {
         "__doc__": "torch.profiler in place of jax.profiler",
@@ -107,11 +106,11 @@ COPIES = {
         "chip_env": "CUDA_VISIBLE_DEVICES in place of TPU_VISIBLE_CHIPS/DEVICES",
     },
     "worker/worker.py": {
-        "__doc__": "device argument, torch.profiler, no compile cache",
+        "__doc__": "device argument, torch.profiler, the cache holds kernel libraries",
         "from bioengine_tpu_torch.cluster.topology import detect_topology": "device argument",
         "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
         "BioEngineWorker.__init__": "device argument",
-        "BioEngineWorker.start": "topology on the device; no compile cache (ROADMAP A11)",
+        "BioEngineWorker.start": "topology on the device",
         "BioEngineWorker._service_definition": "the description names the GPU",
         "BioEngineWorker.start_profiling": "torch.profiler in place of jax.profiler",
         "BioEngineWorker.memory_profile": "torch.cuda memory stats and allocator snapshot",
@@ -124,23 +123,14 @@ COPIES = {
     "worker/__init__.py": {},
     # slice 11: the worker host and the CLI
     "worker_host.py": {
-        "__doc__": "device argument, torch.profiler, no compile-cache tier",
-        "from bioengine_tpu_torch.utils import compile_cache, flight": "no compile-cache tier (ROADMAP A11)",
+        "__doc__": "device argument, torch.profiler, the tier carries kernel libraries",
         "from bioengine_tpu_torch.runtime.devices import DeviceLike": "device argument",
-        "from bioengine_tpu_torch.utils import flight": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost.__init__": "device and n_devices in place of compile_cache_dir",
-        "WorkerHost.start": "topology on the device; no compile-cache tier (ROADMAP A11)",
-        "WorkerHost._cache_dir": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost._sync_compile_cache": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost._publish_compile_cache": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost._tier_publish_loop": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost.stop": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost.start_replica": "no compile-cache tier (ROADMAP A11)",
-        "WorkerHost.describe": "compile_tier with cache_dir None",
+        "WorkerHost.__init__": "device and n_devices beside compile_cache_dir",
+        "WorkerHost.start": "topology on the device",
         "WorkerHost.start_profiling": "torch.profiler in place of jax.profiler",
         "WorkerHost.stop_profiling": "torch.profiler in place of jax.profiler",
         "WorkerHost.memory_profile": "torch.cuda memory stats and allocator snapshot",
-        "main": "--device/--n-devices in place of --platform; no compile cache",
+        "main": "--device/--n-devices in place of --platform",
     },
     "cli/__init__.py": {},
     "cli/__main__.py": {},
@@ -198,12 +188,42 @@ COPIES = {
             "--device/--n-devices",
         "fuzz_command": "--device/--n-devices",
     },
+    # slice 13: host-side device glue
+    "utils/compile_cache.py": {
+        "__doc__": "the cache holds the CUDA kernel libraries in place of XLA programs",
+        "_DEFAULT": "the checkout's build/torch_kernels in place of ~/.cache/bioengine-tpu/xla",
+        "enable_persistent_compilation_cache": "no jax config: the directory is the kernel libraries'",
+    },
+    "datasets/prefetch.py": {
+        "__doc__": "pinned staging and a copy stream in place of jax.device_put",
+        "import jax": "pinned staging and a copy stream in place of jax.device_put",
+        "import torch": "pinned staging and a copy stream in place of jax.device_put",
+        "from typing import Any, Iterable, Iterator, Optional, Sequence": "a Callable annotation",
+        "from typing import Any, Callable, Iterable, Iterator, Optional, Sequence": "a Callable annotation",
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device": "device argument",
+        "_tree_map": "the pytree walk of jax.tree_util",
+        "prefetch_to_device": "pinned staging and a copy stream; sharding raises (ROADMAP A10)",
+        "_prefetch": "the JAX generator, with the consumer's wait on each batch's copy",
+        "_CopyStream": "pinned staging and a copy stream in place of jax.device_put",
+        "ZarrBatchLoader.__doc__": "device argument",
+        "ZarrBatchLoader.__init__": "device argument",
+        "ZarrBatchLoader.__iter__": "device argument",
+    },
+    "runtime/checkpoints.py": {
+        "__doc__": "the service itself in place of orbax; torch.save format",
+        "import concurrent.futures": "the service itself in place of orbax",
+        "import os": "the service itself in place of orbax",
+        "import shutil": "the service itself in place of orbax",
+        "import threading": "the service itself in place of orbax",
+        "import torch": "the service itself in place of orbax",
+        "from bioengine_tpu_torch.models.cellpose import TrainState": "the port's TrainState",
+        "STATE_FILE": "torch.save format",
+        "_to_host": "the host snapshot before save returns",
+        "_fill": "restore onto the template's devices and dtypes",
+        "_snapshot": "TrainState, module or tree",
+        "CheckpointService": "the service itself in place of orbax; torch.save format",
+    },
 }
-# the port holds only these of the JAX module's statements
-SUBSETS = {
-    "utils/compile_cache.py": {"__doc__": "holds only what compile_tier.py imports (ROADMAP A11)"},
-}
-
 
 def _key(i: int, node: ast.stmt) -> str:
     if (
@@ -264,15 +284,6 @@ def test_copy_equals_the_jax_module(rel):
     assert not differ, f"{rel}: differs from the JAX module at {differ}"
 
 
-@pytest.mark.parametrize("rel", sorted(SUBSETS))
-def test_subset_equals_the_jax_module(rel):
-    skips = SUBSETS[rel]
-    ref, ours = _pair(rel, skips)
-    kept = [k for k in ours if k not in skips]
-    assert kept, rel
-    assert [k for k in kept if ours[k] != ref.get(k)] == []
-
-
 # the port's app bundles that are copies of a JAX app's files, prefix renamed
 BUNDLE_COPIES = [
     "demo-app/demo_deployment.py",
@@ -293,20 +304,20 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 
 def _listed_differences() -> str:
-    """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (" and "Slice 12 ("
-    differences sections."""
+    """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (" and
+    "Slice 13 (" differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
-    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 ("):
+    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
     return "\n".join(sections)
 
 
-@pytest.mark.parametrize("rel", sorted(k for k, v in {**COPIES, **SUBSETS}.items() if v))
+@pytest.mark.parametrize("rel", sorted(k for k, v in COPIES.items() if v))
 def test_every_skip_is_a_listed_difference(rel):
     section = _listed_differences()
     assert f"`{rel}`" in section, rel
-    for key in {**COPIES, **SUBSETS}[rel]:
+    for key in COPIES[rel]:
         assert f"`{key}`" in section, f"{rel}: {key}"
