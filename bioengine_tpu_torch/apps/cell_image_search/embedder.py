@@ -14,13 +14,22 @@ The built model becomes the one program of the embedder's
 loads the flash kernel's library, so the cache tags it as it tags a graph
 build, a persistent hit when the library came from the compile cache's
 directory (or the tier) and a real build when nvcc had to run.
+
+Over a device group (``devices``, the replica's lease) the embedder is
+data parallel as the JAX one is: dp is the largest power of two, at most
+the group's size, that divides ``batch_bucket``; each of the first dp
+devices holds a replica of the ViT, a bucket splits into dp equal shards,
+each replica embeds its shard with the flash kernel in its attention slot
+(launched on its shard's device), and the embeddings are concatenated in
+order on the first device.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Any, Callable, Optional
+import copy
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,8 +78,11 @@ class ViTEmbedder:
         # ViT constructor overrides, to shrink the model in CPU tests
         # ("dtype" may be a torch dtype or its name, e.g. "float32")
         model_overrides: Optional[dict[str, Any]] = None,
+        # the device group (a lease); None = [device]. Entries may repeat
+        # a device (a stacked mesh)
+        devices: Optional[Sequence[DeviceLike]] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
         self.weights_path = weights_path
         self.batch_bucket = batch_bucket
         self.seed = seed
@@ -81,8 +93,22 @@ class ViTEmbedder:
         self.pretrained = weights_path is not None
         self.forward_count = 0  # bucket forwards run so far
         self._model: Optional[ViT] = None
+        self._replicas: list = []
         self._lock = threading.Lock()  # guards loading and forward_count
         self.programs = CompiledProgramCache(max_programs=1)
+
+    @property
+    def device(self) -> torch.device:
+        """The group's first device: inputs, outputs and the first replica."""
+        return self.devices[0]
+
+    @property
+    def dp(self) -> int:
+        """The largest power of two <= the group's size that divides the bucket."""
+        dp = 1
+        while dp * 2 <= len(self.devices) and self.batch_bucket % (dp * 2) == 0:
+            dp *= 2
+        return dp
 
     @property
     def loaded(self) -> bool:
@@ -92,16 +118,19 @@ class ViTEmbedder:
         with self._lock:
             if self._model is None:
                 model = self._build()
-                key = ("vit-embedder", str(self.device), str(self.model_overrides))
-                self._model = self.programs.get_or_compile(key, lambda: self._prepare(model))
+                group = ",".join(str(d) for d in self.devices[: self.dp])
+                key = ("vit-embedder", group, str(self.model_overrides))
+                self._replicas = self.programs.get_or_compile(key, lambda: self._prepare(model))
+                self._model = self._replicas[0]
 
-    def _prepare(self, model: ViT) -> ViT:
-        """The program: the built model once its kernels are loaded (on
-        the card, the flash kernel's library from the compile cache, built
-        with nvcc only if missing)."""
+    def _prepare(self, model: ViT) -> list:
+        """The program: the built model and its replicas on the group's
+        other devices, once the kernels are loaded (on the card, the flash
+        kernel's library from the compile cache, built with nvcc only if
+        missing; a launch selects its shard's device)."""
         if self.flash and self.device.type == "cuda":
             attention.load_kernel()
-        return model
+        return [model] + [copy.deepcopy(model).to(d) for d in self.devices[1 : self.dp]]
 
     def _build(self) -> ViT:
         kw = {"patch_size": 14, "dim": 768, "depth": 12, "num_heads": 12}
@@ -161,9 +190,15 @@ class ViTEmbedder:
         return self._forward(x)[:n]
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        dp = len(self._replicas)
+        if x.shape[0] % dp:
+            raise ValueError(f"a bucket of {x.shape[0]} rows does not split into dp={dp} shards")
         with self._lock, torch.inference_mode():
-            emb = self._model(x)
-            emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+            embs = []
+            for replica, shard, dev in zip(self._replicas, x.chunk(dp), self.devices):
+                emb = replica(shard.to(dev))
+                embs.append(emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9))
+            emb = embs[0] if dp == 1 else torch.cat([e.to(self.device) for e in embs])
             self.forward_count += 1
         return emb
 

@@ -73,6 +73,7 @@ class CellImageSearch:
         datasets_client: Any = None,
     ):
         self.device = resolve_device(device)
+        self.devices = [self.device]
         self.workspace_dir = Path(workspace_dir).expanduser()
         self.workspace_dir.mkdir(parents=True, exist_ok=True)
         self.embedder = ViTEmbedder(
@@ -96,13 +97,15 @@ class CellImageSearch:
     # ---- lifecycle hooks --------------------------------------------------
 
     async def async_init(self):
-        """The replica lifecycle injects the leased chip
-        (``bioengine_device_ids``) before this runs: the embedder, the
-        index and ingestion run on that card (``resolve_devices``: a lease
-        naming no such device is refused, never remapped)."""
+        """The replica lifecycle injects the leased chip group
+        (``bioengine_device_ids``) before this runs (``resolve_devices``: a
+        lease naming no such device is refused, never remapped). The
+        embedder is data parallel over the group; the index and ingestion
+        run on its first device."""
         lease = getattr(self, "bioengine_device_ids", None)
-        (self.device,) = resolve_devices(list(lease) if lease else None, self.device)
-        self.embedder.device = self.device  # the model loads on first use
+        self.devices = resolve_devices(list(lease) if lease else None, self.device)
+        self.device = self.devices[0]
+        self.embedder.devices = self.devices  # the model loads on first use
         await self._try_load_index()
 
     async def test_deployment(self):

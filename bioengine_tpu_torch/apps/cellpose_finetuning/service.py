@@ -1,7 +1,7 @@
 """Cellpose fine-tuning on PyTorch — training sessions, live inference, export.
 
 Counterpart of ``CellposeFinetune`` in ``apps/cellpose-finetuning/main.py``
-on one device, for every backbone the JAX app trains: ``"unet"``
+for every backbone the JAX app trains: ``"unet"``
 (``models/cellpose.py`` ``CellposeNet``), ``"sam"``
 (``models/cellpose_sam.py`` ``CellposeSAM``), ``"cpsam"``
 (``models/sam.py`` ``CpSAM``, the SAM ViT-L encoder of the pretrained
@@ -15,7 +15,11 @@ checked per batch, per-epoch snapshots as flat npz in flax names (the
 by an atomic rename, and restart from the latest snapshot.
 
 - Training runs ``make_train_step`` (``make_stardist_train_step`` for
-  stardist; ``torch.optim.AdamW``) in a thread on the app's device, over
+  stardist; ``torch.optim.AdamW``) in a thread, data parallel as the JAX
+  app trains (``parallel.data_parallel_step`` over ``replicate`` and
+  ``shard_batch``): dp is the largest power of two, at most the leased
+  devices, that divides ``batch_size`` (the JAX app counts its host's
+  chips; the port counts its lease), and the status reports ``mesh``; over
   batches drawn exactly as the JAX app draws them from
   ``np.random.default_rng(seed)``, flips included (for stardist they
   permute the rays). Targets come once per session from
@@ -37,8 +41,8 @@ served with 3-channel input. The service methods are the JAX app's ten
 ``@schema_method``s, with its docstrings (the published schemas are built
 from them) and ``context``, so the worker serves the app from its bundle
 (``apps/bundles/cellpose-finetuning``). ``async_init`` resolves the
-replica's lease: training, ``infer`` and ``infer_3d`` run on the leased
-card. Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+replica's lease: training runs over the leased devices, ``infer`` and
+``infer_3d`` on the first of them. Entry points run on ``cuda:0`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from bioengine_tpu_torch.models.cellpose import CellposeNet, TrainState, make_tr
 from bioengine_tpu_torch.models.cellpose_sam import CellposeSAM
 from bioengine_tpu_torch.models.sam import CpSAM
 from bioengine_tpu_torch.models.stardist import StarDist2D, make_stardist_train_step
+from bioengine_tpu_torch.parallel.data_parallel import data_parallel_step, replicate, shard_batch
+from bioengine_tpu_torch.parallel.mesh import make_mesh
 from bioengine_tpu_torch.ops.flows import (
     FLOW_SCALE,
     aggregate_orthogonal_flows,
@@ -371,6 +377,7 @@ class CellposeFinetune:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self.devices = [self.device]
         self.sessions_root = Path(sessions_root).expanduser()
         self.sessions_root.mkdir(parents=True, exist_ok=True)
         self.sessions: dict[str, TrainingSession] = {}
@@ -388,12 +395,14 @@ class CellposeFinetune:
         self._recover_sessions()
 
     async def async_init(self):
-        """The replica lifecycle injects the leased chip
-        (``bioengine_device_ids``) before this runs: training, ``infer`` and
-        ``infer_3d`` run on that card (``resolve_devices``: a lease naming
-        no such device is refused, never remapped)."""
+        """The replica lifecycle injects the leased chip group
+        (``bioengine_device_ids``) before this runs (``resolve_devices``: a
+        lease naming no such device is refused, never remapped): training
+        is data parallel over the group, ``infer`` and ``infer_3d`` run on
+        its first device."""
         lease = getattr(self, "bioengine_device_ids", None)
-        (self.device,) = resolve_devices(list(lease) if lease else None, self.device)
+        self.devices = resolve_devices(list(lease) if lease else None, self.device)
+        self.device = self.devices[0]
 
     @contextlib.asynccontextmanager
     async def _lifecycle_lock(self, session_id: str):
@@ -516,7 +525,12 @@ class CellposeFinetune:
                 f"{divisor} for this backbone config"
             )
         tile = (tile // divisor) * divisor
+        # dp over every leased device that divides the batch
         batch = cfg["batch_size"]
+        dp = 1
+        while dp * 2 <= len(self.devices) and batch % (dp * 2) == 0:
+            dp *= 2
+        mesh = make_mesh({"dp": dp}, self.devices[:dp])
 
         rng = np.random.default_rng(cfg["seed"])
         start_epoch = 0
@@ -537,8 +551,9 @@ class CellposeFinetune:
         if saved is not None:
             state.optimizer.load_state_dict(saved["optimizer"])
             state.step = int(saved["step"])
+        state = replicate(mesh, state)
         if stardist:
-            step = make_stardist_train_step()
+            step = data_parallel_step(make_stardist_train_step(), mesh)
             R = t_b.shape[-1]
             # flips permute ray indices: rays live at angles 2*pi*r/R with
             # direction (sin, cos); x -> -x maps theta to pi - theta (index
@@ -546,7 +561,7 @@ class CellposeFinetune:
             h_perm = (R // 2 - np.arange(R)) % R
             v_perm = (-np.arange(R)) % R
         else:
-            step = make_train_step()
+            step = data_parallel_step(make_train_step(), mesh)
 
         def sample_batch():
             # the JAX app's draws, in its order, so both apps see one stream
@@ -580,7 +595,7 @@ class CellposeFinetune:
             total_epochs=cfg["epochs"],
             current_epoch=start_epoch,
             steps_per_epoch=steps_per_epoch,
-            mesh={"dp": 1},
+            mesh={"dp": dp},
         )
         losses = session.read_status().get("losses", [])
         for epoch in range(start_epoch, cfg["epochs"]):
@@ -589,8 +604,8 @@ class CellposeFinetune:
                 if session.stop_requested():
                     session.write_status(status="stopped", current_epoch=epoch)
                     return
-                tensors = [torch.from_numpy(a).to(dev) for a in sample_batch()]
-                state, metrics = step(state, *tensors)
+                sharded = shard_batch(mesh, tuple(torch.from_numpy(a) for a in sample_batch()))
+                state, metrics = step(state, *sharded)
                 epoch_losses.append(float(metrics["loss"]))
             mean_loss = float(np.mean(epoch_losses))
             losses.append(mean_loss)

@@ -1,4 +1,4 @@
-"""Model-runner runtime: serves BioImage Model Zoo packages on one device.
+"""Model-runner runtime: serves BioImage Model Zoo packages on a device group.
 
 Counterpart of ``apps/model-runner/runtime_deployment.py``:
 
@@ -17,10 +17,12 @@ Counterpart of ``apps/model-runner/runtime_deployment.py``:
 - ``RuntimeDeployment`` keeps the pipeline LRU and the test-report cache
   keyed on weight mtimes, reports CUDA out-of-memory the way the
   reference does, and serves as a replica of the port's serving plane:
-  ``async_init`` takes the replica's chip lease (``bioengine_device_ids``)
-  and batching knobs (``bioengine_batch_config``), and concurrent
-  ``predict`` calls on one pipeline and per-item shape ride one engine
-  call through a ``ContinuousBatcher``.
+  ``async_init`` takes the replica's chip lease (``bioengine_device_ids``;
+  a lease of several chips builds data-parallel engines over them, the
+  torch formats run on the first) and batching knobs
+  (``bioengine_batch_config``), and concurrent ``predict`` calls on one
+  pipeline and per-item shape ride one engine call through a
+  ``ContinuousBatcher``.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``.
 """
@@ -101,8 +103,11 @@ class Pipeline:
         weights_format: Optional[str] = None,
         default_blocksize_parameter: Optional[int] = None,
         device: DeviceLike = None,
+        devices: Optional[list] = None,
     ):
-        self.device = resolve_device(device)
+        # the replica's device group: the engine's dp mesh; None = [device]
+        self.devices = list(devices) if devices else [resolve_device(device)]
+        self.device = self.devices[0]
         self.package_path = Path(package_path)
         # how this pipeline's weights landed (eager vs streamed, seconds)
         self.load_info: dict = {}
@@ -230,7 +235,7 @@ class Pipeline:
             divisor=getattr(model, "divisor", 1),
             z_divisor=getattr(model, "z_divisor", 1),
             config=config,
-            device=self.device,
+            devices=self.devices,
         )
         if manifest is not None:
             engine.begin_param_streaming()
@@ -469,14 +474,23 @@ class RuntimeDeployment:
 
     def mesh_info(self) -> dict:
         """The device group and each loaded engine's describe()."""
+        lease = getattr(self, "bioengine_device_ids", None)
         info: dict = {
-            "lease": [d.index or 0 for d in self._devices],
+            "lease": list(lease) if lease else [d.index or 0 for d in self._devices],
             "engines": {
                 self._status_key(k, p): p.engine.describe()
                 for k, p in self._pipelines.items()
             },
-            "mesh_shape": None,
         }
+        # the engines' mesh, or the shape the lease implies before the
+        # first pipeline loads; None on one device
+        shapes = [e.get("mesh") for e in info["engines"].values()]
+        if shapes:
+            info["mesh_shape"] = shapes[0]
+        elif len(self._devices) > 1:
+            info["mesh_shape"] = {"dp": len(self._devices)}
+        else:
+            info["mesh_shape"] = None
         return info
 
     async def close(self) -> None:
@@ -523,6 +537,7 @@ class RuntimeDeployment:
             weights_format,
             default_blocksize_parameter,
             self.device,
+            self._devices,
         )
         async with self._lock:
             existing = self._pipelines.get(key)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import weakref
 from typing import Any, Optional
 
 import httpx
@@ -35,6 +36,12 @@ class HttpZarrStore:
 
     ``base_url`` points at the dataset root served by the proxy server,
     e.g. ``http://host:port/data/my-dataset/images.zarr``.
+
+    A store that makes its own client keeps one client, and one request
+    semaphore, per event loop: an array opened on one loop may be read on
+    another (``ZarrBatchLoader`` reads on its own thread's), and a pooled
+    connection is bound to the loop that opened it. ``aclose`` closes the
+    calling loop's client. A client passed in is used as it is.
     """
 
     def __init__(
@@ -48,13 +55,28 @@ class HttpZarrStore:
         self.base_url = base_url.rstrip("/")
         self.token = token
         self.cache = cache if cache is not None else default_cache
-        self._semaphore = asyncio.Semaphore(max_concurrent)
+        self._max_concurrent = max_concurrent
         self._client = client
         self._owns_client = client is None
+        # per event loop: the store's own clients and the request semaphores
+        self._clients: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        self._semaphores: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    @property
+    def _semaphore(self) -> asyncio.Semaphore:
+        loop = asyncio.get_running_loop()
+        sem = self._semaphores.get(loop)
+        if sem is None:
+            sem = self._semaphores[loop] = asyncio.Semaphore(self._max_concurrent)
+        return sem
 
     def _get_client(self) -> httpx.AsyncClient:
-        if self._client is None or self._client.is_closed:
-            self._client = httpx.AsyncClient(
+        if not self._owns_client:
+            return self._client
+        loop = asyncio.get_running_loop()
+        client = self._clients.get(loop)
+        if client is None or client.is_closed:
+            client = self._clients[loop] = httpx.AsyncClient(
                 timeout=httpx.Timeout(60.0),
                 limits=httpx.Limits(
                     max_connections=MAX_CONNECTIONS,
@@ -66,11 +88,13 @@ class HttpZarrStore:
                     else {}
                 ),
             )
-        return self._client
+        return client
 
     async def aclose(self) -> None:
-        if self._owns_client and self._client is not None:
-            await self._client.aclose()
+        if self._owns_client:
+            client = self._clients.pop(asyncio.get_running_loop(), None)
+            if client is not None:
+                await client.aclose()
 
     def _url(self, key: str) -> str:
         return f"{self.base_url}/{key.lstrip('/')}"

@@ -14,7 +14,12 @@ yielded, and ``record_stream`` keeps the copy stream's allocator from
 handing a yielded tensor's memory to a later batch while the consumer
 still reads it. PyTorch's pinned-memory allocator records each copy on
 its stream, so a staging buffer is not reused before its copy is done.
-``sharding`` waits for the parallel layer (ROADMAP A10).
+
+With a ``sharding`` (a ``parallel.mesh.Placement``) each leaf is split on
+the host over the mesh, or copied whole to every entry for ``replicated``,
+and lands as ``shard_batch``'s structure (``Shards`` or ``Replicated``);
+each device of the mesh has its own copy stream and its own event, which
+that device's consumer stream waits on.
 """
 
 from __future__ import annotations
@@ -28,41 +33,34 @@ import numpy as np
 import torch
 
 from bioengine_tpu_torch.datasets.http_zarr_store import RemoteZarrArray
+from bioengine_tpu_torch.parallel.data_parallel import host_parts, place, tree_map
+from bioengine_tpu_torch.parallel.mesh import Placement
 from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
-
-
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``fn`` over the leaves of dicts, lists and tuples, as
-    ``jax.tree_util.tree_map`` walks them (None is an empty node)."""
-    if isinstance(tree, dict):
-        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
-    if isinstance(tree, (list, tuple)):
-        items = [_tree_map(fn, v) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    if tree is None:
-        return None
-    return fn(tree)
 
 
 def prefetch_to_device(
     iterator: Iterable[Any],
     size: int = 2,
     device: DeviceLike = None,
-    sharding: Optional[Any] = None,
+    sharding: Optional[Placement] = None,
 ) -> Iterator[Any]:
     """Wrap a host-batch iterator, keeping ``size`` batches in flight on
     device. Works on dicts, lists and tuples of numpy arrays. ``device``
     None is ``cuda:0`` (raising without CUDA); ``"cpu"`` yields plain
-    tensors, no stream involved."""
+    tensors, no stream involved. ``sharding`` places every leaf over its
+    mesh instead (``device`` is not used)."""
     if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...): the parallel layer is not "
-            "ported yet (ROADMAP A10)"
-        )
+        if all(d.type == "cpu" for d in sharding.mesh.devices):
+            put = lambda batch: (  # noqa: E731
+                tree_map(lambda x: place(sharding, np.array(x)), batch), None
+            )
+        else:
+            put = _ShardedCopy(sharding).put
+        return _prefetch(iter(iterator), size, put)
     dev = resolve_device(device)
     if dev.type == "cpu":
         put = lambda batch: (  # noqa: E731
-            _tree_map(lambda x: torch.from_numpy(np.array(x)), batch), None
+            tree_map(lambda x: torch.from_numpy(np.array(x)), batch), None
         )
     else:
         put = _CopyStream(dev).put
@@ -100,14 +98,55 @@ class _CopyStream:
             return host.to(self.device, non_blocking=True)
 
         with torch.cuda.stream(self.stream):
-            out = _tree_map(copy, batch)
+            out = tree_map(copy, batch)
             done = torch.cuda.Event()
             done.record(self.stream)
 
         def ready(tensors: Any) -> None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(done)
-            _tree_map(lambda t: t.record_stream(consumer), tensors)
+            tree_map(lambda t: t.record_stream(consumer), tensors)
+
+        return out, ready
+
+
+class _ShardedCopy:
+    """Host batches over a mesh: each leaf split on the host (or whole,
+    replicated), every part pinned and copied on its device's copy
+    stream."""
+
+    def __init__(self, placement: Placement):
+        self.placement = placement
+        self.streams = {d: torch.cuda.Stream(d) for d in dict.fromkeys(placement.mesh.devices)}
+
+    def put(self, batch: Any) -> tuple[Any, Callable[[Any], None]]:
+        mesh = self.placement.mesh
+        copied: list[torch.Tensor] = []
+
+        def copy(x):
+            kind, parts = host_parts(self.placement, np.ascontiguousarray(x))
+            pinned = {}
+            out = []
+            for part, dev in zip(parts, mesh.devices):
+                host = pinned.get(id(part))
+                if host is None:  # a replicated leaf is pinned once
+                    host = pinned[id(part)] = part.contiguous().pin_memory()
+                with torch.cuda.stream(self.streams[dev]):
+                    out.append(host.to(dev, non_blocking=True))
+            copied.extend(out)
+            return kind(out, mesh)
+
+        out = tree_map(copy, batch)
+        done = {}
+        for dev, stream in self.streams.items():
+            done[dev] = torch.cuda.Event()
+            done[dev].record(stream)
+
+        def ready(_: Any) -> None:
+            for dev, event in done.items():
+                torch.cuda.current_stream(dev).wait_event(event)
+            for t in copied:
+                t.record_stream(torch.cuda.current_stream(t.device))
 
         return out, ready
 
@@ -118,7 +157,8 @@ class ZarrBatchLoader:
     Reads ``batch_size`` leading-axis slices ahead of the consumer on a
     background thread running its own event loop (the training loop is
     synchronous code), then hands them to :func:`prefetch_to_device` on
-    ``device`` (None: ``cuda:0``; ``"cpu"``: plain tensors).
+    ``device`` (None: ``cuda:0``; ``"cpu"``: plain tensors), or over
+    ``sharding``'s mesh.
     """
 
     def __init__(
@@ -129,6 +169,7 @@ class ZarrBatchLoader:
         prefetch_batches: int = 2,
         drop_remainder: bool = True,
         device: DeviceLike = None,
+        sharding: Optional[Placement] = None,
     ):
         self.array = array
         self.batch_size = batch_size
@@ -137,7 +178,8 @@ class ZarrBatchLoader:
         )
         self.prefetch_batches = prefetch_batches
         self.drop_remainder = drop_remainder
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = sharding.mesh.devices[0] if sharding is not None else resolve_device(device)
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -195,5 +237,6 @@ class ZarrBatchLoader:
 
     def __iter__(self) -> Iterator[Any]:
         return prefetch_to_device(
-            self.host_batches(), size=self.prefetch_batches, device=self.device
+            self.host_batches(), size=self.prefetch_batches, device=self.device,
+            sharding=self.sharding,
         )

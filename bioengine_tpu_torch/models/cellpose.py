@@ -168,22 +168,46 @@ class TrainState:
         return cls(module, opt)
 
 
-def make_loss_train_step(loss_call: Callable):
+class LossTrainStep:
+    """A train step ``(state, images, *targets) -> (state, metrics)`` for
+    a ``loss_call(pred, *targets) -> (loss, parts)``, in two phases: the
+    gradients (forward, loss, backward) and the update (one optimiser
+    step). ``parallel.data_parallel_step`` runs the same ``loss_call`` and
+    ``update`` around a gradient phase of its own over several replicas."""
+
+    def __init__(self, loss_call: Callable):
+        self.loss_call = loss_call
+
+    def gradients(self, state: TrainState, images: torch.Tensor, *targets: torch.Tensor):
+        """Forward, loss and backward: the gradients land in
+        ``state.module``'s ``.grad``; returns (loss, parts)."""
+        state.module.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, parts = self.loss_call(state.module(images), *targets)
+        loss.backward()
+        return loss, parts
+
+    @staticmethod
+    def update(state: TrainState) -> None:
+        state.optimizer.step()
+        state.step += 1
+
+    @staticmethod
+    def metrics(loss: torch.Tensor, parts: dict) -> dict:
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    def __call__(self, state: TrainState, images: torch.Tensor, *targets: torch.Tensor):
+        loss, parts = self.gradients(state, images, *targets)
+        self.update(state)
+        return state, self.metrics(loss, parts)
+
+
+def make_loss_train_step(loss_call: Callable) -> LossTrainStep:
     """A train step ``(state, images, *targets) -> (state, metrics)`` for
     any ``loss_call(pred, *targets) -> (loss, parts)``: forward, loss,
     backward, one optimiser step. ``state`` is updated in place; metrics
     are detached device tensors ``{"loss", **parts}``."""
-
-    def step(state: TrainState, images: torch.Tensor, *targets: torch.Tensor):
-        state.module.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, parts = loss_call(state.module(images), *targets)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
-
-    return step
+    return LossTrainStep(loss_call)
 
 
 def make_train_step():

@@ -29,8 +29,11 @@ or a nested dict/list/tuple of tensors and numbers. The file format is
 ``torch.save``, read back with ``weights_only=True``; the port cannot
 read orbax's format and the JAX package cannot read this one. A restore
 puts every tensor onto the template's device and dtype (the optimizer's
-moments too) and returns the template, filled in. A mesh-sharded restore
-waits for the parallel layer (ROADMAP A10).
+moments too) and returns the template, filled in. A replicated template
+(``parallel.data_parallel.replicate``'s: a data-parallel train state, or
+replicas of a module or a tree) gets every replica filled, each on its own
+device of the mesh; a data-parallel state's one optimizer keeps its
+moments on the first. Such a state is saved as its first replica.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Any, Optional
 import torch
 
 from bioengine_tpu_torch.models.cellpose import TrainState
+from bioengine_tpu_torch.parallel.data_parallel import DataParallelTrainState, Replicated
 
 STATE_FILE = "state.pt"
 
@@ -81,6 +85,8 @@ def _fill(template: Any, saved: Any) -> Any:
 
 
 def _snapshot(state: Any) -> dict:
+    if isinstance(state, Replicated):
+        return _snapshot(state[0])
     if isinstance(state, TrainState):
         return {
             "kind": "train_state",
@@ -192,15 +198,7 @@ class CheckpointService:
         if not path.is_file():
             raise FileNotFoundError(f"no checkpoint at step {step} in {self.directory}")
         saved = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(template, TrainState):
-            template.module.load_state_dict(saved["module"])
-            template.optimizer.load_state_dict(saved["optimizer"])
-            template.step = saved["step"]
-            return template
-        if isinstance(template, torch.nn.Module):
-            template.load_state_dict(saved["module"])
-            return template
-        return _fill(template, saved["tree"])
+        return _restore(template, saved)
 
     def restore_latest(self, template: Any) -> Optional[Any]:
         """Restore the newest checkpoint, or None if the directory is
@@ -221,3 +219,20 @@ class CheckpointService:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _restore(template: Any, saved: dict) -> Any:
+    """``saved`` into ``template``, replica by replica for a replicated one."""
+    if isinstance(template, Replicated):
+        return Replicated([_restore(replica, saved) for replica in template], template.mesh)
+    if isinstance(template, TrainState):
+        template.module.load_state_dict(saved["module"])
+        template.optimizer.load_state_dict(saved["optimizer"])
+        template.step = saved["step"]
+        if isinstance(template, DataParallelTrainState):
+            template.sync_replicas()
+        return template
+    if isinstance(template, torch.nn.Module):
+        template.load_state_dict(saved["module"])
+        return template
+    return _fill(template, saved["tree"])

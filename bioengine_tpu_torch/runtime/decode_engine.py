@@ -27,7 +27,8 @@ single-token *steps* extends it:
 The bundled model is the deterministic seeded character-level
 transformer (vocab = 256 bytes) of the JAX package: pre-LN attention +
 MLP with tanh GELU, LayerNorm eps 1e-5, weight-tied logits. One device:
-a lease of several ids raises ``NotImplementedError`` (ROADMAP A10).
+a lease of several ids raises ``NotImplementedError`` (ROADMAP A10; the
+KV pool would have to be laid out per device).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bioengine_tpu_torch.parallel.mesh import MeshSpec
 from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
@@ -346,24 +348,6 @@ class _Program:
             return self.fn(**self.inputs)
 
 
-def _mesh_sizes(axes: Mapping[str, int], n_devices: int) -> dict[str, int]:
-    """Axis sizes of a mesh spec over ``n_devices`` (``-1`` = fill), with
-    the JAX ``MeshSpec.resolve`` errors."""
-    sizes = dict(axes)
-    fill = [k for k, v in sizes.items() if v == -1]
-    fixed = math.prod(v for v in sizes.values() if v != -1)
-    if n_devices % fixed:
-        raise ValueError(f"{n_devices} devices not divisible by fixed axes {sizes}")
-    if not fill:
-        if fixed != n_devices:
-            raise ValueError(f"Mesh {sizes} needs {fixed} devices, have {n_devices}")
-        return sizes
-    if len(fill) > 1:
-        raise ValueError("At most one axis may be -1")
-    sizes[fill[0]] = n_devices // fixed
-    return sizes
-
-
 class DecodeEngine:
     """Prefill + step execution on one device.
 
@@ -394,7 +378,7 @@ class DecodeEngine:
         self.cache = cache if cache is not None else default_program_cache
         self.devices = resolve_devices(device_ids, device)
         if mesh_axes is not None:
-            unknown = sorted(set(_mesh_sizes(mesh_axes, len(self.devices))) - {"dp"})
+            unknown = sorted(set(MeshSpec(dict(mesh_axes)).resolve(len(self.devices))) - {"dp"})
             if unknown:
                 # the decoder carries no tp sharding rules; a silent
                 # replicate would claim a tp axis it doesn't have
@@ -402,6 +386,14 @@ class DecodeEngine:
                     f"mesh_axes names unsupported decoder axes {unknown} "
                     "(DecodeEngine shards the step batch over 'dp' only)"
                 )
+        if len(self.devices) > 1:
+            # the KV pool lives on the engine's device and is read through
+            # the block table inside the step graph: sharding the step
+            # batch needs the pool laid out per device
+            raise NotImplementedError(
+                f"a decode engine over {len(self.devices)} devices: dp in "
+                "DecodeEngine is not ported yet (ROADMAP A10)"
+            )
         self.dp = len(self.devices)
         self.device = self.devices[0]
         host_params = params if params is not None else init_decoder_params(seed, config)

@@ -1,8 +1,8 @@
 """Device resolution for the port's entry points.
 
 Counterpart of ``bioengine_tpu/runtime/engine.py:resolve_devices`` and
-``mesh_cache_tag`` for one device: entry points run on the card unless the
-caller asks for the CPU, and never drop to the CPU on their own.
+``mesh_cache_tag``: entry points run on the card unless the caller asks
+for the CPU, and never drop to the CPU on their own.
 """
 
 from __future__ import annotations
@@ -38,35 +38,53 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda", index)
 
 
+# The CPU stands for this many host devices, ids 0..7: the width of the
+# forced host-device CPU mesh the JAX package is exercised on
+CPU_DEVICE_COUNT = 8
+
+
 def resolve_devices(
     device_ids: Optional[Sequence[int]], device: DeviceLike = None
 ) -> list[torch.device]:
     """A replica's leased device ids -> the engine's device group, on
     ``device``'s backend (``resolve_device`` rules).
 
-    Counterpart of ``bioengine_tpu/runtime/engine.py:resolve_devices`` for
-    one device: no lease means ``device``; a lease of one id must name a
-    device that exists (on the CPU, only id 0), and is refused otherwise,
-    as the JAX version refuses on a real backend: remapping would stack
-    disjoint leases onto one device. A lease of several ids needs the
-    parallel layer (ROADMAP A10)."""
+    Counterpart of ``bioengine_tpu/runtime/engine.py:resolve_devices``: no
+    lease means ``device``. On ``cuda`` a lease maps by index onto the
+    cards; an id with no card, a repeated id or a lease that only partly
+    matches raises: remapping would stack disjoint leases onto one card
+    while the controller's accounting shows them separate. On ``cpu``,
+    where torch has one device, the lease is matched against the ids
+    0..``CPU_DEVICE_COUNT - 1`` by the same rules, with JAX's CPU-only
+    width-preserving fallback for a lease none of whose ids exist; a lease
+    of N ids gives N entries of ``cpu``."""
     base = resolve_device(device)
     if not device_ids:
         return [base]
     ids = [int(i) for i in device_ids]
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"lease ids {ids}: a multi-device engine needs the parallel "
-            "layer, not yet ported (ROADMAP A10)"
-        )
-    (i,) = ids
-    count = torch.cuda.device_count() if base.type == "cuda" else 1
-    if not 0 <= i < count:
+    if len(set(ids)) != len(ids):
+        raise ValueError(f"lease ids {ids} repeat a device — refusing to stack a lease onto one chip")
+    cpu = base.type == "cpu"
+    local = list(range(CPU_DEVICE_COUNT if cpu else torch.cuda.device_count()))
+    matched = [i for i in ids if i in local]
+    if len(matched) == len(ids):
+        return [base if cpu else torch.device("cuda", i) for i in ids]
+    if matched:
         raise ValueError(
-            f"lease id {i} matches no local {base.type} device (ids "
-            f"0..{count - 1}); refusing to remap"
+            f"lease ids {ids} only partially match local device ids "
+            f"{local} — chip numbering conflict"
         )
-    return [torch.device("cuda", i) if base.type == "cuda" else base]
+    if not cpu:
+        raise ValueError(
+            f"lease ids {ids} match no local device ids {local} on a "
+            f"{base.type} backend — refusing to remap (disjoint leases would "
+            "stack onto the same chips); the width-preserving fallback is CPU-only"
+        )
+    if len(ids) > len(local):
+        raise ValueError(
+            f"lease names {len(ids)} chips but only {len(local)} local devices exist"
+        )
+    return [base] * len(ids)
 
 
 def mesh_cache_tag(dp: int, tp: int = 1) -> str:

@@ -1,4 +1,4 @@
-"""The inference engine: bucketed, tiled prediction over one device.
+"""The inference engine: bucketed, tiled prediction over a device group.
 
 Counterpart of ``bioengine_tpu/runtime/engine.py`` with the same contract:
 
@@ -24,8 +24,15 @@ A program is built per (model, bucket shape, dtype, placement):
   fails raises; nothing falls back to an eager forward.
 - on the CPU, the module's forward under ``torch.inference_mode()``.
 
-The engine holds an ``nn.Module`` (its params live inside it) on one
-device; multi-device meshes wait for the parallel layer (ROADMAP A10).
+The engine holds an ``nn.Module`` (its params live inside it). Over a
+device group of N (a lease of N chips, or an explicit device list) it is a
+dp = N mesh, one process driving the group, as a JAX engine drives its
+mesh: every device holds a replica of the module, batch buckets are
+multiples of N, and each staged chunk splits on the host into N equal
+shards. Each shard is copied to its device and runs there: on the card it
+replays its own CUDA graph, captured on that device, and the shards'
+outputs come back into one pinned host buffer in shard order. An engine
+on one device is the single-device engine, the same programs bit for bit.
 Zero-padding to buckets perturbs models whose normalisation uses
 spatially global statistics (GroupNorm): padded zeros enter the moments,
 as in the JAX engine. Feed exact bucket sizes when bit-faithful outputs
@@ -34,12 +41,13 @@ matter.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import os
 import threading
 import time
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,9 +61,11 @@ from bioengine_tpu_torch.runtime.buckets import (
     fill_bucketed,
     pad_to,
 )
+from bioengine_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
     mesh_cache_tag,
+    resolve_device,
     resolve_devices,
 )
 from bioengine_tpu_torch.runtime.pipeline import (
@@ -122,28 +132,35 @@ class _Done:
 
 class _Readback:
     """A launch in flight on the card: ``result`` waits for its
-    device-to-host copy and returns the pinned host buffer as numpy."""
+    device-to-host copies (one per device of the group) and returns the
+    pinned host buffer as numpy."""
 
-    def __init__(self, host: torch.Tensor, done: torch.cuda.Event):
+    def __init__(self, host: torch.Tensor, done: list):
         self._host, self._done = host, done
 
     def result(self) -> np.ndarray:
-        self._done.synchronize()
+        for event in self._done:
+            event.synchronize()
         return self._host.numpy()
 
 
 class _ForwardProgram:
-    """CPU program: the module's forward on a view of the staged chunk."""
+    """CPU program: the module's forward on a view of the staged chunk;
+    over a group, each replica's forward on its equal shard of it."""
 
-    def __init__(self, module: nn.Module):
-        self.module = module
+    def __init__(self, replicas: list):
+        self.replicas = replicas
 
     def put(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(host)
 
     def launch(self, x: torch.Tensor) -> _Done:
         with torch.inference_mode():
-            y = self.module(x)
+            if len(self.replicas) == 1:
+                y = self.replicas[0](x)
+            else:
+                shards = x.chunk(len(self.replicas))
+                y = torch.cat([m(s) for m, s in zip(self.replicas, shards)])
         if y.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
             y = y.clone()  # the staging buffer goes back to its pool
         return _Done(y.numpy())
@@ -160,14 +177,40 @@ class _GraphProgram:
             self.static_in.copy_(torch.from_numpy(host), non_blocking=True)
         return self.static_in
 
-    def launch(self, x: torch.Tensor) -> _Readback:
+    def replay_into(self, host: torch.Tensor) -> torch.cuda.Event:
+        """Replay on the device's current stream and copy the output into
+        ``host`` (pinned) behind it; the event marks the copy's end."""
         out = self.static_out
         with torch.cuda.device(out.device):
             self.graph.replay()
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
+        return done
+
+    def launch(self, x: torch.Tensor) -> _Readback:
+        out = self.static_out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        return _Readback(host, [self.replay_into(host)])
+
+
+class _ShardedGraphProgram:
+    """Card program over a device group: one graph per shard, each
+    captured on its device; the outputs land in one pinned host buffer in
+    shard order."""
+
+    def __init__(self, shards: list):
+        self.shards = shards
+
+    def put(self, host: np.ndarray) -> list:
+        rows = host.shape[0] // len(self.shards)
+        return [p.put(host[i * rows : (i + 1) * rows]) for i, p in enumerate(self.shards)]
+
+    def launch(self, x: list) -> _Readback:
+        out = self.shards[0].static_out
+        rows = out.shape[0]
+        host = torch.empty((rows * len(self.shards), *out.shape[1:]), dtype=out.dtype, pin_memory=True)
+        done = [p.replay_into(host[i * rows : (i + 1) * rows]) for i, p in enumerate(self.shards)]
         return _Readback(host, done)
 
 
@@ -196,16 +239,47 @@ class InferenceEngine:
         config: Optional[EngineConfig] = None,
         cache: Optional[CompiledProgramCache] = None,
         device: DeviceLike = None,
+        devices: Optional[Sequence[DeviceLike]] = None,
         device_ids: Optional[Sequence[int]] = None,
+        mesh_axes: Optional[Mapping[str, int]] = None,
     ):
         self.model_id = model_id
         self.divisor = divisor
         self.z_divisor = z_divisor
         self.config = config or EngineConfig()
         self.cache = cache if cache is not None else default_program_cache
-        self.devices = resolve_devices(device_ids, device)
+        # ---- device group -> mesh: explicit devices (which may repeat one)
+        # > lease ids > ``device``
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            self.device_ids = [d.index or 0 for d in self.devices]
+        else:
+            self.devices = resolve_devices(device_ids, device)
+            self.device_ids = [int(i) for i in device_ids] if device_ids else [self.devices[0].index or 0]
+        n = len(self.devices)
+        if mesh_axes is not None:
+            # a hardware-neutral axes spec ({"dp": -1}) resolved over the
+            # group this engine got, as the JAX engine resolves it
+            sizes = MeshSpec(dict(mesh_axes)).resolve(n)
+            unknown = sorted(set(sizes) - {"dp", "tp"})
+            if unknown:
+                raise ValueError(
+                    f"mesh_axes names unsupported engine axes {unknown} "
+                    "(an InferenceEngine shards batches over 'dp' and "
+                    "weights over 'tp'; pipeline stages live ABOVE the "
+                    "engine, in the cross-host plan)"
+                )
+            if sizes.get("tp", 1) > 1:
+                raise NotImplementedError(
+                    f"mesh_axes {dict(mesh_axes)}: tensor parallelism is not "
+                    "ported yet (ROADMAP A10b)"
+                )
+        self.dp = n
         self.device = self.devices[0]
+        # the one-device "mesh" is the single-device path: same programs
+        self.mesh = make_mesh({"dp": n}, self.devices) if n > 1 else None
         self.module = module.to(self.device).eval().requires_grad_(False)
+        self.replicas = [self.module] + [copy.deepcopy(self.module).to(d) for d in self.devices[1:]]
         self.pipeline_stats = PipelineStats(depth=self.config.pipeline_depth)
         self._staging_pool = StagingPool(pinned=self.device.type == "cuda")
         self._dispatcher = DispatchExecutor(f"dispatch-{model_id}")
@@ -226,22 +300,23 @@ class InferenceEngine:
 
     @property
     def mesh_shape(self) -> Optional[dict[str, int]]:
-        """None: the port's engine runs on one device."""
-        return None
+        """{"dp": N} over a group, None on one device."""
+        return self.mesh.shape if self.mesh is not None else None
 
     @property
     def _mesh_key(self) -> str:
-        return mesh_cache_tag(len(self.devices))
+        return mesh_cache_tag(self.dp)
 
     @property
     def _placement_key(self) -> str:
         """Program identity: the group's shape, its devices and this
-        engine's module. A captured graph reads the module's parameter
+        engine's replicas. A captured graph reads its replica's parameter
         addresses, so engines never share a program, even under one
-        ``model_id`` (the cache entry holds the module, so its id is not
-        reused while the entry lives)."""
+        ``model_id`` (the cache entry holds the replicas, so their ids are
+        not reused while the entry lives)."""
         devices = ",".join(str(d) for d in self.devices)
-        return f"{self._mesh_key}@{devices}#{id(self.module):x}"
+        replicas = ",".join(f"{id(m):x}" for m in self.replicas)
+        return f"{self._mesh_key}@{devices}#{replicas}"
 
     # ---- streamed weight loading --------------------------------------------
 
@@ -257,9 +332,10 @@ class InferenceEngine:
         (addresses unchanged, so captured graphs stay valid) and release
         gated predictions."""
         with self._params_lock, torch.no_grad():
-            self.module.load_state_dict(state_dict)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for replica, dev in zip(self.replicas, self.devices):
+                replica.load_state_dict(state_dict)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         self._params_ready.set()
 
     def fail_param_streaming(self, exc: BaseException) -> None:
@@ -295,12 +371,13 @@ class InferenceEngine:
     def describe(self) -> dict:
         """Device group, memory and per-program build cost."""
         per_chip = {}
-        for d in self.devices:
+        stacked = len(set(self.devices)) < len(self.devices)
+        for i, d in enumerate(self.devices):
             entry: dict[str, Any] = {"platform": d.type}
             if d.type == "cuda":
                 entry["bytes_in_use"] = torch.cuda.memory_allocated(d)
                 entry["bytes_limit"] = torch.cuda.get_device_properties(d).total_memory
-            per_chip[str(d)] = entry
+            per_chip[f"{d}#{i}" if stacked else str(d)] = entry
         mine = {
             k: v
             for k, v in self.cache.compile_info_snapshot().items()
@@ -309,7 +386,7 @@ class InferenceEngine:
         cache_stats = self.cache.stats_dict()
         real_compiles = [v["seconds"] for v in mine.values() if not v["cache_hit"]]
         return {
-            "device_ids": [d.index or 0 for d in self.devices],
+            "device_ids": list(self.device_ids),
             "n_devices": len(self.devices),
             "mesh": self.mesh_shape,
             "per_chip": per_chip,
@@ -348,26 +425,37 @@ class InferenceEngine:
     def _program(self, shape: tuple[int, ...], dtype):
         shape = tuple(int(s) for s in shape)
         if self.device.type == "cuda":
-            build = lambda: self._capture(shape, dtype)  # noqa: E731
+            build = lambda: self._capture_group(shape, dtype)  # noqa: E731
         else:
-            build = lambda: _ForwardProgram(self.module)  # noqa: E731
+            build = lambda: _ForwardProgram(self.replicas)  # noqa: E731
         return self.cache.get_or_compile(self.program_key(shape, dtype), build)
 
-    def _capture(self, shape: tuple[int, ...], dtype) -> _GraphProgram:
-        dev = self.device
+    def _capture_group(self, shape: tuple[int, ...], dtype):
+        """One graph on one device; over a group, one graph per shard,
+        each captured on its own device."""
+        if self.dp == 1:
+            return self._capture(shape, dtype, self.module, self.device)
+        if shape[0] % self.dp:
+            raise ValueError(f"batch {shape[0]} does not split into dp={self.dp} equal shards")
+        shard = (shape[0] // self.dp, *shape[1:])
+        return _ShardedGraphProgram(
+            [self._capture(shard, dtype, m, d) for m, d in zip(self.replicas, self.devices)]
+        )
+
+    def _capture(self, shape: tuple[int, ...], dtype, module: nn.Module, dev: torch.device) -> _GraphProgram:
         with CAPTURE_LOCK, self._params_lock, torch.cuda.device(dev), torch.no_grad():
             static_in = torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(GRAPH_WARMUP_ITERS):
-                    self.module(static_in)
+                    module(static_in)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             # thread_local: other threads (another engine's pipeline, a
             # weight loader) may use CUDA while this thread captures
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                static_out = self.module(static_in)
+                static_out = module(static_in)
             torch.cuda.synchronize(dev)
         return _GraphProgram(graph, static_in, static_out)
 
@@ -384,7 +472,7 @@ class InferenceEngine:
     def warmup(self, shapes: list[tuple[int, ...]], dtype=np.float32):
         for shape in shapes:
             B, *rest = shape
-            self._program((bucket_batch(B), *rest), dtype)
+            self._program((bucket_batch(B, multiple_of=self.dp), *rest), dtype)
 
     # ---- prediction ---------------------------------------------------------
 
@@ -494,7 +582,7 @@ class InferenceEngine:
             bucket_dim(size, spec.ladder, spec.divisor)
             for size, spec in zip(spatial, specs)
         )
-        bb = bucket_batch(B)
+        bb = bucket_batch(B, multiple_of=self.dp)
         staged = self._staging_pool.acquire((bb, *buckets, C), x.dtype)
         fill_bucketed(staged, x)
         program = self._program(staged.shape, staged.dtype)
@@ -608,7 +696,7 @@ class InferenceEngine:
         # no graph capture runs beside the staging thread
         for n in sorted({i1 - i0 for _, i0, i1 in descs}):
             self._program(
-                (bucket_batch(n), *buckets, C), images.dtype
+                (bucket_batch(n, multiple_of=self.dp), *buckets, C), images.dtype
             )
         pool = self._staging_pool
         stats = self.pipeline_stats
@@ -619,7 +707,7 @@ class InferenceEngine:
             n = i1 - i0
             item = images[b]
             buf = pool.acquire(
-                (bucket_batch(n), *buckets, C), images.dtype
+                (bucket_batch(n, multiple_of=self.dp), *buckets, C), images.dtype
             )
             tile_region = tuple(slice(0, t) for t in tsizes)
             for j, start in enumerate(coords[i0:i1]):

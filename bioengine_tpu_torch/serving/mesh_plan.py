@@ -177,9 +177,10 @@ class MeshConfig:
     def mesh_shape(self, n_devices_per_stage: Optional[int] = None) -> dict:
         """Logical shape for status surfaces: the stage axis plus the
         per-stage axes resolved over one lease."""
-        raise NotImplementedError(
-            "a mesh shape needs the parallel layer's VirtualMeshSpec, "
-            "not yet ported (ROADMAP A10)"
+        from bioengine_tpu_torch.parallel.mesh import VirtualMeshSpec
+
+        return VirtualMeshSpec(stages=self.stages, axes=self.axes).shape(
+            n_devices_per_stage or self.chips_per_stage
         )
 
 

@@ -258,8 +258,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    uninterrupted step 5 bit for bit; a step taken right after ``save``
    leaves the checkpoint as saved; ``save``'s return and commit ms and the
    bytes a step; one ``checkpoints`` JSON line;
-19. one JSON line of the kernels' numbers;
-20. the result line ``{"ok": true, "device": {...}}``, printed last.
+19. data parallelism (slice 14), ``phase_data_parallel``: (a) dp = 1
+   through the mesh code on ``cuda:0`` (``make_mesh({"dp": 1})``), bit for
+   bit the single-device path: the UNet2D (32, 64, 128, 256) bf16 engine
+   on 8 x 512^2 and a tiled 2048^2 (512/64), the ViT-B/14 bf16 embedder on
+   a bucket of 64, and 3 CellposeNet (32, 64, 128, 256) steps at 8 x 256^2
+   (``data_parallel_step`` against ``make_train_step``, cuDNN
+   deterministic); (b) a stacked dp = 2 mesh ``[cuda:0, cuda:0]`` from an
+   explicit ``make_mesh``, each shard a replica with a CUDA graph of its
+   own: the engine within phase 7's bf16 bound, 24 flash launches per
+   bucket forward (12 per shard, also counted in a ``torch.profiler``
+   trace) with embeddings within phase 4's min cosine, 5 dp CellposeNet
+   steps with losses within the bf16 tolerance, their batches streamed by
+   ``prefetch_to_device(sharding=)`` (a copy stream per device) equal to
+   ``shard_batch``'s, the replicas equal bit for bit after every step and
+   a ``CheckpointService`` save restored onto a fresh dp state bit for
+   bit; (c) ``resolve_devices([0], "cuda")``, and a
+   two-id lease refused on a one-card machine; ms per request, images/s
+   and ms per step for each; one ``data_parallel`` JSON line;
+20. one JSON line of the kernels' numbers;
+21. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -364,6 +382,10 @@ from bioengine_tpu_torch.runtime.convert import (
 )
 from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
 from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
+from bioengine_tpu_torch.runtime.devices import resolve_devices
+from bioengine_tpu_torch.runtime.engine import InferenceEngine, _tile_starts
+from bioengine_tpu_torch.parallel.data_parallel import Shards, data_parallel_step, replicate, shard_batch
+from bioengine_tpu_torch.parallel.mesh import make_mesh, sharding
 from bioengine_tpu_torch.runtime.decode_engine import (
     DecodeEngine,
     DecoderConfig,
@@ -5355,13 +5377,10 @@ class _LoopThread:
 
 async def _open_rows(url: str) -> RemoteZarrArray:
     """The dataset's array, over a fresh chunk cache (each run reads every
-    chunk over HTTP), with the store's client closed: the loader reads on
-    its own thread's event loop, where a connection pooled on this loop
-    cannot be used."""
+    chunk over HTTP). The loader reads on its own thread's event loop,
+    through a client the store keeps for that loop."""
     store = HttpZarrStore(url, cache=ChunkCache())
-    arr = await RemoteZarrArray.open(store, "rgb")
-    await store.aclose()
-    return arr
+    return await RemoteZarrArray.open(store, "rgb")
 
 
 def _stream_embed(source, embedder: ViTEmbedder, mode: str, device: str) -> tuple[torch.Tensor, float]:
@@ -5621,6 +5640,262 @@ def phase_checkpoints(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 14: data parallelism -----------------------------------------------
+
+DP_UNET_FEATURES = UNET2D_FEATURES  # the registry's default, bf16
+DP_DIRECT = (8, 512)  # a direct request of 8 x 512^2
+DP_TILED = 2048  # a tiled request: 25 tiles of 512 at overlap 64
+DP_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width, bf16, bucket BUCKET
+DP_CELLPOSE_FEATURES = CELLPOSE_FEATURES
+DP_STEPS_DP1 = 3  # CellposeNet steps at dp = 1, bit for bit the single-device step
+DP_STEPS = 5  # CellposeNet steps at the stacked dp = 2, a save and restore among them
+DP_SAVE_AT = 3
+DP_REPEATS = 5  # timed requests, bucket forwards and steps per reading
+# the stacked dp = 2 mesh runs each shard at half the batch, so cuDNN and
+# cuBLAS may pick other algorithms than at the whole batch: its engine is
+# held to phase_model_runner's bf16 bound (MR_BF16_VS_F32 of the largest
+# output), its embeddings to phase_main_path's min cosine, its losses to
+# the bf16 tolerance of the kernel checks, relative
+DP_EMBED_MIN_COS = 0.999
+DP_LOSS_RTOL = TOLERANCE[torch.bfloat16][0]
+
+
+def _dp_requests(engine, direct: np.ndarray, tiled: np.ndarray, device: str) -> tuple[dict, dict]:
+    """The engine's outputs for the direct and the tiled request, and the
+    host ms of each (mean of DP_REPEATS after the first call)."""
+    outs, ms = {}, {}
+    for key, x in (("direct", direct), ("tiled", tiled)):
+        outs[key] = engine.predict(x)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(DP_REPEATS):
+            engine.predict(x)
+        _sync(device)
+        ms[key] = (time.perf_counter() - t0) * 1e3 / DP_REPEATS
+    return outs, ms
+
+
+def _dp_trace_flash(card: str, fn, device: str, path: str) -> int:
+    """``flash_attn`` kernel events in a ``torch.profiler`` trace of ``fn``:
+    the active step of a schedule whose warm-up step runs ``fn`` once
+    before (a trace misses kernels that start right at the profiler's
+    start: PR 15's prefetch runs)."""
+    if device != "cuda":
+        return 0
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: p.export_chrome_trace(path),
+    ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel" and "flash_attn" in e.get("name", ""))
+
+
+def _replicas_equal(state) -> bool:
+    first = list(state.replicas[0].parameters())
+    return all(torch.equal(a, b) for r in state.replicas[1:] for a, b in zip(first, r.parameters()))
+
+
+def phase_data_parallel(card: str, device: str = "cuda") -> dict:
+    """Slice 14: the parallel layer's data parallelism through the entry
+    points, at full width: (a) dp = 1 through the mesh code on the card,
+    bit for bit the single-device path, for the UNet2D engine, the ViT-B/14
+    embedder and CellposeNet steps; (b) a stacked dp = 2 mesh [cuda:0,
+    cuda:0] from an explicit ``make_mesh``, each shard a replica of its
+    own, against (a); (c) lease resolution on this machine's cards. One
+    ``data_parallel`` JSON line."""
+    t_phase = time.perf_counter()
+    dev0 = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    mesh1 = make_mesh({"dp": 1}, [dev0])
+    mesh2 = make_mesh({"dp": 2}, [dev0, dev0])
+    rng = np.random.default_rng(SEED + 14)
+    r: dict = {"mesh1": mesh1.shape, "mesh2": mesh2.shape}
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    attention.launch_count = 0
+    try:
+        # -- the UNet2D engine: a direct 8 x 512^2 and a tiled 2048^2 request
+        unet = UNet2D(features=DP_UNET_FEATURES)
+        unet.reset_parameters(SEED)
+        n, size = DP_DIRECT
+        direct = rng.standard_normal((n, size, size, 1), np.float32)
+        tiled = rng.standard_normal((1, DP_TILED, DP_TILED, 1), np.float32)
+        engines = {
+            "single": InferenceEngine("dp-unet", unet, divisor=unet.divisor, cache=CompiledProgramCache(),
+                                      device=device),
+            "dp1": InferenceEngine("dp-unet", unet, divisor=unet.divisor, cache=CompiledProgramCache(),
+                                   devices=mesh1.devices),
+            "dp2": InferenceEngine("dp-unet", unet, divisor=unet.divisor, cache=CompiledProgramCache(),
+                                   devices=mesh2.devices),
+        }
+        unet_out, unet_ms = {}, {}
+        try:
+            for key, engine in engines.items():
+                unet_out[key], unet_ms[key] = _dp_requests(engine, direct, tiled, device)
+            check(engines["dp2"].mesh_shape == {"dp": 2} and engines["dp1"].mesh_shape is None,
+                  f"engine meshes {engines['dp2'].mesh_shape}, {engines['dp1'].mesh_shape}")
+            programs = sorted(k[1] for k in engines["dp2"].cache.keys())
+            cfg = engines["dp2"].config
+            n_tiles = len(_tile_starts(DP_TILED, cfg.tile, cfg.tile_overlap)) ** 2
+            chunks = [min(cfg.tile_batch, n_tiles - i) for i in range(0, n_tiles, cfg.tile_batch)]
+            want = sorted({bucket_batch(b, multiple_of=2) for b in [n, *chunks]})
+            check(programs == want, f"the dp = 2 engine's batch buckets {programs}, expected {want}")
+            r["unet_dp2_programs"] = programs
+        finally:
+            for engine in engines.values():
+                engine.close()
+        for key in ("direct", "tiled"):
+            ref = unet_out["single"][key]
+            check(np.array_equal(unet_out["dp1"][key], ref), f"UNet {key}: dp = 1 through the mesh differs from "
+                  f"the single-device engine by {np.abs(unet_out['dp1'][key] - ref).max()}")
+            err = float(np.abs(unet_out["dp2"][key] - ref).max())
+            bound = MR_BF16_VS_F32 * float(np.abs(ref).max())
+            check(unet_out["dp2"][key].shape == ref.shape and err <= bound,
+                  f"UNet {key}: stacked dp = 2 vs one device max abs {err} over {bound}")
+            r[f"unet_{key}_dp2_err"], r[f"unet_{key}_bound"] = err, bound
+        r["unet_ms"] = unet_ms
+        print(f"[{card}] data parallel: UNet2D {DP_UNET_FEATURES} bf16, {n} x {size}^2 direct and {DP_TILED}^2 "
+              f"tiled (512/64): dp = 1 through the mesh equal to the single-device engine bit for bit; stacked "
+              f"dp = 2 [{dev0}, {dev0}] max abs {r['unet_direct_dp2_err']:.4g} direct, "
+              f"{r['unet_tiled_dp2_err']:.4g} tiled (bounds {r['unet_direct_bound']:.4g}, "
+              f"{r['unet_tiled_bound']:.4g}); ms per request (host, mean of {DP_REPEATS}) " + json.dumps(
+                  {k: {q: round(v, 3) for q, v in ms.items()} for k, ms in unet_ms.items()}))
+
+        # -- the ViT-B/14 embedder, a bucket of BUCKET rows
+        x = model_input(torch.from_numpy(rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8)).to(dev0))
+        embedders = {
+            "single": ViTEmbedder(device=device, seed=SEED, batch_bucket=BUCKET, model_overrides=DP_VIT),
+            "dp1": ViTEmbedder(devices=mesh1.devices, seed=SEED, batch_bucket=BUCKET, model_overrides=DP_VIT),
+            "dp2": ViTEmbedder(devices=mesh2.devices, seed=SEED, batch_bucket=BUCKET, model_overrides=DP_VIT),
+        }
+        emb, per_forward, images_per_s = {}, {}, {}
+        for key, e in embedders.items():
+            emb[key] = e.embed_tensor(x)
+            before = attention.launch_count
+            e.embed_tensor(x)
+            per_forward[key] = attention.launch_count - before
+            images_per_s[key] = BUCKET / (_device_ms(device, lambda: e.embed_tensor(x), iters=DP_REPEATS) / 1e3)
+        check(embedders["dp2"].dp == 2 and len(embedders["dp2"]._replicas) == 2, "the stacked embedder's dp")
+        depth = DP_VIT.get("depth", VIT_DEPTH)
+        want = {"single": depth, "dp1": depth, "dp2": 2 * depth} if device == "cuda" else dict.fromkeys(emb, 0)
+        check(per_forward == want, f"flash_attn_fwd launches per bucket forward {per_forward}, expected {want}")
+        check(torch.equal(emb["dp1"], emb["single"]), "ViT: dp = 1 through the mesh differs from one device")
+        cos = float((emb["dp2"].float() * emb["single"].float()).sum(-1).min())
+        check(emb["dp2"].shape == emb["single"].shape and cos >= DP_EMBED_MIN_COS,
+              f"ViT: stacked dp = 2 min cosine {cos} to one device, bound {DP_EMBED_MIN_COS}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+            traced = _dp_trace_flash(card, lambda: embedders["dp2"].embed_tensor(x), device,
+                                     os.path.join(root, "dp2-forward.json"))
+        check(traced == want["dp2"], f"{traced} flash_attn kernel events in the trace of one stacked dp = 2 "
+              f"bucket forward, expected {want['dp2']}")
+        r.update(vit_launches_per_forward=per_forward, vit_traced_flash_events=traced, vit_dp2_min_cos=cos,
+                 vit_images_per_s=images_per_s)
+        del embedders
+        print(f"[{card}] data parallel: ViT-B/14 bf16, bucket {BUCKET}: dp = 1 through the mesh equal to one "
+              f"device bit for bit; stacked dp = 2 min cosine {cos:.6f} (bound {DP_EMBED_MIN_COS}); flash_attn_fwd "
+              f"launches per bucket forward {per_forward}, {traced} flash_attn kernels in the profiler trace of "
+              f"one stacked forward; images/s (CUDA events, {DP_REPEATS} forwards) "
+              f"{json.dumps({k: round(v, 3) for k, v in images_per_s.items()})}")
+
+        # -- CellposeNet steps, 8 x 256^2
+        cfg = CellposeConfig(features=DP_CELLPOSE_FEATURES)
+        nb, tile = CELLPOSE_CFG["batch_size"], CELLPOSE_CFG["tile"]
+        # images and cell probabilities of synthetic fields; the flow
+        # targets are drawn from the phase's seed (this step parity needs
+        # no masks_to_flows, which raises on a one-pixel instance: ROADMAP C1)
+        images, masks = synthetic_cell_fields(nb, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED + 14)
+        bi = np.ascontiguousarray(CellposeFinetune._prepare_images(list(images))[:, :tile, :tile])
+        bf = rng.uniform(-1, 1, (nb, tile, tile, 2)).astype(np.float32)
+        bp = (masks[:, :tile, :tile] > 0).astype(np.float32)
+        host_batches = [[np.roll(a, i, 0) for a in (bi, bf, bp)] for i in range(DP_STEPS)]
+        batches = [[torch.from_numpy(a).to(dev0) for a in hb] for hb in host_batches]
+        # the dp = 2 steps take their batches from the prefetch, placed over
+        # the mesh (pinned staging and a copy stream per device)
+        streamed = prefetch_to_device(iter(host_batches), size=2, sharding=sharding(mesh2, "dp"))
+        _, single = create_model_and_state(cfg, seed=SEED, device=device)
+        single_step = make_train_step()
+        _, s1 = create_model_and_state(cfg, seed=SEED, device=device)
+        dp1, dp1_step = replicate(mesh1, s1), data_parallel_step(make_train_step(), mesh1)
+        _, s2 = create_model_and_state(cfg, seed=SEED, device=device)
+        dp2, dp2_step = replicate(mesh2, s2), data_parallel_step(make_train_step(), mesh2)
+        losses: dict = {"single": [], "dp1": [], "dp2": []}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_ckpt_") as root, \
+                CheckpointService(os.path.join(root, "dp2")) as ckpt:
+            for i in range(DP_STEPS):
+                losses["single"].append(float(single_step(single, *batches[i])[1]["loss"]))
+                if i < DP_STEPS_DP1:
+                    losses["dp1"].append(float(dp1_step(dp1, *batches[i])[1]["loss"]))
+                    check(losses["dp1"][i] == losses["single"][i] and all(
+                        torch.equal(a, b) for a, b in zip(single.module.parameters(), dp1.module.parameters())),
+                        f"CellposeNet step {i + 1}: dp = 1 through the mesh differs from the single step")
+                if i == DP_SAVE_AT:
+                    check(ckpt.save(dp2.step, dp2), "the dp state's save was skipped")
+                    saved = _state_on_host(dp2)
+                placed = next(streamed)
+                check(all(isinstance(leaf, Shards) and all(torch.equal(a, b) for a, b in zip(leaf, ref))
+                          for leaf, ref in zip(placed, shard_batch(mesh2, batches[i]))),
+                      f"CellposeNet step {i + 1}: the prefetched batch differs from shard_batch's")
+                losses["dp2"].append(float(dp2_step(dp2, *placed)[1]["loss"]))
+                check(_replicas_equal(dp2), f"CellposeNet step {i + 1}: the dp = 2 replicas differ")
+                rel = abs(losses["dp2"][i] - losses["single"][i]) / abs(losses["single"][i])
+                check(np.isfinite(losses["dp2"][i]) and rel <= DP_LOSS_RTOL,
+                      f"CellposeNet step {i + 1}: stacked dp = 2 loss {losses['dp2'][i]} vs one device "
+                      f"{losses['single'][i]} (rel {rel}, bound {DP_LOSS_RTOL})")
+            _, fresh = create_model_and_state(cfg, seed=SEED + 1, device=device)
+            restored = ckpt.restore(DP_SAVE_AT, replicate(mesh2, fresh))
+            check(_states_equal(_state_on_host(restored), saved) and _replicas_equal(restored),
+                  f"the dp = 2 state restored from step {DP_SAVE_AT} differs from the state saved there")
+        r["step_losses"] = losses
+        r["step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses["dp2"], losses["single"]))
+        step_ms = {
+            "single": _device_ms(device, lambda: single_step(single, *batches[0]), iters=DP_REPEATS),
+            "dp1": _device_ms(device, lambda: dp1_step(dp1, *batches[0]), iters=DP_REPEATS),
+            "dp2": _device_ms(device, lambda: dp2_step(dp2, *batches[0]), iters=DP_REPEATS),
+        }
+        r["step_ms"] = step_ms
+        print(f"[{card}] data parallel: CellposeNet {DP_CELLPOSE_FEATURES} bf16, {nb} x {tile}^2 (cuDNN "
+              f"deterministic): {DP_STEPS_DP1} steps at dp = 1 through the mesh equal to the single-device step "
+              f"bit for bit; {DP_STEPS} stacked dp = 2 steps, losses {losses['dp2']} against {losses['single']} "
+              f"(max rel {r['step_loss_rel']:.3g}, bound {DP_LOSS_RTOL}), the replicas equal bit for bit after "
+              f"every step, their batches streamed by prefetch_to_device(sharding=) equal to shard_batch's; a "
+              f"CheckpointService save at step {DP_SAVE_AT} restored onto a fresh dp = 2 state bit "
+              f"for bit, AdamW moments included, every replica filled; ms per step (CUDA events, {DP_REPEATS} "
+              f"steps) {json.dumps({k: round(v, 3) for k, v in step_ms.items()})}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    launches = attention.launch_count
+
+    # -- lease resolution on this machine
+    if device == "cuda":
+        check(resolve_devices([0], "cuda") == [torch.device("cuda", 0)], "resolve_devices([0], 'cuda')")
+        if torch.cuda.device_count() == 1:
+            try:
+                got = resolve_devices([0, 1], "cuda")
+            except ValueError as e:
+                r["two_id_lease"] = f"refused: {e}"
+            else:
+                raise SmokeFailure(f"resolve_devices([0, 1], 'cuda') gave {got} on a one-card machine")
+        else:
+            got = resolve_devices([0, 1], "cuda")
+            check(got == [torch.device("cuda", 0), torch.device("cuda", 1)], f"a two-card lease {got}")
+            r["two_id_lease"] = [str(d) for d in got]
+        print(f"[{card}] data parallel: resolve_devices([0], 'cuda') -> [cuda:0]; [0, 1] on "
+              f"{torch.cuda.device_count()} card(s): {r['two_id_lease']}")
+    r["flash_attn_fwd_launches"] = launches
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] data parallel: flash_attn_fwd launches {launches} on the path")
+    print(f"[{card}] data parallel phase: {r['phase_s']:.3f} s")
+    out = {"card": card, "flash_attn_fwd_launches": launches, "unet_ms": r["unet_ms"],
+           "vit_images_per_s": r["vit_images_per_s"], "step_ms": r["step_ms"], "detail": r}
+    print("data_parallel " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     # every controller this run starts keeps its compile-cache tier in a
     # temporary directory (the default is under the home directory)
@@ -5646,6 +5921,7 @@ def main() -> int:
     scenario_runs = phase_scenarios(card)
     prefetch = phase_prefetch(card)
     checkpoints = phase_checkpoints(card)
+    data_parallel = phase_data_parallel(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -5675,7 +5951,11 @@ def main() -> int:
                              # the prefetch loader; the checkpoints have no attention
                              "hosts_h2_fetched_library": hosts["tier"]["flash_launches_h2"],
                              "prefetch": prefetch["flash_attn_fwd_launches"],
-                             "checkpoints": checkpoints["flash_attn_fwd_launches"]},
+                             "checkpoints": checkpoints["flash_attn_fwd_launches"],
+                             # slice 14: the ViT embedder at dp = 1 through the
+                             # mesh and on a stacked dp = 2 mesh (the U-Net and
+                             # CellposeNet have no attention)
+                             "data_parallel": data_parallel["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

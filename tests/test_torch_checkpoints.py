@@ -6,8 +6,8 @@ with equal ``save`` returns, ``steps()`` and ``latest_step()``; a flax
 ``CellposeNet`` state and its bridged port state, each saved and restored
 by its own service, equal bit for bit after bridging back; and a save
 followed at once by an in-place train step, whose checkpoint must hold the
-state as it was at ``save``. The mesh-sharded restore waits for the
-parallel layer (ROADMAP A10).
+state as it was at ``save``. The restore onto a data-parallel state's
+replicas is in ``test_torch_parallel.py``.
 """
 
 import os

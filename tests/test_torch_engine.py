@@ -448,10 +448,10 @@ class TestDevices:
     def test_resolve_devices_one_device(self):
         assert resolve_devices(None, "cpu") == [torch.device("cpu")]
         assert resolve_devices([0], "cpu") == [torch.device("cpu")]
-        with pytest.raises(ValueError, match="matches no local"):
-            resolve_devices([3], "cpu")
-        with pytest.raises(NotImplementedError, match="A10"):
-            resolve_devices([0, 1], "cpu")
+        # JAX's rule on its 8 forced host devices: id 3 exists there, so a
+        # lease of it is one device; a lease of two ids is a group of two
+        assert resolve_devices([3], "cpu") == [torch.device("cpu")]
+        assert resolve_devices([0, 1], "cpu") == [torch.device("cpu")] * 2
 
     def test_mesh_cache_tag(self):
         assert mesh_cache_tag(1) == "1dev"

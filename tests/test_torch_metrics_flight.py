@@ -298,9 +298,13 @@ def test_pipeline_stats_fold_into_pipeline_metrics():
         stats = pmod.PipelineStats(depth=2)
         stats.add(runs=1, chunks=3, items=2, put_seconds=0.25, wall_seconds=1.5)
         after = mmod.collect()
+        # the collector folds every live PipelineStats of the process and
+        # rounds each total to 4 decimals, so the difference of two such
+        # totals is a multiple of 1e-4 up to the float subtraction's error,
+        # which other live engines in the process make nonzero
         got[pmod] = {
             k: (after[k]["type"],
-                after[k]["series"][0]["value"] - before[k]["series"][0]["value"])
+                round(after[k]["series"][0]["value"] - before[k]["series"][0]["value"], 4))
             for k in after if k.startswith("pipeline_")
         }
         del stats

@@ -76,6 +76,8 @@ SLICE13_MODULES = [
     "utils/compile_cache.py", "ops/_build.py", "runtime/program_cache.py", "datasets/prefetch.py",
     "datasets/__init__.py", "runtime/checkpoints.py", "worker_host.py", "worker/worker.py",
 ]
+# the modules of slice 14: the parallel layer's data parallelism
+SLICE14_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/data_parallel.py"]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -141,6 +143,9 @@ def test_port_files_exist():
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 13: the compile cache whole, device prefetch, checkpoints
     for rel in SLICE13_MODULES:
+        assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
+    # slice 14: the parallel layer
+    for rel in SLICE14_MODULES:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 10: a bundle for every app of the JAX repo (tpu-test's twin is gpu-test)
     jax_apps = {p.name for p in (REPO / "apps").iterdir() if (p / "manifest.yaml").is_file()}
@@ -515,3 +520,40 @@ def test_slice13_entry_points_default_to_cuda(no_cuda, tmp_path):
     assert list(prefetch_to_device(iter([np.zeros(2)]), device="cpu"))[0].device.type == "cpu"
     assert inspect.signature(ZarrBatchLoader).parameters["device"].default is None
     assert "device" not in inspect.signature(CheckpointService).parameters
+
+
+def test_slice14_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 14 imports and no
+    module of jax, flax, ``bioengine_tpu`` or the other forbidden packages
+    has been imported."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+        for rel in SLICE14_MODULES
+    ]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_slice14_meshes_default_to_cuda(no_cuda):
+    """``make_mesh()`` and ``local_device_mesh()`` take the CUDA devices
+    and raise without CUDA rather than build a CPU mesh; an engine,
+    embedder or prefetch over a lease of several ids raises the same way
+    unless asked for the CPU."""
+    from bioengine_tpu_torch.parallel.mesh import local_device_mesh, make_mesh
+
+    for build in (lambda: make_mesh({"dp": -1}), lambda: local_device_mesh(2),
+                  lambda: resolve_devices([0, 1]),
+                  lambda: InferenceEngine("m", UNet2D(features=(4, 8)), device_ids=[0, 1]),
+                  lambda: ViTEmbedder(devices=["cuda:0", "cuda:1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert make_mesh({"dp": 2}, ["cpu", "cpu"]).devices == (torch.device("cpu"),) * 2

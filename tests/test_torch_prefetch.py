@@ -16,7 +16,10 @@ import torch
 from bioengine_tpu.datasets import prefetch as jax_prefetch
 from bioengine_tpu.datasets.http_zarr_store import HttpZarrStore as JaxStore
 from bioengine_tpu.datasets.http_zarr_store import RemoteZarrArray as JaxArray
+from bioengine_tpu_torch.parallel.data_parallel import Replicated, Shards
+from bioengine_tpu_torch.parallel.mesh import make_mesh, replicated, sharding
 from bioengine_tpu_torch.datasets import (
+    ChunkCache,
     DatasetsServer,
     HttpZarrStore,
     RemoteZarrArray,
@@ -104,8 +107,13 @@ def test_batches_in_flight_match_the_jax_prefetch():
 
 
 def test_device_rules(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        prefetch_to_device(iter([]), device="cpu", sharding=object())
+    # a placement over a CPU mesh places every leaf over it, whatever
+    # ``device`` says; a spec past the data axis waits for ROADMAP A10b
+    mesh = make_mesh({"dp": 2}, ["cpu", "cpu"])
+    (batch,) = prefetch_to_device(iter([np.arange(4)]), device="cuda", sharding=sharding(mesh, "dp"))
+    assert isinstance(batch, Shards) and [t.tolist() for t in batch] == [[0, 1], [2, 3]]
+    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+        list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh, None, "dp")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -132,12 +140,14 @@ async def data_server(tmp_path):
 
 
 async def _open(store_cls, array_cls, url: str):
-    """Open the array here, then close the store's client: the loader reads
-    on its own thread's event loop, where a connection pooled on this loop
-    cannot be used (a fresh client is made there on first read)."""
+    """Open the array here. The JAX store's client is closed after: its
+    loader reads on its own thread's event loop, where a connection pooled
+    on this loop cannot be used (a fresh client is made there on first
+    read; ROADMAP C4). The port's store keeps a client per loop (C5)."""
     store = store_cls(url)
     arr = await array_cls.open(store, "raw")
-    await store.aclose()
+    if store_cls is JaxStore:
+        await store.aclose()
     return arr
 
 
@@ -212,15 +222,94 @@ async def test_streamed_crops_embed_as_the_app_embeds_them(tmp_path):
     try:
         store = HttpZarrStore(f"{server.url}/data/crops/crops.zarr")
         arr = await RemoteZarrArray.open(store, "rgb")
-        await store.aclose()
         emb = ViTEmbedder(device="cpu", batch_bucket=4, seed=2,
                           model_overrides={"dim": 32, "depth": 2, "num_heads": 2, "patch_size": 28})
         loader = ZarrBatchLoader(arr, batch_size=4, prefetch_batches=2, drop_remainder=False, device="cpu")
         streamed = await asyncio.to_thread(
             lambda: torch.cat([emb.embed_tensor(model_input(b)) for b in loader]).numpy())
+        await store.aclose()
     finally:
         await server.stop()
     whole = emb.embed_batch(list(raw))
     assert streamed.shape == whole.shape == (10, 32)
     assert np.array_equal(streamed, whole)
     assert emb.forward_count == 6  # 3 streamed batches, 3 buckets of the whole
+
+
+async def test_zarr_batch_loader_over_an_array_opened_on_this_loop(data_server):
+    """The loader reads on its own thread's event loop. An array opened
+    here, its store's client left open, over a cold chunk cache: every row
+    is fetched over HTTP on the loader's loop, through a client of that
+    loop's own (ROADMAP C5)."""
+    server, images = data_server
+    store = HttpZarrStore(f"{server.url}/data/demo/images.zarr", cache=ChunkCache())
+    arr = await RemoteZarrArray.open(store, "raw")
+    try:
+        loader = ZarrBatchLoader(arr, batch_size=4, prefetch_batches=2, device="cpu")
+        got = await asyncio.to_thread(lambda: [b.numpy() for b in loader])
+        np.testing.assert_array_equal(np.concatenate(got), images)
+        # and the store still reads on this loop afterwards
+        np.testing.assert_array_equal(await arr.read(), images)
+    finally:
+        await store.aclose()
+
+
+async def test_jax_loader_over_an_array_opened_on_this_loop_fails(data_server):
+    """The JAX behaviour beside the port's fix (ROADMAP C4, C5): the JAX
+    store keeps one client across loops, so its loader over an array opened
+    here, over a cold chunk cache, fails on the loader's loop."""
+    from bioengine_tpu.datasets.chunk_cache import ChunkCache as JaxChunkCache
+
+    server, _ = data_server
+    store = JaxStore(f"{server.url}/data/demo/images.zarr", cache=JaxChunkCache())
+    arr = await JaxArray.open(store, "raw")
+    loader = jax_prefetch.ZarrBatchLoader(arr, batch_size=4, prefetch_batches=2)
+    with pytest.raises(RuntimeError, match="different event loop"):
+        await asyncio.to_thread(lambda: [np.asarray(b) for b in loader])
+    # the client's pool now holds a connection of the loader's closed loop,
+    # so it is not closed here
+
+
+@pytest.mark.parametrize("width", [2, 4])
+async def test_zarr_batch_loader_with_a_placement(data_server, width):
+    """``ZarrBatchLoader(sharding=)`` over a CPU mesh: each batch arrives
+    as ``shard_batch`` lays it out, ``width`` equal shards in order; under
+    ``replicated`` every entry holds the whole batch."""
+    server, images = data_server
+    arr = await _open(HttpZarrStore, RemoteZarrArray, f"{server.url}/data/demo/images.zarr")
+    mesh = make_mesh({"dp": width}, ["cpu"] * width)
+    loader = ZarrBatchLoader(arr, batch_size=4, prefetch_batches=2, sharding=sharding(mesh, "dp"))
+    assert loader.device == torch.device("cpu")
+    got = await asyncio.to_thread(lambda: list(loader))
+    assert all(isinstance(b, Shards) and len(b) == width for b in got)
+    assert all(s.shape[0] == 4 // width for b in got for s in b)
+    np.testing.assert_array_equal(np.concatenate([b.gather().numpy() for b in got]), images)
+    rep = ZarrBatchLoader(arr, batch_size=4, prefetch_batches=1, sharding=replicated(mesh))
+    got = await asyncio.to_thread(lambda: list(rep))
+    assert all(isinstance(b, Replicated) and len(b) == width for b in got)
+    for i, b in enumerate(got):
+        for copy in b:
+            np.testing.assert_array_equal(copy.numpy(), images[4 * i : 4 * i + 4])
+    await arr.store.aclose()
+
+
+def test_prefetch_with_a_placement_keeps_the_tree():
+    """A pytree of host batches placed over a CPU mesh of 4: each leaf as
+    ``shard_batch`` places it, the tree's structure kept; a leaf whose
+    leading dimension does not divide raises as JAX's sharded put does."""
+    from bioengine_tpu_torch.parallel.data_parallel import shard_batch
+
+    rng = np.random.default_rng(3)
+    mesh = make_mesh({"dp": 4}, ["cpu"] * 4)
+    batches = [{"image": rng.normal(size=(8, 4, 4, 2)).astype(np.float32),
+                "pair": Pair(rng.integers(0, 9, size=8), np.arange(8.0))} for _ in range(3)]
+    got = list(prefetch_to_device(iter(batches), size=2, sharding=sharding(mesh, "dp")))
+    for g, b in zip(got, batches):
+        ref = shard_batch(mesh, {"image": torch.from_numpy(b["image"]),
+                                 "pair": Pair(*(torch.from_numpy(x) for x in b["pair"]))})
+        assert type(g["pair"]) is Pair and isinstance(g["image"], Shards)
+        for leaf, want in ((g["image"], ref["image"]), (g["pair"].image, ref["pair"].image),
+                           (g["pair"].mask, ref["pair"].mask)):
+            assert len(leaf) == 4 and all(torch.equal(a, w) for a, w in zip(leaf, want))
+    with pytest.raises(ValueError, match="does not divide"):
+        list(prefetch_to_device(iter([np.zeros((6, 2))]), sharding=sharding(mesh, "dp")))

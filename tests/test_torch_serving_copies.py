@@ -11,7 +11,8 @@ its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8, slice-9, slice-11, slice-12 or slice-13 differences.
+ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13 or slice-14
+differences.
 """
 
 import ast
@@ -54,9 +55,7 @@ COPIES = {
     "serving/journal.py": {},
     "serving/warm_pool.py": {},
     "serving/mesh_replica.py": {},
-    "serving/mesh_plan.py": {
-        "MeshConfig.mesh_shape": "the parallel layer is not ported (ROADMAP A10)",
-    },
+    "serving/mesh_plan.py": {},
     "serving/compile_tier.py": {
         "DEFAULT_TIER_DIR": "the port's tier holds kernel libraries, apart from the JAX tier (slice 13)",
     },
@@ -87,7 +86,10 @@ COPIES = {
     "datasets/chunk_cache.py": {},
     "datasets/codecs.py": {},
     "datasets/zarr_codec.py": {},
-    "datasets/http_zarr_store.py": {},
+    "datasets/http_zarr_store.py": {
+        "import weakref": "a client and a request semaphore per event loop (ROADMAP C5)",
+        "HttpZarrStore": "a client and a request semaphore per event loop (ROADMAP C5)",
+    },
     "datasets/datasets.py": {},
     "datasets/proxy_server.py": {},
     "datasets/__main__.py": {},
@@ -201,13 +203,16 @@ COPIES = {
         "from typing import Any, Iterable, Iterator, Optional, Sequence": "a Callable annotation",
         "from typing import Any, Callable, Iterable, Iterator, Optional, Sequence": "a Callable annotation",
         "from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device": "device argument",
-        "_tree_map": "the pytree walk of jax.tree_util",
-        "prefetch_to_device": "pinned staging and a copy stream; sharding raises (ROADMAP A10)",
+        "prefetch_to_device": "pinned staging and a copy stream; a placement's mesh (slice 14)",
+        "from bioengine_tpu_torch.parallel.data_parallel import host_parts, place, tree_map":
+            "a placement's mesh; the pytree walk of jax.tree_util (slice 14)",
+        "from bioengine_tpu_torch.parallel.mesh import Placement": "a placement's mesh (slice 14)",
+        "_ShardedCopy": "a copy stream per device of a placement's mesh (slice 14)",
         "_prefetch": "the JAX generator, with the consumer's wait on each batch's copy",
         "_CopyStream": "pinned staging and a copy stream in place of jax.device_put",
-        "ZarrBatchLoader.__doc__": "device argument",
-        "ZarrBatchLoader.__init__": "device argument",
-        "ZarrBatchLoader.__iter__": "device argument",
+        "ZarrBatchLoader.__doc__": "device and sharding arguments",
+        "ZarrBatchLoader.__init__": "device and sharding arguments",
+        "ZarrBatchLoader.__iter__": "device and sharding arguments",
     },
     "runtime/checkpoints.py": {
         "__doc__": "the service itself in place of orbax; torch.save format",
@@ -217,11 +222,68 @@ COPIES = {
         "import threading": "the service itself in place of orbax",
         "import torch": "the service itself in place of orbax",
         "from bioengine_tpu_torch.models.cellpose import TrainState": "the port's TrainState",
+        "from bioengine_tpu_torch.parallel.data_parallel import DataParallelTrainState, Replicated":
+            "restore onto replicas (slice 14)",
+        "_restore": "restore onto replicas (slice 14)",
         "STATE_FILE": "torch.save format",
         "_to_host": "the host snapshot before save returns",
         "_fill": "restore onto the template's devices and dtypes",
         "_snapshot": "TrainState, module or tree",
         "CheckpointService": "the service itself in place of orbax; torch.save format",
+    },
+    # slice 14: the parallel layer's data parallelism, one process driving the group
+    "parallel/mesh.py": {
+        "__doc__": "a port Mesh of torch devices in place of jax.sharding",
+        "import jax": "a port Mesh of torch devices in place of jax.sharding",
+        "import numpy as np": "a port Mesh of torch devices in place of jax.sharding",
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P":
+            "a port Mesh of torch devices in place of jax.sharding",
+        "import torch": "a port Mesh of torch devices in place of jax.sharding",
+        "from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device":
+            "make_mesh defaults to every CUDA device and raises without CUDA",
+        "Mesh": "a port Mesh of torch devices in place of jax.sharding",
+        "Placement": "the port's placement in place of NamedSharding",
+        "make_mesh": "make_mesh defaults to every CUDA device and raises without CUDA",
+        "sharding": "the port's placement in place of NamedSharding",
+        "replicated": "the port's placement in place of NamedSharding",
+        "local_device_mesh": "a device argument: n entries of cpu on the CPU",
+        "get_shard_map": "a JAX version shim with no counterpart",
+        "named_axis_size": "a JAX version shim with no counterpart",
+    },
+    "parallel/data_parallel.py": {
+        "__doc__": "explicit device-to-device copies in place of XLA's all-reduce",
+        "import copy": "replicas are copies of the module",
+        "import dataclasses": "the data-parallel train state",
+        "from typing import Any, Callable": "the port's annotations",
+        "from typing import Any, Callable, Optional": "the port's annotations",
+        "import jax": "explicit device-to-device copies in place of XLA's all-reduce",
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P":
+            "explicit device-to-device copies in place of XLA's all-reduce",
+        "import numpy as np": "host leaves become tensors",
+        "import torch": "explicit device-to-device copies in place of XLA's all-reduce",
+        "from torch import nn": "replicas of a module",
+        "from bioengine_tpu_torch.models.cellpose import LossTrainStep, TrainState":
+            "the port's train step and state",
+        "from bioengine_tpu_torch.parallel.mesh import Mesh, Placement": "the port's Mesh and placement",
+        "_PerEntry": "a value per mesh entry",
+        "Shards": "a leaf split over the mesh in place of a sharded jax.Array",
+        "Replicated": "a value copied to each mesh entry in place of a replicated jax.Array",
+        "DataParallelTrainState": "one replica per mesh entry, the first one updated",
+        "tree_map": "the pytree walk of jax.tree_util",
+        "_dp_width": "only a mesh whose one axis is the data axis (ROADMAP A10b)",
+        "_as_tensor": "host leaves become tensors",
+        "shard_batch": "the host splits each leaf into equal shards",
+        "host_parts": "a placement's parts on the host, for the prefetch",
+        "place": "a placement's parts on their devices",
+        "replicate": "one independent replica per mesh entry",
+        "_sum_gradients": "gradients summed onto the first replica in shard order",
+        "data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
+        "jit_data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
+    },
+    "parallel/__init__.py": {
+        "from bioengine_tpu_torch.parallel.tensor_parallel import CONV_TP_RULES, VIT_TP_RULES, make_tp_apply, shard_params, tp_param_specs":
+            "tensor parallelism waits for ROADMAP A10b",
+        "__all__": "tensor parallelism waits for ROADMAP A10b",
     },
 }
 
@@ -304,11 +366,11 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 
 def _listed_differences() -> str:
-    """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (" and
-    "Slice 13 (" differences sections."""
+    """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (",
+    "Slice 13 (" and "Slice 14 (" differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
-    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 ("):
+    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 (", "Slice 14 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
@@ -321,3 +383,16 @@ def test_every_skip_is_a_listed_difference(rel):
     assert f"`{rel}`" in section, rel
     for key in COPIES[rel]:
         assert f"`{key}`" in section, f"{rel}: {key}"
+
+
+@pytest.mark.parametrize("rel, name", [
+    ("parallel/mesh.py", "MeshSpec"),
+    ("parallel/mesh.py", "VirtualMeshSpec"),
+    ("parallel/data_parallel.py", "per_device_batch"),
+])
+def test_parallel_copies_statement_for_statement(rel, name):
+    """The parallel layer's specs and ``per_device_batch`` are never a
+    listed difference: each equals the JAX statement."""
+    assert name not in COPIES[rel]
+    ref, ours = _pair(rel, COPIES[rel])
+    assert name in ref and ours.get(name) == ref[name]

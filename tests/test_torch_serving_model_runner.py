@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu.models.unet import UNet2D as JaxUNet2D
@@ -328,10 +329,18 @@ async def test_async_init_reads_the_lease_and_the_batch_config():
     assert dep.device.type == "cpu" and (dep.batch_max, dep.batch_wait_ms) == (2, 7.0)
     assert dep._batcher.max_batch == 2
     await dep.close()
+    # the JAX rule on the CPU's 8 ids: a lease only partly among them is
+    # refused; a lease of several ids is a group (a dp engine)
     refused = RuntimeDeployment(device="cpu")
-    refused.bioengine_device_ids = [1]
-    with pytest.raises(ValueError, match="refusing to remap"):
+    refused.bioengine_device_ids = [7, 8]
+    with pytest.raises(ValueError, match="numbering conflict"):
         await refused.async_init()
+    group = RuntimeDeployment(device="cpu")
+    group.bioengine_device_ids = [1, 2]
+    await group.async_init()
+    assert group._devices == [torch.device("cpu")] * 2
+    assert group.mesh_info()["lease"] == [1, 2] and group.mesh_info()["mesh_shape"] == {"dp": 2}
+    await group.close()
 
 
 def test_entry_closes_only_a_runtime_it_built(tmp_path, monkeypatch):
