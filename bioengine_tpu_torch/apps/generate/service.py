@@ -14,8 +14,9 @@ As in the JAX app, ``generate`` and ``describe_engine`` are
 (WebSocket, HTTP bridge, MCP); ``generate_stream`` is not one: callers
 reach the stream through the deployment's handle
 (``DeploymentHandle.call_stream``). Differences from the JAX app (ROADMAP,
-slice 7): the deployment takes ``device`` (``cuda`` unless
-``device="cpu"``); one device, no dp mesh (A10).
+slices 7 and 15): the deployment takes ``device`` (``cuda`` unless
+``device="cpu"``); a multi-device lease builds a dp engine whose entries
+each hold a replica and a KV pool, a sequence pinned to one of them.
 """
 
 import asyncio
@@ -53,8 +54,8 @@ class GenerateDeployment:
         if shard and shard.get("axes"):
             axes = dict(shard["axes"])
         elif len(lease) > 1:
-            # a multi-device lease shards the step batch over dp, which
-            # the engine refuses until the parallel layer lands (A10)
+            # multi-device lease without an explicit mesh block still
+            # shards the step batch — dp is the only decoder axis
             axes = {"dp": -1}
 
         def build():

@@ -8,7 +8,10 @@ the whole device group:
 - ``replicate`` gives one independent replica per mesh entry (a module, a
   train state, or a tree of tensors);
 - ``shard_batch`` splits every leaf's leading dimension on the host into
-  equal shards, one on each device;
+  equal shards, one on each device; over a mesh of several axes (dp x tp,
+  dp x sp) a placement splits one dimension over one axis and replicates
+  over the others, the entries holding their parts in the order of JAX's
+  ``addressable_shards``;
 - ``data_parallel_step`` is the step of the GLOBAL batch, JAX's
   semantics: each replica runs forward on its shard, the predictions are
   concatenated on the first device in shard order, the unchanged
@@ -16,7 +19,8 @@ the whole device group:
   replica's gradients are summed onto the first replica in shard order by
   explicit device-to-device copies, one optimiser step runs there, and its
   parameters are copied to the others. After every step the replicas are
-  equal bit for bit.
+  equal bit for bit. The step runs over a mesh whose one axis is the data
+  axis; the dp x sp step waits for ROADMAP A10d.
 
 No ``torch.distributed`` process group and no DDP: the copies work the
 same on the CPU, on one card and on several, and they fix the order of
@@ -49,14 +53,29 @@ class _PerEntry(tuple):
 
 
 class Shards(_PerEntry):
-    """A tensor split over a mesh's entries: one shard per entry, on that
-    entry's device, in mesh order."""
+    """A tensor split over one mesh axis: one part per entry, on that
+    entry's device, in mesh order. ``dim`` is the tensor's split dimension
+    and ``axis`` the mesh axis; entries that differ only along other axes
+    hold copies of the same part (replicated over them). With ``groups``
+    > 1 the dimension is that many equal groups and a part is one slice of
+    each (a fused qkv weight split by heads)."""
+
+    def __new__(cls, values, mesh: Mesh, axis: str = "dp", dim: int = 0, groups: int = 1):
+        obj = super().__new__(cls, values, mesh)
+        obj.axis, obj.dim, obj.groups = axis, dim, groups
+        return obj
+
+    def parts(self) -> list:
+        """One part per coordinate along ``axis``, in order."""
+        coords = self.mesh.coords(self.axis)
+        return [self[coords.index(j)] for j in range(self.mesh.shape[self.axis])]
 
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The whole tensor on ``device`` (the mesh's first by default),
-        shards concatenated in order; differentiable."""
+        parts concatenated in order; differentiable."""
         device = device or self.mesh.devices[0]
-        return torch.cat([s.to(device) for s in self])
+        parts = [s.to(device).chunk(self.groups, self.dim) for s in self.parts()]
+        return torch.cat([p[g] for g in range(self.groups) for p in parts], dim=self.dim)
 
 
 class Replicated(_PerEntry):
@@ -97,42 +116,43 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-def _dp_width(mesh: Mesh, axis: str) -> int:
-    n = mesh.shape[axis]
-    if n != mesh.size:
-        raise NotImplementedError(
-            f"sharding over {axis}={n} of the mesh {mesh.shape}: only a mesh "
-            "whose one axis is the data axis is ported (ROADMAP A10b)"
-        )
-    return n
-
-
 def _as_tensor(x: Any) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
 
 
-def host_parts(placement: Placement, x: Any) -> tuple[type, list]:
-    """A leaf under a ``Placement``, still on the host: (``Shards`` and the
-    leaf's equal shards, for a spec whose first entry names the mesh's one
-    axis) or (``Replicated`` and the whole leaf once per entry, for
-    ``replicated``). Raises where the leading dimension does not divide,
-    as JAX's sharded ``device_put`` does."""
+def host_parts(placement: Placement, x: Any) -> tuple[Callable, list]:
+    """A leaf under a ``Placement``, still on the host: (a ``Shards``
+    maker and each entry's part, for a spec that splits one dimension over
+    one mesh axis: equal parts along that axis, the same part on entries
+    that differ only along other axes) or (``Replicated`` and the whole
+    leaf once per entry, for ``replicated``). Raises where the dimension
+    does not divide, as JAX's sharded ``device_put`` does."""
     mesh, spec = placement.mesh, tuple(placement.spec)
     x = _as_tensor(x)
-    if not spec:
+    split = [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
+    if not split:
         return Replicated, [x] * mesh.size
-    if spec[0] is None or any(s is not None for s in spec[1:]):
+    if len(split) > 1 or isinstance(split[0][1], tuple):
         raise NotImplementedError(
-            f"partition spec {spec}: only the leading dimension over the data "
-            "axis is ported (ROADMAP A10b)"
+            f"partition spec {spec}: a spec that splits over more than one "
+            "mesh axis waits for the dp x sp train step (ROADMAP A10d)"
         )
-    n = _dp_width(mesh, spec[0])
-    if x.dim() == 0 or x.shape[0] % n:
+    dim, axis = split[0]
+    if axis not in mesh.axis_names:
+        raise ValueError(f"partition spec {spec} names {axis!r}, not an axis of the mesh {mesh.shape}")
+    n = mesh.shape[axis]
+    if x.dim() <= dim or x.shape[dim] % n:
+        where = "leading dimension" if dim == 0 else f"dimension {dim}"
         raise ValueError(
-            f"leading dimension of shape {tuple(x.shape)} does not divide "
-            f"into {spec[0]}={n} equal shards"
+            f"{where} of shape {tuple(x.shape)} does not divide "
+            f"into {axis}={n} equal shards"
         )
-    return Shards, list(x.chunk(n))
+    parts = x.chunk(n, dim)
+
+    def shards(values, mesh: Mesh) -> Shards:
+        return Shards(values, mesh, axis, dim)
+
+    return shards, [parts[c] for c in mesh.coords(axis)]
 
 
 def place(placement: Placement, x: Any) -> Any:
@@ -199,7 +219,12 @@ def data_parallel_step(step: LossTrainStep, mesh: Mesh, axis: str = "dp") -> Cal
     ``make_loss_train_step``'s (``make_train_step``,
     ``make_stardist_train_step``): its ``loss_call`` runs once over the
     whole batch and its ``update`` on the first replica."""
-    _dp_width(mesh, axis)
+    if mesh.shape.get(axis) != mesh.size:
+        raise NotImplementedError(
+            f"a train step over {axis} of the mesh {mesh.shape}: the step over "
+            "a mesh with more axes than the data axis waits for the exact dp x sp "
+            "train step (ROADMAP A10d)"
+        )
     placement = Placement(mesh, (axis,))
 
     def dp_step(state: DataParallelTrainState, images, *targets):

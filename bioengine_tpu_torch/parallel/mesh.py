@@ -5,8 +5,11 @@ parallelism axes:
 
 - ``dp`` — data parallel (batch sharding; gradients summed across the
   replicas by explicit device-to-device copies)
-- ``sp`` — spatial/sequence parallel, and ``tp`` — tensor parallel
-  (ROADMAP A10b, not ported yet)
+- ``sp`` — spatial/sequence parallel (image tiles with halo exchange,
+  or token-sequence shards for ring attention: ``parallel/spatial.py``,
+  ``parallel/ring.py``)
+- ``tp`` — tensor parallel (Megatron-style weight slices,
+  ``parallel/tensor_parallel.py``)
 
 A replica *owns* a mesh, and scaling happens in units of replicas, each
 with a fixed device group. One process drives the whole group: each device
@@ -94,6 +97,18 @@ class VirtualMeshSpec:
 
 
 
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: for each dimension of a value, the
+    mesh axis it is split over, or None to keep it whole; dimensions past
+    the spec's length are whole, and the empty spec is replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Named axes over a flat, row-major list of devices."""
@@ -110,6 +125,24 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def coords(self, axis: str) -> list[int]:
+        """Each entry's coordinate along ``axis``, in mesh order."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} is not in the mesh {self.shape}")
+        at = self.axis_names.index(axis)
+        stride = math.prod(self.sizes[at + 1 :])
+        return [(e // stride) % self.sizes[at] for e in range(self.size)]
+
+    def groups(self, axis: str) -> list[list[int]]:
+        """The entries that differ only along ``axis``, one list per
+        coordinate of the other axes (in mesh order), each ordered along
+        ``axis``: the tp groups of a (dp, tp) mesh, the rings of ``sp``."""
+        coords = self.coords(axis)
+        n = self.shape[axis]
+        firsts = [e for e in range(self.size) if coords[e] == 0]
+        stride = math.prod(self.sizes[self.axis_names.index(axis) + 1 :])
+        return [[e + j * stride for j in range(n)] for e in firsts]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,14 +26,24 @@ single-token *steps* extends it:
 
 The bundled model is the deterministic seeded character-level
 transformer (vocab = 256 bytes) of the JAX package: pre-LN attention +
-MLP with tanh GELU, LayerNorm eps 1e-5, weight-tied logits. One device:
-a lease of several ids raises ``NotImplementedError`` (ROADMAP A10; the
-KV pool would have to be laid out per device).
+MLP with tanh GELU, LayerNorm eps 1e-5, weight-tied logits.
+
+**Data parallel over a device group.** The same ``mesh_axes={"dp": -1}``
+spec the JAX engine takes resolves over the group the engine got (a lease
+of several ids, or ``devices``, which may repeat one). The JAX engine
+splits the step batch row-wise over a host-numpy cache; here each mesh
+entry holds a replica of the model and a KV pool of its own, and a
+sequence is pinned at prefill to the entry with the most free blocks
+(lowest index on ties). A step groups its co-batch's rows by entry, runs
+one program per entry (keyed on the entry, the batch bucket and that
+entry's KV bucket), and returns the tokens in the caller's row order.
+Rows are independent, so the greedy tokens equal one device's bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 import threading
@@ -45,11 +55,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bioengine_tpu_torch.parallel.mesh import MeshSpec
+from bioengine_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
     mesh_cache_tag,
+    resolve_device,
     resolve_devices,
 )
 from bioengine_tpu_torch.runtime.engine import CAPTURE_LOCK, GRAPH_WARMUP_ITERS
@@ -348,8 +359,35 @@ class _Program:
             return self.fn(**self.inputs)
 
 
+class _PoolGroup:
+    """The per-entry KV pools of a dp engine read as one cache: stats summed
+    over the pools, a sequence's length from the pool that holds it."""
+
+    def __init__(self, pools: list):
+        self.pools = pools
+        self.block_size = pools[0].block_size
+
+    def sequence_length(self, seq_id: str) -> int:
+        return max(p.sequence_length(seq_id) for p in self.pools)
+
+    def has_sequence(self, seq_id: str) -> bool:
+        return any(p.has_sequence(seq_id) for p in self.pools)
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.pools)
+
+    @property
+    def stats(self) -> dict:
+        each = [p.stats for p in self.pools]
+        out = {k: sum(s[k] for s in each) for k in
+               ("blocks_total", "blocks_in_use", "sequences", "evictions", "appends")}
+        out["block_utilization"] = out["blocks_in_use"] / max(1, out["blocks_total"])
+        out["block_size"] = self.block_size
+        return {k: out[k] for k in each[0]}
+
+
 class DecodeEngine:
-    """Prefill + step execution on one device.
+    """Prefill + step execution over a device group.
 
     Serving glue (``serving/decode.py`` DecodeLoop) drives three calls:
     ``prefill(seq_id, tokens)`` admits a sequence and returns its first
@@ -368,6 +406,7 @@ class DecodeEngine:
         seed: int = 0,
         cache: Optional[CompiledProgramCache] = None,
         device: DeviceLike = None,
+        devices: Optional[Sequence[DeviceLike]] = None,
         device_ids: Optional[Sequence[int]] = None,
         mesh_axes: Optional[Mapping[str, int]] = None,
         kv_blocks: Optional[int] = None,
@@ -376,9 +415,13 @@ class DecodeEngine:
         self.model_id = model_id
         self.config = config
         self.cache = cache if cache is not None else default_program_cache
-        self.devices = resolve_devices(device_ids, device)
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+        else:
+            self.devices = resolve_devices(device_ids, device)
+        n = len(self.devices)
         if mesh_axes is not None:
-            unknown = sorted(set(MeshSpec(dict(mesh_axes)).resolve(len(self.devices))) - {"dp"})
+            unknown = sorted(set(MeshSpec(dict(mesh_axes)).resolve(n)) - {"dp"})
             if unknown:
                 # the decoder carries no tp sharding rules; a silent
                 # replicate would claim a tp axis it doesn't have
@@ -386,29 +429,31 @@ class DecodeEngine:
                     f"mesh_axes names unsupported decoder axes {unknown} "
                     "(DecodeEngine shards the step batch over 'dp' only)"
                 )
-        if len(self.devices) > 1:
-            # the KV pool lives on the engine's device and is read through
-            # the block table inside the step graph: sharding the step
-            # batch needs the pool laid out per device
-            raise NotImplementedError(
-                f"a decode engine over {len(self.devices)} devices: dp in "
-                "DecodeEngine is not ported yet (ROADMAP A10)"
-            )
-        self.dp = len(self.devices)
+        self.dp = n
         self.device = self.devices[0]
+        self.mesh = make_mesh({"dp": n}, self.devices) if n > 1 else None
         host_params = params if params is not None else init_decoder_params(seed, config)
         model = Decoder(config)
         model.load_state_dict(decoder_state_dict(host_params))
-        self.model = model.to(self.device).eval().requires_grad_(False)
-        self.kv = PagedKVCache(
-            config.n_layers,
-            config.n_heads,
-            config.head_dim,
-            num_blocks=kv_blocks,
-            block_size=kv_block_size,
-            device=self.device,
-        )
-        bs = self.kv.block_size
+        model = model.eval().requires_grad_(False)
+        # a replica and a KV pool per mesh entry (a stacked entry too)
+        self.models = [model.to(self.device)] + [copy.deepcopy(model).to(d) for d in self.devices[1:]]
+        self.model = self.models[0]
+        self.pools = [
+            PagedKVCache(
+                config.n_layers,
+                config.n_heads,
+                config.head_dim,
+                num_blocks=kv_blocks,
+                block_size=kv_block_size,
+                device=d,
+            )
+            for d in self.devices
+        ]
+        self.kv = self.pools[0] if n == 1 else _PoolGroup(self.pools)
+        # the entry each live sequence was pinned to at prefill
+        self._entry: dict[str, int] = {}
+        bs = self.pools[0].block_size
         # KV-length ladder: block-size multiples doubling up to max_len
         # — bounded program count, and every bucket is whole blocks
         ladder = []
@@ -418,7 +463,7 @@ class DecodeEngine:
             b *= 2
         ladder.append(max(b, config.max_len))
         self._len_ladder = tuple(ladder)
-        # one caller at a time: a program's fixed buffers and the pool's
+        # one caller at a time: a program's fixed buffers and the pools'
         # block tables are shared state
         self._lock = threading.Lock()
 
@@ -432,8 +477,7 @@ class DecodeEngine:
 
     @property
     def mesh_shape(self) -> Optional[dict[str, int]]:
-        """None: the port's engine runs on one device."""
-        return None
+        return dict(self.mesh.shape) if self.mesh is not None else None
 
     @property
     def _mesh_key(self) -> str:
@@ -443,73 +487,100 @@ class DecodeEngine:
     def _placement_key(self) -> str:
         """The group's shape, its devices and this engine's model: a
         captured graph reads the model's parameters and this engine's KV
-        pool by address, so engines never share a program."""
+        pools by address, so engines never share a program."""
         devices = ",".join(str(d) for d in self.devices)
         return f"{self._mesh_key}@{devices}#{id(self.model):x}"
 
-    def _device_scope(self):
-        """The engine's CUDA device as the calling thread's current one
-        (the loop calls from ``asyncio.to_thread`` workers)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
+    def _program_tag(self, entry: int) -> str:
+        """A program's placement: the engine's, and the mesh entry whose
+        replica and pool the program reads."""
+        return f"{self._placement_key}:{entry}"
+
+    def _owns(self, key: tuple) -> bool:
+        return isinstance(key[-1], str) and key[-1].rsplit(":", 1)[0] == self._placement_key
+
+    def _device_scope(self, entry: int = 0):
+        """An entry's CUDA device as the calling thread's current one (the
+        loop calls from ``asyncio.to_thread`` workers)."""
+        dev = self.devices[entry]
+        if dev.type == "cuda":
+            return torch.cuda.device(dev)
         return contextlib.nullcontext()
 
     # ---- programs -----------------------------------------------------------
 
-    def _prefill_program(self, t_pad: int) -> _Program:
-        key = (self.model_id, "decode_prefill", t_pad, self._placement_key)
+    def _prefill_program(self, t_pad: int, entry: int = 0) -> _Program:
+        key = (self.model_id, "decode_prefill", t_pad, self._program_tag(entry))
+        model = self.models[entry]
 
         def fn(tokens, length):
-            return decoder_prefill(self.model, tokens, length[0])
+            return decoder_prefill(model, tokens, length[0])
 
         def build():
-            with self._device_scope():
+            with self._device_scope(entry):
                 # a real length while building: the logits row is length - 1
                 return _Program(
-                    self.device, {"tokens": (t_pad,), "length": (1,)}, fn, init={"length": 1}
+                    self.devices[entry], {"tokens": (t_pad,), "length": (1,)}, fn, init={"length": 1}
                 )
 
         return self.cache.get_or_compile(key, build)
 
-    def _step_program(self, b_pad: int, t_pad: int) -> _Program:
-        key = (self.model_id, "decode_step", b_pad, t_pad, self._placement_key)
+    def _step_program(self, b_pad: int, t_pad: int, entry: int = 0) -> _Program:
+        key = (self.model_id, "decode_step", b_pad, t_pad, self._program_tag(entry))
         last_pos = self.config.max_len - 1
+        model, pool = self.models[entry], self.pools[entry]
 
         def fn(tokens, lengths, table):
-            K = _PagedLayers(self.kv.k_pool, table, lengths)
-            V = _PagedLayers(self.kv.v_pool, table, lengths)
+            K = _PagedLayers(pool.k_pool, table, lengths)
+            V = _PagedLayers(pool.v_pool, table, lengths)
             # positions == lengths; past max_len the JAX gather clamps
             # the row, and so does this one (no device-side assert)
             positions = lengths.clamp(max=last_pos)
-            return decoder_step(self.model, tokens, positions, K, V, lengths)
+            return decoder_step(model, tokens, positions, K, V, lengths)
 
         def build():
             layout = {
                 "tokens": (b_pad,),
                 "lengths": (b_pad,),
-                "table": (b_pad, t_pad // self.kv.block_size),
+                "table": (b_pad, t_pad // pool.block_size),
             }
-            with self._device_scope():
-                return _Program(self.device, layout, fn)
+            with self._device_scope(entry):
+                return _Program(self.devices[entry], layout, fn)
 
         return self.cache.get_or_compile(key, build)
 
     def warmup(self, prompt_lens: Sequence[int] = (16,), batches: Sequence[int] = (1,)) -> None:
-        bs = self.kv.block_size
+        bs = self.pools[0].block_size
         with self._lock:
-            for t in prompt_lens:
-                self._prefill_program(bucket_dim(t, self._len_ladder, divisor=bs))
-            for b in batches:
-                self._step_program(
-                    bucket_batch(b, multiple_of=self.dp),
-                    bucket_dim(max(bs, 1), self._len_ladder, divisor=bs),
-                )
+            for entry in range(self.dp):
+                for t in prompt_lens:
+                    self._prefill_program(bucket_dim(t, self._len_ladder, divisor=bs), entry)
+                for b in batches:
+                    self._step_program(
+                        bucket_batch(b),
+                        bucket_dim(max(bs, 1), self._len_ladder, divisor=bs),
+                        entry,
+                    )
 
     # ---- decode API ---------------------------------------------------------
 
+    def _pin(self, seq_id: str) -> int:
+        """The entry a (re)admitted sequence goes to: its old state freed,
+        the entry with the most free blocks, lowest index on ties."""
+        for pool in self.pools:
+            pool.free(seq_id)
+        free = [p.num_blocks - p.stats["blocks_in_use"] for p in self.pools]
+        return free.index(max(free))
+
+    def _entry_of(self, seq_id: str) -> int:
+        entry = self._entry.get(seq_id)
+        if entry is None:
+            raise KeyError(f"no KV state for sequence '{seq_id}'")
+        return entry
+
     def prefill(self, seq_id: str, tokens: Sequence[int]) -> int:
-        """Admit a sequence: run the prompt, cache its KV, return the
-        first greedy token."""
+        """Admit a sequence: run the prompt on the entry it is pinned to,
+        cache its KV there, return the first greedy token."""
         width = len(self.devices)
         t0 = time.monotonic()
         try:
@@ -522,16 +593,19 @@ class DecodeEngine:
             if toks.min() < 0 or toks.max() >= self.config.vocab:
                 # the JAX gather would clamp; a device gather would assert
                 raise ValueError(f"prompt tokens outside [0, {self.config.vocab})")
-            bs = self.kv.block_size
+            bs = self.pools[0].block_size
             t_pad = bucket_dim(T, self._len_ladder, divisor=bs)
             padded = np.zeros((t_pad,), np.int64)
             padded[:T] = toks
-            with self._lock, self._device_scope():
-                program = self._prefill_program(t_pad)
-                logits, K, V = program(tokens=padded, length=T)
-                logits = logits.cpu().numpy()
-                # [L, T, H, Dh] cropped to real length -> paged blocks
-                self.kv.write_prefill(seq_id, K[:, :T], V[:, :T])
+            with self._lock:
+                entry = self._pin(seq_id)
+                with self._device_scope(entry):
+                    program = self._prefill_program(t_pad, entry)
+                    logits, K, V = program(tokens=padded, length=T)
+                    logits = logits.cpu().numpy()
+                    # [L, T, H, Dh] cropped to real length -> paged blocks
+                    self.pools[entry].write_prefill(seq_id, K[:, :T], V[:, :T])
+                self._entry[seq_id] = entry
             tok = int(np.argmax(logits))
             ctx = tracing.current_trace()
             if ctx is not None and ctx.sampled:
@@ -549,31 +623,64 @@ class DecodeEngine:
         finally:
             tracing.add_chip_seconds((time.monotonic() - t0) * width)
 
+    def _launch_step(self, entry: int, seq_ids: Sequence[str], tokens: Sequence[int]):
+        """One entry's part of a step, under the entry's device scope: its
+        program launched over its rows; returns (program outputs, b_pad,
+        t_pad)."""
+        pool = self.pools[entry]
+        bs = pool.block_size
+        t_pad = bucket_dim(max(pool.sequence_length(s) for s in seq_ids), self._len_ladder, divisor=bs)
+        b_pad = bucket_batch(len(seq_ids))
+        toks = np.zeros((b_pad,), np.int64)
+        toks[: len(seq_ids)] = np.asarray(tokens, np.int64)
+        program = self._step_program(b_pad, t_pad, entry)
+        table, lengths = pool.block_table(list(seq_ids), t_pad, pad_batch=b_pad)
+        return program(tokens=toks, lengths=lengths, table=table), b_pad, t_pad
+
+    def _step_entries(self, seq_ids: Sequence[str], tokens: Sequence[int]) -> tuple[np.ndarray, list]:
+        """A step over several entries: the rows grouped by the entry each
+        sequence is pinned to, every entry's program launched before any
+        readback; the logits in the caller's row order and each entry's
+        (batch bucket, KV bucket)."""
+        rows: dict[int, list[int]] = {}
+        for r, sid in enumerate(seq_ids):
+            rows.setdefault(self._entry_of(sid), []).append(r)
+        launched = {}
+        for e, rs in sorted(rows.items()):
+            with self._device_scope(e):
+                launched[e] = self._launch_step(e, [seq_ids[r] for r in rs], [tokens[r] for r in rs])
+        logits = np.empty((len(seq_ids), self.config.vocab), np.float32)
+        for e, ((out, k_new, v_new), _, _) in launched.items():
+            rs = rows[e]
+            with self._device_scope(e):
+                logits[rs] = out[: len(rs)].cpu().numpy()
+                self.pools[e].append_batch([seq_ids[r] for r in rs], k_new[:, : len(rs)], v_new[:, : len(rs)])
+        return logits, [(b, t) for _, b, t in launched.values()]
+
     def step(self, seq_ids: Sequence[str], tokens: Sequence[int]) -> list[int]:
         """Advance a co-batch one token. ``tokens[i]`` is the last
         generated token of ``seq_ids[i]`` (not yet in the cache); its KV
         is computed here and appended. Returns the next greedy token per
-        sequence. The decode hot path: one host-to-device copy (tokens,
-        lengths, block table), one graph replay, the logits back, and one
-        indexed KV write per pool."""
+        sequence, in the caller's order. The decode hot path, per entry
+        holding rows: one host-to-device copy (tokens, lengths, block
+        table), one graph replay, the logits back, and one indexed KV write
+        per pool. At dp = 1 the rows are not grouped."""
         width = len(self.devices)
         t0 = time.monotonic()
         try:
             B = len(seq_ids)
             if B == 0:
                 return []
-            bs = self.kv.block_size
-            lengths_now = [self.kv.sequence_length(s) for s in seq_ids]
-            t_pad = bucket_dim(max(lengths_now), self._len_ladder, divisor=bs)
-            b_pad = bucket_batch(B, multiple_of=self.dp)
-            toks = np.zeros((b_pad,), np.int64)
-            toks[:B] = np.asarray(tokens, np.int64)
-            with self._lock, self._device_scope():
-                program = self._step_program(b_pad, t_pad)
-                table, lengths = self.kv.block_table(list(seq_ids), t_pad, pad_batch=b_pad)
-                logits, k_new, v_new = program(tokens=toks, lengths=lengths, table=table)
-                logits = logits[:B].cpu().numpy()
-                self.kv.append_batch(seq_ids, k_new[:, :B], v_new[:, :B])
+            with self._lock:
+                if len(self.pools) == 1:
+                    # one entry: the co-batch is its rows, in the caller's order
+                    with self._device_scope(0):
+                        (out, k_new, v_new), b_pad, t_pad = self._launch_step(0, seq_ids, tokens)
+                        logits = out[:B].cpu().numpy()
+                        self.pools[0].append_batch(seq_ids, k_new[:, :B], v_new[:, :B])
+                    buckets = [(b_pad, t_pad)]
+                else:
+                    logits, buckets = self._step_entries(seq_ids, tokens)
             out = [int(t) for t in np.argmax(logits, axis=-1)]
             ctx = tracing.current_trace()
             if ctx is not None and ctx.sampled:
@@ -581,8 +688,8 @@ class DecodeEngine:
                     "decode.step",
                     model=self.model_id,
                     batch=B,
-                    batch_bucket=b_pad,
-                    kv_bucket=t_pad,
+                    batch_bucket=max(b for b, _ in buckets),
+                    kv_bucket=max(t for _, t in buckets),
                     mesh=self._mesh_key,
                 ) as record:
                     record["attrs"]["chip_seconds"] = round(
@@ -594,11 +701,13 @@ class DecodeEngine:
 
     def finish(self, seq_id: str) -> None:
         """Release a sequence's KV blocks (idempotent)."""
-        self.kv.unpin(seq_id)
-        self.kv.free(seq_id)
+        with self._lock:
+            entry = self._entry.pop(seq_id, None)
+        for pool in self.pools if entry is None else [self.pools[entry]]:
+            pool.unpin(seq_id)
+            pool.free(seq_id)
 
     def describe(self) -> dict:
-        placement = self._placement_key
         return {
             "model_id": self.model_id,
             "device_ids": [d.index or 0 for d in self.devices],
@@ -608,10 +717,9 @@ class DecodeEngine:
             "config": dataclasses.asdict(self.config),
             "device": str(self.device),
             "precision": "float32, TF32 off",
-            "programs": sum(1 for k in self.cache.keys() if k[-1] == placement),
+            "programs": sum(1 for k in self.cache.keys() if self._owns(k)),
         }
 
     def close(self) -> None:
         """Drop this engine's programs (their graphs hold device memory)."""
-        placement = self._placement_key
-        self.cache.evict(lambda key: key[-1] == placement)
+        self.cache.evict(self._owns)

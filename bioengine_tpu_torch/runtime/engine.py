@@ -37,6 +37,14 @@ Zero-padding to buckets perturbs models whose normalisation uses
 spatially global statistics (GroupNorm): padded zeros enter the moments,
 as in the JAX engine. Feed exact bucket sizes when bit-faithful outputs
 matter.
+
+With ``tp`` > 1 (``tp=`` and ``tp_rules=``, or ``mesh_axes={"dp": a,
+"tp": b}``) the group is a (dp, tp) mesh and each dp shard drives its tp
+group: a copy of the model whose layers the rules match hold the group's
+Megatron slices (``parallel/tensor_parallel.py``). A shard whose tp group
+is one device (a stacked group) replays a CUDA graph; a group over several
+cards runs its forward eagerly, since a graph cannot hold the copies
+between them.
 """
 
 from __future__ import annotations
@@ -62,6 +70,12 @@ from bioengine_tpu_torch.runtime.buckets import (
     pad_to,
 )
 from bioengine_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from bioengine_tpu_torch.parallel.tensor_parallel import (
+    reshard_into,
+    shard_params,
+    tp_group_modules,
+    tp_groups,
+)
 from bioengine_tpu_torch.runtime.devices import (
     DeviceLike,
     mesh_cache_tag,
@@ -194,6 +208,24 @@ class _GraphProgram:
         return _Readback(host, [self.replay_into(host)])
 
 
+class _EagerProgram(_GraphProgram):
+    """Card program of a tp group over several cards: a CUDA graph cannot
+    hold the group's copies between cards, so each call runs the forward
+    eagerly over the same fixed input buffer."""
+
+    def __init__(self, module: nn.Module, static_in: torch.Tensor, static_out: torch.Tensor):
+        super().__init__(None, static_in, static_out)
+        self.module = module
+
+    def replay_into(self, host: torch.Tensor) -> torch.cuda.Event:
+        with torch.cuda.device(self.static_in.device), torch.no_grad():
+            out = self.module(self.static_in)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return done
+
+
 class _ShardedGraphProgram:
     """Card program over a device group: one graph per shard, each
     captured on its device; the outputs land in one pinned host buffer in
@@ -241,6 +273,8 @@ class InferenceEngine:
         device: DeviceLike = None,
         devices: Optional[Sequence[DeviceLike]] = None,
         device_ids: Optional[Sequence[int]] = None,
+        tp: int = 1,
+        tp_rules: Optional[Sequence] = None,
         mesh_axes: Optional[Mapping[str, int]] = None,
     ):
         self.model_id = model_id
@@ -257,9 +291,16 @@ class InferenceEngine:
             self.devices = resolve_devices(device_ids, device)
             self.device_ids = [int(i) for i in device_ids] if device_ids else [self.devices[0].index or 0]
         n = len(self.devices)
+        if mesh_axes is not None and int(tp) > 1:
+            # two sources of truth for the tp width would shadow each other
+            raise ValueError(
+                "pass tp inside mesh_axes (e.g. {'dp': -1, 'tp': 2}) "
+                "or as the tp= argument — not both"
+            )
         if mesh_axes is not None:
-            # a hardware-neutral axes spec ({"dp": -1}) resolved over the
-            # group this engine got, as the JAX engine resolves it
+            # a hardware-neutral axes spec ({"dp": -1}, {"dp": -1, "tp": 2})
+            # resolved over the group this engine got, as the JAX engine
+            # resolves it
             sizes = MeshSpec(dict(mesh_axes)).resolve(n)
             unknown = sorted(set(sizes) - {"dp", "tp"})
             if unknown:
@@ -269,17 +310,37 @@ class InferenceEngine:
                     "weights over 'tp'; pipeline stages live ABOVE the "
                     "engine, in the cross-host plan)"
                 )
-            if sizes.get("tp", 1) > 1:
-                raise NotImplementedError(
-                    f"mesh_axes {dict(mesh_axes)}: tensor parallelism is not "
-                    "ported yet (ROADMAP A10b)"
-                )
-        self.dp = n
+            tp = sizes.get("tp", 1)
+        self.tp = max(int(tp), 1)
+        if n % self.tp:
+            raise ValueError(f"tp={self.tp} does not divide the {n}-chip group")
+        if self.tp > 1 and not tp_rules:
+            # tp exists to SHARD the weights; replicating them instead
+            # would hand a caller who asked for tp a full copy per device
+            raise ValueError(
+                f"tp={self.tp} requested without tp_rules — pass rules "
+                "(e.g. parallel.tensor_parallel.VIT_TP_RULES) or "
+                "drop the tp axis"
+            )
+        self.dp = n // self.tp
         self.device = self.devices[0]
         # the one-device "mesh" is the single-device path: same programs
-        self.mesh = make_mesh({"dp": n}, self.devices) if n > 1 else None
-        self.module = module.to(self.device).eval().requires_grad_(False)
-        self.replicas = [self.module] + [copy.deepcopy(self.module).to(d) for d in self.devices[1:]]
+        axes = {"dp": self.dp, **({"tp": self.tp} if self.tp > 1 else {})}
+        self.mesh = make_mesh(axes, self.devices) if n > 1 else None
+        if self.tp > 1:
+            # each dp shard drives its tp group: a copy of the model whose
+            # matched layers hold the group's slices, the rest on the
+            # group's first device. The module itself stays where it is.
+            self.module = module.eval().requires_grad_(False)
+            self.params, _ = shard_params(self.mesh, self.module, tp_rules)
+            self.replicas = tp_group_modules(self.module, self.mesh, self.params)
+            groups = tp_groups(self.mesh)
+        else:
+            self.module = module.to(self.device).eval().requires_grad_(False)
+            self.replicas = [self.module] + [copy.deepcopy(self.module).to(d) for d in self.devices[1:]]
+            groups = [[e] for e in range(n)]
+        # each dp shard's devices; its program runs on the first
+        self.shard_groups = [[self.devices[e] for e in g] for g in groups]
         self.pipeline_stats = PipelineStats(depth=self.config.pipeline_depth)
         self._staging_pool = StagingPool(pinned=self.device.type == "cuda")
         self._dispatcher = DispatchExecutor(f"dispatch-{model_id}")
@@ -300,12 +361,12 @@ class InferenceEngine:
 
     @property
     def mesh_shape(self) -> Optional[dict[str, int]]:
-        """{"dp": N} over a group, None on one device."""
+        """{"dp": N[, "tp": M]} over a group, None on one device."""
         return self.mesh.shape if self.mesh is not None else None
 
     @property
     def _mesh_key(self) -> str:
-        return mesh_cache_tag(self.dp)
+        return mesh_cache_tag(self.dp, self.tp)
 
     @property
     def _placement_key(self) -> str:
@@ -329,11 +390,15 @@ class InferenceEngine:
 
     def complete_param_streaming(self, state_dict) -> None:
         """Copy the real checkpoint into the module's existing tensors
-        (addresses unchanged, so captured graphs stay valid) and release
-        gated predictions."""
+        (addresses unchanged, so captured graphs stay valid), re-sharded by
+        the tp rules on a tp engine, and release gated predictions."""
         with self._params_lock, torch.no_grad():
-            for replica, dev in zip(self.replicas, self.devices):
-                replica.load_state_dict(state_dict)
+            if self.tp > 1:
+                reshard_into(self.params, state_dict)
+            else:
+                for replica in self.replicas:
+                    replica.load_state_dict(state_dict)
+            for dev in dict.fromkeys(self.devices):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
         self._params_ready.set()
@@ -430,17 +495,21 @@ class InferenceEngine:
             build = lambda: _ForwardProgram(self.replicas)  # noqa: E731
         return self.cache.get_or_compile(self.program_key(shape, dtype), build)
 
-    def _capture_group(self, shape: tuple[int, ...], dtype):
-        """One graph on one device; over a group, one graph per shard,
-        each captured on its own device."""
-        if self.dp == 1:
-            return self._capture(shape, dtype, self.module, self.device)
+    def _capture_group(self, shape: tuple[int, ...], dtype, eager: bool = False):
+        """One program per dp shard, each built on its shard's first device:
+        a graph where the shard's devices are one (a stacked tp group too),
+        else an eager forward (a graph cannot hold a tp group's copies
+        between cards). ``eager=True`` builds the eager form for every
+        shard, so one card can run and time the programs a group across
+        cards gets."""
         if shape[0] % self.dp:
             raise ValueError(f"batch {shape[0]} does not split into dp={self.dp} equal shards")
         shard = (shape[0] // self.dp, *shape[1:])
-        return _ShardedGraphProgram(
-            [self._capture(shard, dtype, m, d) for m, d in zip(self.replicas, self.devices)]
-        )
+        programs = [
+            self._eager(shard, dtype, m, g[0]) if eager or len(set(g)) > 1 else self._capture(shard, dtype, m, g[0])
+            for m, g in zip(self.replicas, self.shard_groups)
+        ]
+        return programs[0] if self.dp == 1 else _ShardedGraphProgram(programs)
 
     def _capture(self, shape: tuple[int, ...], dtype, module: nn.Module, dev: torch.device) -> _GraphProgram:
         with CAPTURE_LOCK, self._params_lock, torch.cuda.device(dev), torch.no_grad():
@@ -458,6 +527,15 @@ class InferenceEngine:
                 static_out = module(static_in)
             torch.cuda.synchronize(dev)
         return _GraphProgram(graph, static_in, static_out)
+
+    def _eager(self, shape: tuple[int, ...], dtype, module: nn.Module, dev: torch.device) -> "_EagerProgram":
+        # no_grad, not inference_mode: ``put`` copies each chunk into the
+        # fixed input in place, which an inference tensor refuses
+        with self._params_lock, torch.cuda.device(dev), torch.no_grad():
+            static_in = torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)
+            static_out = module(static_in)
+            torch.cuda.synchronize(dev)
+        return _EagerProgram(module, static_in, static_out)
 
     def _launch(self, program, staged: np.ndarray):
         """Copy the staged chunk in and launch it; returns the handle and

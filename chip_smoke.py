@@ -276,8 +276,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    bit; (c) ``resolve_devices([0], "cuda")``, and a
    two-id lease refused on a one-card machine; ms per request, images/s
    and ms per step for each; one ``data_parallel`` JSON line;
-20. one JSON line of the kernels' numbers;
-21. the result line ``{"ok": true, "device": {...}}``, printed last.
+20. the rest of the parallel layer (slice 15), ``phase_parallel_layer``,
+   each multi-device leg on a stacked mesh of ``cuda:0`` entries: (a)
+   ``DecodeEngine`` dp: the repo's decoder at dp = 1 through the mesh and
+   at dp = 2 gives the fixture's greedy tokens; the 768 x 12 decoder with
+   8 concurrent sequences of mixed prompt lengths through ``DecodeLoop``,
+   dp = 2 tokens equal dp = 1's bit for bit, step logits within 1e-5,
+   every pool drained; (b) tensor parallelism: ViT-B/14 bf16, bucket 64,
+   ``VIT_TP_RULES`` through ``InferenceEngine`` at tp = 2 and dp 2 x tp 2:
+   min cosine 0.999 to one device, ``shard_fraction`` < 0.6, 24 and 48
+   flash launches per eager forward and as many ``flash_attn`` kernels in
+   its profiler trace; UNet2D (32, 64, 128, 256) bf16 with
+   ``CONV_TP_RULES`` at tp = 2 within phase 7's bf16 bound; (c) spatial:
+   UNet3D (16, 32, 64) on 96 x 256^2 depth-split over sp = 2 (halo 16)
+   against the haloed blocks built on the host, and an f32 conv stack's
+   interior within 1e-4 of the unsharded forward; (d) ring attention in
+   the ViT-B/14 f32 ``attn_fn`` slot at 518^2 (1,370 tokens) within 1e-4
+   of the inline attention, beside the flash path, peak memory each; (e)
+   ``ShardedKnnIndex`` over the seeded 1M x 768 corpus, top-10 ids equal to
+   ``topk_inner_product``'s apart from ties; one ``parallel_layer`` JSON
+   line;
+21. one JSON line of the kernels' numbers;
+22. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -355,7 +375,7 @@ from bioengine_tpu_torch.models.unet3d import UNet3D
 from bioengine_tpu_torch.models.vit import ViT
 from bioengine_tpu_torch.ops import _build, attention
 from bioengine_tpu_torch.ops import kmeans
-from bioengine_tpu_torch.ops.knn import pq_scan_topk, topk_inner_product
+from bioengine_tpu_torch.ops.knn import ShardedKnnIndex, pq_scan_topk, topk_inner_product
 from bioengine_tpu_torch.ops.flows import (
     FLOW_SCALE,
     aggregate_orthogonal_flows,
@@ -383,9 +403,12 @@ from bioengine_tpu_torch.runtime.convert import (
 from bioengine_tpu_torch.runtime.buckets import bucket_batch, bucket_dim
 from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
 from bioengine_tpu_torch.runtime.devices import resolve_devices
-from bioengine_tpu_torch.runtime.engine import InferenceEngine, _tile_starts
+from bioengine_tpu_torch.runtime.engine import GRAPH_WARMUP_ITERS, EngineConfig, InferenceEngine, _tile_starts
 from bioengine_tpu_torch.parallel.data_parallel import Shards, data_parallel_step, replicate, shard_batch
 from bioengine_tpu_torch.parallel.mesh import make_mesh, sharding
+from bioengine_tpu_torch.parallel.ring import make_ring_attention
+from bioengine_tpu_torch.parallel.spatial import spatial_shard_apply
+from bioengine_tpu_torch.parallel.tensor_parallel import CONV_TP_RULES, VIT_TP_RULES, shard_fraction
 from bioengine_tpu_torch.runtime.decode_engine import (
     DecodeEngine,
     DecoderConfig,
@@ -5896,6 +5919,431 @@ def phase_data_parallel(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 15: the rest of the parallel layer ---------------------------------------
+PL_DECODE_PROMPTS = (5, 12, 23, 31, 40, 57, 64, 90)  # 8 concurrent sequences, mixed prompt lengths
+PL_DECODE_NEW = 24  # new tokens each
+PL_DECODE_LOGITS_TOL = 1e-5  # stacked dp = 2 step logits against dp = 1
+PL_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 bf16 at full width, a bucket of BUCKET
+PL_TP_MIN_COS = DP_EMBED_MIN_COS
+PL_SHARD_FRACTION = 0.6
+PL_UNET_FEATURES = UNET2D_FEATURES  # CONV_TP_RULES over UNet2D, bf16
+PL_UNET_DIRECT = (8, 512)
+PL_UNET3D_FEATURES = UNET3D_FEATURES
+PL_VOLUME = VOLUME  # the model-runner's volume, depth-split over sp = 2
+PL_HALO = 16  # >= UNet3D (16, 32, 64)'s receptive radius in depth at z strides (1, 2): 14 slices
+PL_SPATIAL_DEF_TOL = 1e-3  # against the haloed blocks built on the host, share of max |ref|
+PL_STACK_FEATURES = 64  # the f32 three-layer 3x3x3 conv + SiLU stack
+PL_STACK_RADIUS = 3
+PL_STACK_TOL = 1e-4
+PL_RING_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 f32 (TF32 off) at 518^2: 37^2 + 1 = 1370 tokens
+PL_RING_SIZE = 518
+PL_RING_BUCKET = 8
+PL_RING_TOL = 1e-4
+PL_KNN_QUERIES = 64
+PL_KNN_K = 10
+PL_KNN_SCORE_TOL = 2.0 ** -8  # bf16 resolution at unit scores
+PL_REPEATS = 3
+
+
+def _entry_step_logits(engine: DecodeEngine, ids: list, toks: list) -> np.ndarray:
+    """One co-batch step's logits in the caller's row order, the engine's
+    step stopped before its KV writes (rows grouped by the entry each
+    sequence is pinned to)."""
+    rows: dict = {}
+    for r, sid in enumerate(ids):
+        rows.setdefault(engine._entry_of(sid), []).append(r)
+    out = np.empty((len(ids), engine.config.vocab), np.float32)
+    for e, rs in sorted(rows.items()):
+        with engine._device_scope(e):
+            (logits, _, _), _, _ = engine._launch_step(e, [ids[r] for r in rs], [toks[r] for r in rs])
+            out[rs] = logits[: len(rs)].cpu().numpy()
+    return out
+
+
+async def _pl_decode_loop(engine: DecodeEngine, prompts: list) -> tuple[list, float]:
+    loop = DecodeLoop(engine, name="smoke-pl", max_active=len(prompts), interactive_reserve=0)
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[_drain_timed(loop.submit(p, PL_DECODE_NEW, klass="bulk")) for p in prompts])
+    wall = time.perf_counter() - t0
+    await loop.close()
+    toks = [o["tokens"] for o in outs]
+    return toks, sum(len(t) for t in toks) / wall
+
+
+def _pl_decode(card: str, device: str, dev0: torch.device, fx: dict) -> dict:
+    r: dict = {}
+    golden = fx["greedy_tokens"].tolist()
+    for key, devices in (("dp1", [dev0]), ("dp2", [dev0, dev0])):
+        engine = DecodeEngine(model_id=f"pl-golden-{key}", devices=devices, mesh_axes={"dp": -1},
+                              cache=CompiledProgramCache())
+        toks = [engine.prefill("golden", [int(t) for t in fx["prompt"]])]
+        while len(toks) < len(golden):
+            toks.extend(engine.step(["golden"], [toks[-1]]))
+        engine.finish("golden")
+        check(toks == golden, f"golden decoder at {key}: {toks} != the fixture's {golden}")
+        check(engine.kv.stats["blocks_in_use"] == 0, f"golden decoder at {key}: kv not drained")
+        engine.close()
+    params = init_decoder_params(SEED, DECODE_WIDE)
+    rng = np.random.default_rng(SEED + 15)
+    prompts = [[int(t) for t in rng.integers(32, 127, n)] for n in PL_DECODE_PROMPTS]
+    tokens, per_s, blocks, programs, logits = {}, {}, {}, {}, {}
+    for key, devices in (("dp1", [dev0]), ("dp2", [dev0, dev0])):
+        engine = DecodeEngine(model_id=f"pl-wide-{key}", params=params, config=DECODE_WIDE, devices=devices,
+                              mesh_axes={"dp": -1}, cache=CompiledProgramCache(64))
+        asyncio.run(_pl_decode_loop(engine, prompts))  # builds the buckets' programs
+        tokens[key], per_s[key] = asyncio.run(_pl_decode_loop(engine, prompts))
+        ids = [f"l{i}" for i in range(len(prompts))]
+        first = [engine.prefill(sid, p) for sid, p in zip(ids, prompts)]
+        blocks[key] = [p.stats["blocks_in_use"] for p in engine.pools]
+        logits[key] = _entry_step_logits(engine, ids, first)
+        for sid in ids:
+            engine.finish(sid)
+        drained = [p.stats["blocks_in_use"] for p in engine.pools]
+        check(drained == [0] * len(devices), f"wide decoder at {key}: pools hold {drained} blocks after the runs")
+        programs[key] = engine.describe()["programs"]
+        engine.close()
+    check(tokens["dp2"] == tokens["dp1"], "wide decoder: stacked dp = 2 tokens differ from dp = 1")
+    err = float(np.abs(logits["dp2"] - logits["dp1"]).max())
+    check(err <= PL_DECODE_LOGITS_TOL, f"wide decoder: step logits max abs {err} over {PL_DECODE_LOGITS_TOL}")
+    check(sum(blocks["dp2"]) == sum(blocks["dp1"]) and min(blocks["dp2"]) > 0,
+          f"wide decoder: blocks per device {blocks}")
+    r.update(tokens_per_s=per_s, blocks_per_device=blocks, programs=programs, step_logits_err=err)
+    print(f"[{card}] parallel layer decode: DecoderConfig() at dp = 1 through the mesh and stacked dp = 2 "
+          f"[{dev0}, {dev0}] gives the fixture's {len(golden)} greedy tokens; {dataclasses.asdict(DECODE_WIDE)} "
+          f"with {len(prompts)} concurrent sequences (prompts {list(PL_DECODE_PROMPTS)}, {PL_DECODE_NEW} new "
+          f"tokens each) through DecodeLoop: stacked dp = 2 tokens equal dp = 1's bit for bit, step logits max "
+          f"abs {err:.3g} (bound {PL_DECODE_LOGITS_TOL}), blocks per device after prefill {blocks}, every pool "
+          f"drained to 0; tokens/s (host, warm) {json.dumps({k: round(v, 3) for k, v in per_s.items()})}; "
+          f"programs {programs}")
+    return r
+
+
+def _min_cosine(a: np.ndarray, b: np.ndarray) -> float:
+    """The least cosine between matching rows of ``a`` and ``b``."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    return float((np.sum(a * b, 1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)).min())
+
+
+def _pl_tp(card: str, device: str, dev0: torch.device, rng) -> dict:
+    r: dict = {}
+    vit = ViT(attn_fn=attention.make_attn_fn(), **PL_VIT)
+    vit.reset_parameters(SEED)
+    x = rng.standard_normal((BUCKET, 224, 224, 3)).astype(np.float32)
+    cfg = EngineConfig(ladder=(224,))
+    meshes = {"single": dict(device=device), "tp2": dict(devices=[dev0] * 2, mesh_axes={"tp": 2}),
+              "dp2tp2": dict(devices=[dev0] * 4, mesh_axes={"dp": 2, "tp": 2})}
+    engines = {k: InferenceEngine("pl-vit", vit, config=cfg, cache=CompiledProgramCache(),
+                                  tp_rules=VIT_TP_RULES if k != "single" else None, **kw)
+               for k, kw in meshes.items()}
+    want = {"tp2": 2 * VIT_DEPTH, "dp2tp2": 4 * VIT_DEPTH} if device == "cuda" else {"tp2": 0, "dp2tp2": 0}
+    # a graph replay does not call the kernel's wrapper: building a shard's
+    # program runs its forward GRAPH_WARMUP_ITERS times and captures it once
+    want_build = {k: (GRAPH_WARMUP_ITERS + 1) * v for k, v in want.items()}
+    emb, ms, eager_ms, per_forward, build, traced, replay_traced, fraction = {}, {}, {}, {}, {}, {}, {}, {}
+    eager_cos, eager_vs_graph = {}, {}
+    bucket = (BUCKET, 224, 224, 3)
+    try:
+        for key, engine in engines.items():
+            before = attention.launch_count
+            emb[key] = engine.predict(x)
+            built = attention.launch_count - before
+            t0 = time.perf_counter()
+            for _ in range(PL_REPEATS):
+                engine.predict(x)
+            ms[key] = (time.perf_counter() - t0) * 1e3 / PL_REPEATS
+            if key == "single":
+                continue
+            build[key] = built
+            check(engine.mesh_shape == {"dp": engine.dp, "tp": 2}, f"{key}: mesh {engine.mesh_shape}")
+            fraction[key] = shard_fraction(engine.params)
+            check(fraction[key] < PL_SHARD_FRACTION, f"{key}: shard_fraction {fraction[key]}")
+            # the engine's eager programs, which a tp group across cards gets,
+            # built on this stacked group (a CPU engine's program is eager)
+            eager = (engine._capture_group(bucket, np.float32, eager=True) if device == "cuda"
+                     else engine._program(bucket, np.float32))
+            run_eager = lambda: engine._launch(eager, x)[0].result()  # noqa: E731
+            before = attention.launch_count
+            out = run_eager()
+            per_forward[key] = attention.launch_count - before
+            eager_vs_graph[key] = float(np.abs(out.astype(np.float32) - emb[key].astype(np.float32)).max())
+            eager_cos[key] = _min_cosine(out, emb["single"])
+            eager_ms[key] = _device_ms(device, run_eager, iters=PL_REPEATS)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_pl_") as root:
+                replay_traced[key] = _dp_trace_flash(card, lambda: engine.predict(x), device,
+                                                     os.path.join(root, f"{key}-replay.json"))
+                traced[key] = _dp_trace_flash(card, run_eager, device, os.path.join(root, f"{key}-eager.json"))
+    finally:
+        for engine in engines.values():
+            engine.close()
+    check(build == want_build, f"flash_attn_fwd launches building the tp engines' graphs {build}, "
+          f"expected {want_build}")
+    check(replay_traced == want, f"flash_attn kernels in the traces of one engine.predict (graph replays) "
+          f"{replay_traced}, expected {want}")
+    check(per_forward == want, f"flash_attn_fwd launches per eager tp forward {per_forward}, expected {want}")
+    check(traced == want, f"flash_attn kernels in the traces of one eager tp forward {traced}, expected {want}")
+    for key, c in eager_cos.items():
+        check(c >= PL_TP_MIN_COS, f"ViT {key} eager programs: min cosine {c} to one device, bound {PL_TP_MIN_COS}")
+    cos = {}
+    for key in ("tp2", "dp2tp2"):
+        a, b = emb[key], emb["single"]
+        cos[key] = _min_cosine(a, b)
+        check(a.shape == b.shape and cos[key] >= PL_TP_MIN_COS,
+              f"ViT {key}: min cosine {cos[key]} to one device, bound {PL_TP_MIN_COS}")
+    images_per_s = {k: BUCKET / (v / 1e3) for k, v in ms.items()}
+    r.update(vit_min_cos=cos, shard_fraction=fraction, build_launches=build, replay_traced=replay_traced,
+             launches_per_forward=per_forward, traced=traced, eager_min_cos=eager_cos, eager_vs_graph=eager_vs_graph,
+             vit_ms_per_request=ms, vit_eager_ms=eager_ms, vit_images_per_s=images_per_s)
+    print(f"[{card}] parallel layer tp: ViT-B/14 bf16, bucket {BUCKET}, VIT_TP_RULES through InferenceEngine "
+          f"at {{'tp': 2}} on [{dev0}] x 2 and {{'dp': 2, 'tp': 2}} on [{dev0}] x 4 (stacked): min cosine to one "
+          f"device {json.dumps({k: round(v, 6) for k, v in cos.items()})} (bound {PL_TP_MIN_COS}); "
+          f"shard_fraction {json.dumps({k: round(v, 4) for k, v in fraction.items()})} (bound "
+          f"{PL_SHARD_FRACTION}); flash_attn_fwd launches building the graphs {build} ({GRAPH_WARMUP_ITERS} "
+          f"warm-up forwards and a capture), flash_attn kernels in a profiler trace of one engine.predict (graph "
+          f"replays) {replay_traced}; the engine's eager programs on the same group: launches per forward "
+          f"{per_forward}, kernels in a trace of one {traced}, min cosine to one device "
+          f"{json.dumps({k: round(v, 6) for k, v in eager_cos.items()})}, max abs to the graphs' output "
+          f"{json.dumps(eager_vs_graph)}; ms per request (host, graph replays, mean of {PL_REPEATS}) "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}, eager ms per request (CUDA events) "
+          f"{json.dumps({k: round(v, 3) for k, v in eager_ms.items()})}, "
+          f"images/s {json.dumps({k: round(v, 3) for k, v in images_per_s.items()})}")
+
+    unet = UNet2D(features=PL_UNET_FEATURES)
+    unet.reset_parameters(SEED)
+    n, size = PL_UNET_DIRECT
+    direct = rng.standard_normal((n, size, size, 1), np.float32)
+    single = InferenceEngine("pl-unet", unet, divisor=unet.divisor, cache=CompiledProgramCache(), device=device)
+    tp2 = InferenceEngine("pl-unet", unet, divisor=unet.divisor, cache=CompiledProgramCache(),
+                          devices=[dev0] * 2, mesh_axes={"tp": 2}, tp_rules=CONV_TP_RULES)
+    out, unet_ms = {}, {}
+    try:
+        for key, engine in (("single", single), ("tp2", tp2)):
+            out[key] = engine.predict(direct)
+            t0 = time.perf_counter()
+            for _ in range(PL_REPEATS):
+                engine.predict(direct)
+            unet_ms[key] = (time.perf_counter() - t0) * 1e3 / PL_REPEATS
+        unet_fraction = shard_fraction(tp2.params)
+    finally:
+        single.close()
+        tp2.close()
+    err = float(np.abs(out["tp2"] - out["single"]).max())
+    bound = MR_BF16_VS_F32 * float(np.abs(out["single"]).max())
+    check(out["tp2"].shape == out["single"].shape and err <= bound,
+          f"UNet2D CONV_TP_RULES tp = 2: max abs {err} to one device over {bound}")
+    r.update(unet_err=err, unet_bound=bound, unet_ms=unet_ms, unet_shard_fraction=unet_fraction)
+    print(f"[{card}] parallel layer tp: UNet2D {PL_UNET_FEATURES} bf16 with CONV_TP_RULES at tp = 2 (stacked), "
+          f"{n} x {size}^2: max abs {err:.4g} to one device (bound {bound:.4g}, phase 7's bf16 share of the "
+          f"output's range); shard_fraction {unet_fraction:.4f}; ms per request (host, mean of {PL_REPEATS}) "
+          f"{json.dumps({k: round(v, 3) for k, v in unet_ms.items()})}")
+    return r
+
+
+class _ConvStack(torch.nn.Module):
+    """Three 3x3x3 convolutions, each followed by SiLU, f32, channels-last
+    (B, D, H, W, C) in and out."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        from bioengine_tpu_torch.models.unet import Conv, reset_flax_scales
+
+        self.convs = torch.nn.ModuleList(
+            Conv(cin, features, (3, 3, 3), torch.float32) for cin in (1, features, features))
+        reset_flax_scales(self, SEED)
+
+    def forward(self, x):
+        y = x.movedim(-1, 1)
+        for conv in self.convs:
+            y = F.silu(conv(y))
+        return y.movedim(1, -1)
+
+
+def _pl_spatial(card: str, device: str, dev0: torch.device, rng) -> dict:
+    r: dict = {}
+    mesh = make_mesh({"sp": 2}, [dev0, dev0])
+    vol = rng.standard_normal(PL_VOLUME, np.float32)
+    xt = torch.from_numpy(vol).to(dev0)
+    unet = UNet3D(features=PL_UNET3D_FEATURES, z_strides=UNET3D_Z_STRIDES)
+    unet.reset_parameters(SEED)
+    replicas = replicate(mesh, unet.to(dev0).eval())
+    run = spatial_shard_apply(lambda m, blk: m(blk), mesh, halo=PL_HALO, rank=5)
+    with torch.no_grad():
+        sharded = run(replicas, xt)
+        # the definition: each zero-edged haloed block built on the host,
+        # run by one replica, cropped and concatenated
+        depth = vol.shape[1] // 2
+        padded = np.pad(vol, ((0, 0), (PL_HALO, PL_HALO), (0, 0), (0, 0), (0, 0)))
+        blocks = [unet(torch.from_numpy(padded[:, j * depth : j * depth + depth + 2 * PL_HALO]).to(dev0))
+                  for j in range(2)]
+        ref = torch.cat([b[:, PL_HALO:-PL_HALO] for b in blocks], dim=1)
+        whole = unet(xt)
+        unet_ms = _device_ms(device, lambda: run(replicas, xt), iters=PL_REPEATS)
+        whole_ms = _device_ms(device, lambda: unet(xt), iters=PL_REPEATS)
+    err = float((sharded.float() - ref.float()).abs().max())
+    bound = PL_SPATIAL_DEF_TOL * float(ref.float().abs().max())
+    check(sharded.shape == whole.shape and err <= bound,
+          f"UNet3D sp = 2: max abs {err} to the haloed blocks built on the host, over {bound}")
+    r_ = PL_HALO
+    interior = float((sharded.float() - whole.float())[:, r_:-r_].abs().max())
+    del sharded, ref, whole, blocks, replicas
+
+    stack = _ConvStack(PL_STACK_FEATURES).to(dev0).eval()
+    stack_replicas = replicate(mesh, stack)
+    run_stack = spatial_shard_apply(lambda m, blk: m(blk), mesh, halo=PL_STACK_RADIUS, rank=5)
+    with torch.no_grad():
+        got = run_stack(stack_replicas, xt)
+        want = stack(xt)
+        stack_ms = _device_ms(device, lambda: run_stack(stack_replicas, xt), iters=PL_REPEATS)
+        stack_whole_ms = _device_ms(device, lambda: stack(xt), iters=PL_REPEATS)
+    rr = PL_STACK_RADIUS
+    stack_err = float((got - want)[:, rr:-rr].abs().max())
+    check(got.shape == want.shape and stack_err <= PL_STACK_TOL,
+          f"f32 conv stack sp = 2: interior max abs {stack_err} over {PL_STACK_TOL}")
+    del got, want, stack_replicas
+    r.update(unet3d_err=err, unet3d_bound=bound, unet3d_interior_vs_whole=interior, unet3d_ms=unet_ms,
+             unet3d_whole_ms=whole_ms, stack_err=stack_err, stack_ms=stack_ms, stack_whole_ms=stack_whole_ms)
+    print(f"[{card}] parallel layer spatial: UNet3D {PL_UNET3D_FEATURES} bf16 on {PL_VOLUME} depth-split over "
+          f"stacked sp = 2 with halo {PL_HALO}: max abs {err:.4g} to the zero-edged haloed blocks built on the "
+          f"host (bound {bound:.4g}); {interior:.4g} to the unsharded forward beyond the halo (GroupNorm's "
+          f"statistics are per block); ms per volume (CUDA events) sharded {unet_ms:.3f}, whole {whole_ms:.3f}; "
+          f"the f32 3x3x3 conv + SiLU stack ({PL_STACK_FEATURES} features, TF32 off, halo {PL_STACK_RADIUS}): "
+          f"interior max abs {stack_err:.4g} to the unsharded forward (bound {PL_STACK_TOL}), ms per volume "
+          f"sharded {stack_ms:.3f}, whole {stack_whole_ms:.3f}")
+    return r
+
+
+def _pl_ring(card: str, device: str, dev0: torch.device, rng) -> dict:
+    mesh = make_mesh({"sp": 2}, [dev0, dev0])
+    dense = ViT(img_size=PL_RING_SIZE, dtype=torch.float32, softmax_dtype=torch.float32, **PL_RING_VIT)
+    dense.reset_parameters(SEED)
+    dense = dense.to(dev0).eval()
+    ring_fn = make_ring_attention(mesh)
+    flash_fn = attention.make_attn_fn()
+    x = torch.from_numpy(rng.standard_normal((PL_RING_BUCKET, PL_RING_SIZE, PL_RING_SIZE, 3), np.float32)).to(dev0)
+
+    def with_attn(fn):
+        for block in dense.blocks():
+            block.attn.attn_fn = fn
+
+    out, ms, peak = {}, {}, {}
+    with torch.no_grad():
+        for key, fn in (("inline", None), ("ring", ring_fn), ("flash", flash_fn)):
+            with_attn(fn)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            before = attention.launch_count
+            out[key] = dense(x)
+            if key == "ring":
+                check(attention.launch_count == before, "the ring path launched flash_attn_fwd")
+            peak[key] = (torch.cuda.max_memory_allocated() - base) if device == "cuda" else 0
+            ms[key] = _device_ms(device, lambda: dense(x), iters=2)
+        with_attn(None)
+    err = float((out["ring"] - out["inline"]).abs().max())
+    flash_err = float((out["flash"] - out["inline"]).abs().max())
+    check(out["ring"].shape == out["inline"].shape and err <= PL_RING_TOL,
+          f"ring ViT: max abs {err} to the inline attention over {PL_RING_TOL}")
+    tokens = (PL_RING_SIZE // 14) ** 2 + 1
+    print(f"[{card}] parallel layer ring: ViT-B/14 f32 (TF32 off) at {PL_RING_SIZE}^2 ({tokens} tokens), bucket "
+          f"{PL_RING_BUCKET}, make_ring_attention over stacked sp = 2 in the attn_fn slot: max abs {err:.4g} to "
+          f"the inline attention (bound {PL_RING_TOL}), the flash path {flash_err:.4g}; ms per forward (CUDA "
+          f"events) {json.dumps({k: round(v, 3) for k, v in ms.items()})}; peak memory above the start, bytes "
+          f"{json.dumps(peak)}")
+    return {"ring_err": err, "flash_err": flash_err, "ring_ms": ms, "ring_peak_bytes": peak, "tokens": tokens}
+
+
+def _pl_knn(card: str, device: str, dev0: torch.device) -> dict:
+    corpus = mixture_corpus(INDEX_N, INDEX_DIM, INDEX_CLUSTERS, SEED, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 15)
+    qids = torch.randperm(INDEX_N, generator=g, device=device)[:PL_KNN_QUERIES]
+    queries = corpus[qids] + torch.randn((PL_KNN_QUERIES, INDEX_DIM), generator=g, device=device) * 0.01
+    flat_s, flat_i = topk_inner_product(corpus.to(torch.bfloat16), queries, PL_KNN_K)
+    flat_s, flat_i = flat_s.cpu().numpy(), flat_i.cpu().numpy()
+    host = corpus.cpu().numpy()
+    q = queries.cpu().numpy()
+    del corpus
+    found, ms = {}, {}
+    for key, mesh in (("mesh_none", None), ("dp2", make_mesh({"dp": 2}, [dev0, dev0]))):
+        index = ShardedKnnIndex(host, mesh=mesh, device=device)
+        found[key] = index.search(q, PL_KNN_K)
+        t0 = time.perf_counter()
+        for _ in range(PL_REPEATS):
+            index.search(q, PL_KNN_K)
+        ms[key] = (time.perf_counter() - t0) * 1e3 / PL_REPEATS
+        del index
+    r = {"ms_per_batch": ms}
+    for key, (s, i) in found.items():
+        score_err = float(np.abs(s - flat_s).max())
+        ties = 0
+        for row in range(PL_KNN_QUERIES):
+            if set(i[row]) != set(flat_i[row]):
+                # ids may differ only where scores tie at the k-th place
+                kth = flat_s[row, -1]
+                odd = [c for c in range(PL_KNN_K) if i[row, c] not in set(flat_i[row])]
+                check(all(abs(s[row, c] - kth) <= PL_KNN_SCORE_TOL for c in odd),
+                      f"sharded index {key}: query {row} ids {i[row]} against {flat_i[row]}")
+                ties += 1
+        check(score_err <= PL_KNN_SCORE_TOL, f"sharded index {key}: scores max abs {score_err} over {PL_KNN_SCORE_TOL}")
+        r[key] = {"score_err": score_err, "rows_differing_by_ties": ties}
+    print(f"[{card}] parallel layer knn: phase_index's seeded {INDEX_N} x {INDEX_DIM} corpus (bf16) as "
+          f"ShardedKnnIndex over stacked dp = 2 and with mesh=None against topk_inner_product: top-{PL_KNN_K} ids "
+          f"equal apart from ties ({json.dumps({k: r[k]['rows_differing_by_ties'] for k in found})} rows), "
+          f"scores max abs {json.dumps({k: r[k]['score_err'] for k in found})} (bound {PL_KNN_SCORE_TOL}); ms "
+          f"per {PL_KNN_QUERIES}-query batch (host) {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return r
+
+
+def phase_parallel_layer(card: str, device: str = "cuda") -> dict:
+    """Slice 15: the rest of the parallel layer through its entry points at
+    full width, each multi-device leg on a stacked mesh of ``cuda:0``
+    entries (one card): (a) dp in the decode engine (the golden decoder at
+    dp = 1 and 2, the 768 x 12 decoder with 8 concurrent sequences through
+    ``DecodeLoop``); (b) tensor parallelism: ViT-B/14 bf16 through
+    ``InferenceEngine`` with ``VIT_TP_RULES`` at tp = 2 and dp 2 x tp 2 (the
+    flash kernel on every tp shard), UNet2D with ``CONV_TP_RULES``; (c)
+    spatial halo exchange: UNet3D depth-split over sp = 2, and an f32 conv
+    stack; (d) ring attention in the ViT's ``attn_fn`` slot at 1,370 tokens;
+    (e) the sharded FlatIP index over 1M rows. One ``parallel_layer`` JSON
+    line."""
+    t_phase = time.perf_counter()
+    dev0 = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    rng = np.random.default_rng(SEED + 15)
+    r: dict = {}
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    attention.launch_count = 0
+    legs_s: dict = {}
+    try:
+        for name, leg in (("decode", lambda: _pl_decode(card, device, dev0, dict(np.load(DECODE_FIXTURE)))),
+                          ("tp", lambda: _pl_tp(card, device, dev0, rng)),
+                          ("spatial", lambda: _pl_spatial(card, device, dev0, rng)),
+                          ("ring", lambda: _pl_ring(card, device, dev0, rng)),
+                          ("knn", lambda: _pl_knn(card, device, dev0))):
+            t0 = time.perf_counter()
+            r[name] = leg()
+            legs_s[name] = time.perf_counter() - t0
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    launches = attention.launch_count
+    if device == "cuda":
+        check(launches > 0, "the parallel layer's path launched flash_attn_fwd no time")
+    r["flash_attn_fwd_launches"] = launches
+    r["legs_s"] = legs_s
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] parallel layer: flash_attn_fwd launches {launches} on the path; legs (s) "
+          f"{json.dumps({k: round(v, 3) for k, v in legs_s.items()})}")
+    print(f"[{card}] parallel layer phase: {r['phase_s']:.3f} s")
+    out = {"card": card, "flash_attn_fwd_launches": launches,
+           "tp_launches_per_forward": r["tp"]["launches_per_forward"],
+           "decode_tokens_per_s": r["decode"]["tokens_per_s"], "vit_images_per_s": r["tp"]["vit_images_per_s"],
+           "ring_ms": r["ring"]["ring_ms"], "detail": r}
+    print("parallel_layer " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     # every controller this run starts keeps its compile-cache tier in a
     # temporary directory (the default is under the home directory)
@@ -5922,6 +6370,7 @@ def main() -> int:
     prefetch = phase_prefetch(card)
     checkpoints = phase_checkpoints(card)
     data_parallel = phase_data_parallel(card)
+    parallel_layer = phase_parallel_layer(card)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -5955,7 +6404,11 @@ def main() -> int:
                              # slice 14: the ViT embedder at dp = 1 through the
                              # mesh and on a stacked dp = 2 mesh (the U-Net and
                              # CellposeNet have no attention)
-                             "data_parallel": data_parallel["flash_attn_fwd_launches"]},
+                             "data_parallel": data_parallel["flash_attn_fwd_launches"],
+                             # slice 15: ViT-B/14 at tp = 2 and dp 2 x tp 2 (the
+                             # kernel on every tp shard), the f32 flash path beside
+                             # the ring; decode, spatial, ring and knn have none
+                             "parallel_layer": parallel_layer["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -10,8 +10,12 @@
   across KV-length buckets gives the JAX engine's tokens, with the same
   program keys per bucket and no new program on repeated traffic;
 - the JAX engine's ``ValueError`` for a ``tp`` axis and for a prompt
-  length out of range, and ``NotImplementedError`` for a multi-device
-  lease (ROADMAP A10).
+  length out of range;
+- dp (``tests/test_decode.py``'s mesh cases): the golden tokens on dp
+  meshes of 2, 4 and 8 CPU entries bit for bit, ``mesh_shape``,
+  ``chip_width`` and a lease of several ids; a mixed-length co-batch with
+  eviction across the per-entry pools gives the one-device engine's
+  tokens, each sequence pinned to the entry with the most free blocks.
 """
 
 from pathlib import Path
@@ -245,11 +249,64 @@ def test_engine_records_spans_and_chip_seconds():
 def test_mesh_rejects_unsupported_axes():
     with pytest.raises(ValueError, match="dp"):
         de.DecodeEngine(device="cpu", mesh_axes={"tp": -1})
+    with pytest.raises(ValueError, match="dp"):
+        de.DecodeEngine(devices=["cpu"] * 2, mesh_axes={"tp": -1})
     with pytest.raises(ValueError, match="not divisible"):
         de.DecodeEngine(device="cpu", mesh_axes={"dp": 2})
     assert de.DecodeEngine(device="cpu", mesh_axes={"dp": -1}).mesh_shape is None
-    with pytest.raises(NotImplementedError, match="A10"):
-        de.DecodeEngine(device="cpu", device_ids=[0, 1])
+    # a lease of several ids is a dp mesh, as in the JAX engine
+    engine = de.DecodeEngine(device="cpu", device_ids=[0, 1], mesh_axes={"dp": -1})
+    assert engine.mesh_shape == {"dp": 2} and engine.chip_width == 2 and len(engine.pools) == 2
+    assert engine._mesh_key == "dp2" and engine.describe()["device_ids"] == [0, 0]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_golden_tokens_on_dp_meshes(fx, n):
+    """``tests/test_decode.py``'s mesh parity: the same model over a dp
+    mesh gives the fixture's greedy tokens bit for bit."""
+    engine = de.DecodeEngine(model_id=f"golden-dp{n}", devices=["cpu"] * n, mesh_axes={"dp": -1},
+                             cache=CompiledProgramCache())
+    assert engine.mesh_shape == {"dp": n} and engine.chip_width == n
+    assert _engine_greedy(engine, fx["prompt"], 32) == fx["greedy_tokens"].tolist()
+    assert engine.kv.stats["sequences"] == 0
+
+
+def test_dp_co_batch_with_eviction_across_pools_matches_one_device():
+    """Eight sequences of mixed prompt lengths over dp = 2 with pools of 6
+    blocks of 8: each is pinned to the entry with the most free blocks, the
+    steps group rows by entry, idle sequences are evicted inside their
+    entry's pool, and every sequence's tokens equal its greedy tokens on
+    one device."""
+    prompts = [list(range(10 + i, 10 + i + n)) for i, n in enumerate((3, 9, 14, 5, 17, 2, 11, 7))]
+    engine = de.DecodeEngine(model_id="co2", devices=["cpu"] * 2, cache=CompiledProgramCache(),
+                             kv_block_size=8, kv_blocks=6)
+    toks = {f"s{i}": [engine.prefill(f"s{i}", p)] for i, p in enumerate(prompts[:4])}
+    assert engine._entry == {"s0": 0, "s1": 1, "s2": 0, "s3": 1}
+    for _ in range(6):
+        ids = list(toks)
+        for sid, t in zip(ids, engine.step(ids, [toks[s][-1] for s in ids])):
+            toks[sid].append(t)
+    for sid in ids:
+        for pool in engine.pools:
+            pool.unpin(sid)
+    # four more admissions evict idle sequences to make room
+    for i, p in enumerate(prompts[4:], start=4):
+        toks[f"s{i}"] = [engine.prefill(f"s{i}", p)]
+    live = [s for s in toks if engine.kv.has_sequence(s)]
+    assert live == ["s0", "s2", "s4", "s5", "s6", "s7"]
+    for sid, t in zip(live, engine.step(live, [toks[s][-1] for s in live])):
+        toks[sid].append(t)
+    stats = engine.kv.stats
+    assert stats["evictions"] > 0 and stats["blocks_total"] == 12
+    assert engine.describe()["kv"] == stats and len(engine.pools) == 2
+    for sid in toks:
+        engine.finish(sid)
+    assert engine.kv.stats["sequences"] == 0 and engine.kv.stats["blocks_in_use"] == 0
+    one = de.DecodeEngine(model_id="co1", device="cpu", cache=CompiledProgramCache(), kv_block_size=8)
+    for i, p in enumerate(prompts):
+        sid = f"s{i}"
+        if sid in live or i >= 4:
+            assert toks[sid] == _engine_greedy(one, p, len(toks[sid]), sid), sid
 
 
 def test_prompt_length_and_tokens_validated():

@@ -96,12 +96,26 @@ async def test_concurrent_streams_match_the_jax_app():
 
 @pytest.mark.anyio
 async def test_health_before_init_and_multi_device_lease():
+    """A multi-id lease without a mesh block is a dp mesh (``{"dp": -1}``,
+    as ``generate_deployment.py`` resolves it), whose concurrent streams
+    give the fixture's tokens; a tp axis is refused."""
+    fx = dict(np.load(FIXTURE))
     app = GenerateDeployment(device="cpu")
     with pytest.raises(RuntimeError, match="not initialized"):
         await app.check_health()
-    app.bioengine_device_ids = [0, 1]
-    with pytest.raises(NotImplementedError, match="A10"):
-        await app.async_init()
+    app.bioengine_device_ids = [0, 1, 2, 3]
+    await app.async_init()
+    try:
+        assert app.engine.mesh_shape == {"dp": 4} and app.engine.chip_width == 4
+        outs = await asyncio.gather(*(_stream(app, PROMPT, 16) for _ in range(3)))
+        for items in outs:
+            assert [i["token"] for i in items] == fx["greedy_tokens"][:16].tolist()
+        desc = await app.describe_engine()
+        assert desc["engine"]["mesh"] == {"dp": 4} and desc["engine"]["n_devices"] == 4
+        assert desc["engine"]["kv"]["sequences"] == 0 and desc["engine"]["kv"]["blocks_in_use"] == 0
+        assert len(app.engine.pools) == 4
+    finally:
+        await app.close()
     app = GenerateDeployment(device="cpu")
     app.bioengine_mesh_shard = {"axes": {"tp": -1}}
     with pytest.raises(ValueError, match="dp"):

@@ -59,6 +59,7 @@ from bioengine_tpu_torch.models.stardist import StarDist2D, make_stardist_train_
 from bioengine_tpu_torch.models.unet import UNet2D
 from bioengine_tpu_torch.parallel import data_parallel as dp
 from bioengine_tpu_torch.parallel import mesh
+from bioengine_tpu_torch.parallel.tensor_parallel import CONV_TP_RULES
 from bioengine_tpu_torch.runtime import convert
 from bioengine_tpu_torch.runtime.buckets import bucket_batch
 from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
@@ -162,8 +163,14 @@ def test_shard_batch_shapes_and_divisibility():
         dp.shard_batch(m4, np.zeros((6, 2)))
     with pytest.raises(ValueError):
         jax_dp.shard_batch(jax_mesh.make_mesh({"dp": 4}, jax.devices()[:4]), np.zeros((6, 2)))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        dp.shard_batch(mesh.make_mesh({"dp": 2, "tp": 2}, ["cpu"] * 4), np.zeros((4, 2)))
+    # over (dp 2, tp 2) the batch splits over dp and each part sits on
+    # both entries of its tp group, in JAX's addressable_shards order
+    x = np.arange(8, dtype=np.float32).reshape(4, 2)
+    ours = dp.shard_batch(mesh.make_mesh({"dp": 2, "tp": 2}, ["cpu"] * 4), x)
+    ref = jax_dp.shard_batch(jax_mesh.make_mesh({"dp": 2, "tp": 2}, jax.devices()[:4]), x)
+    jshards = sorted(ref.addressable_shards, key=lambda s: s.device.id)
+    assert [s.tolist() for s in ours] == [np.asarray(js.data).tolist() for js in jshards]
+    np.testing.assert_array_equal(ours.gather().numpy(), x)
 
 
 def test_replicate_gives_independent_replicas():
@@ -406,8 +413,13 @@ def test_engine_mesh_axes():
     assert eng.mesh_shape == {"dp": 4} and eng.dp == 4
     with pytest.raises(ValueError, match="unsupported engine axes"):
         InferenceEngine("axes", fn, devices=["cpu"] * 4, mesh_axes={"sp": -1})
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # a tp axis needs rules, as in the JAX engine; with them the group is
+    # a (dp, tp) mesh (the tp cases: test_torch_parallel_layer.py)
+    with pytest.raises(ValueError, match="without tp_rules"):
         InferenceEngine("axes", fn, devices=["cpu"] * 4, mesh_axes={"dp": -1, "tp": 2})
+    tp_eng = InferenceEngine("axes", fn, divisor=2, devices=["cpu"] * 4, mesh_axes={"dp": -1, "tp": 2},
+                             tp_rules=CONV_TP_RULES, cache=CompiledProgramCache())
+    assert tp_eng.mesh_shape == {"dp": 2, "tp": 2} and (tp_eng.dp, tp_eng.tp) == (2, 2)
     with pytest.raises(ValueError, match="not divisible"):
         InferenceEngine("axes", fn, devices=["cpu"] * 4, mesh_axes={"dp": 3})
     assert InferenceEngine("axes", fn, device="cpu", mesh_axes={"dp": -1}).mesh_shape is None

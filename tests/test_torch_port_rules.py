@@ -78,6 +78,11 @@ SLICE13_MODULES = [
 ]
 # the modules of slice 14: the parallel layer's data parallelism
 SLICE14_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/data_parallel.py"]
+# the modules of slice 15: the rest of the parallel layer
+SLICE15_MODULES = [
+    "parallel/tensor_parallel.py", "parallel/spatial.py", "parallel/ring.py", "ops/knn.py",
+    "runtime/engine.py", "runtime/decode_engine.py", "apps/generate/service.py",
+]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -144,8 +149,8 @@ def test_port_files_exist():
     # slice 13: the compile cache whole, device prefetch, checkpoints
     for rel in SLICE13_MODULES:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
-    # slice 14: the parallel layer
-    for rel in SLICE14_MODULES:
+    # slice 14: the parallel layer; slice 15: the rest of it
+    for rel in SLICE14_MODULES + SLICE15_MODULES:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 10: a bundle for every app of the JAX repo (tpu-test's twin is gpu-test)
     jax_apps = {p.name for p in (REPO / "apps").iterdir() if (p / "manifest.yaml").is_file()}
@@ -557,3 +562,45 @@ def test_slice14_meshes_default_to_cuda(no_cuda):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     assert make_mesh({"dp": 2}, ["cpu", "cpu"]).devices == (torch.device("cpu"),) * 2
+
+
+def test_slice15_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 15 imports and no
+    module of jax, flax, ``bioengine_tpu`` or the other forbidden packages
+    has been imported."""
+    modules = [
+        "bioengine_tpu_torch." + rel.removesuffix(".py").replace("/", ".") for rel in SLICE15_MODULES
+    ]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_slice15_entry_points_default_to_cuda(no_cuda):
+    """A dp decode engine over a lease, a tp engine, the sharded index
+    without a mesh and ``make_mesh()`` for the spatial and ring layers take
+    the CUDA devices and raise without CUDA, unless asked for the CPU."""
+    from bioengine_tpu_torch.models.vit import ViT
+    from bioengine_tpu_torch.ops.knn import ShardedKnnIndex
+    from bioengine_tpu_torch.parallel.mesh import make_mesh
+    from bioengine_tpu_torch.parallel.tensor_parallel import VIT_TP_RULES
+    from bioengine_tpu_torch.runtime.decode_engine import DecodeEngine
+
+    vit = ViT(dim=32, depth=1, num_heads=2, patch_size=8, img_size=16)
+    for build in (lambda: DecodeEngine(device_ids=[0, 1]),
+                  lambda: InferenceEngine("m", vit, device_ids=[0, 1], tp=2, tp_rules=VIT_TP_RULES),
+                  lambda: ShardedKnnIndex(np.zeros((4, 8), np.float32)),
+                  lambda: make_mesh({"sp": -1})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    engine = DecodeEngine(device="cpu", device_ids=[0, 1])
+    assert engine.devices == [torch.device("cpu")] * 2
+    assert ShardedKnnIndex(np.zeros((4, 8), np.float32), device="cpu").corpus.device.type == "cpu"

@@ -9,11 +9,14 @@ on the card, where ``chip_smoke.py`` checks them.
 import asyncio
 import collections
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from bioengine_tpu.datasets import prefetch as jax_prefetch
+from bioengine_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from jax.sharding import NamedSharding, PartitionSpec as JP
 from bioengine_tpu.datasets.http_zarr_store import HttpZarrStore as JaxStore
 from bioengine_tpu.datasets.http_zarr_store import RemoteZarrArray as JaxArray
 from bioengine_tpu_torch.parallel.data_parallel import Replicated, Shards
@@ -108,12 +111,22 @@ def test_batches_in_flight_match_the_jax_prefetch():
 
 def test_device_rules(monkeypatch):
     # a placement over a CPU mesh places every leaf over it, whatever
-    # ``device`` says; a spec past the data axis waits for ROADMAP A10b
+    # ``device`` says; a spec may split any one dimension over one axis of
+    # a mesh of several, placed as JAX's ``addressable_shards``; a spec
+    # splitting two dimensions waits for ROADMAP A10d
     mesh = make_mesh({"dp": 2}, ["cpu", "cpu"])
     (batch,) = prefetch_to_device(iter([np.arange(4)]), device="cuda", sharding=sharding(mesh, "dp"))
     assert isinstance(batch, Shards) and [t.tolist() for t in batch] == [[0, 1], [2, 3]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh, None, "dp")))
+    x = np.arange(16).reshape(2, 8)
+    mesh4 = make_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4)
+    (ours,) = prefetch_to_device(iter([x]), sharding=sharding(mesh4, None, "sp"))
+    jmesh = jax_make_mesh({"dp": 2, "sp": 2}, jax.devices()[:4])
+    (theirs,) = jax_prefetch.prefetch_to_device(iter([x]), sharding=NamedSharding(jmesh, JP(None, "sp")))
+    jshards = sorted(theirs.addressable_shards, key=lambda s: s.device.id)
+    assert [t.tolist() for t in ours] == [np.asarray(s.data).tolist() for s in jshards]
+    assert ours.gather().tolist() == x.tolist()
+    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
+        list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh4, "dp", "sp")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

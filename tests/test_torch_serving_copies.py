@@ -11,8 +11,8 @@ its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13 or slice-14
-differences.
+ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13, slice-14 or
+slice-15 differences.
 """
 
 import ast
@@ -243,6 +243,7 @@ COPIES = {
             "make_mesh defaults to every CUDA device and raises without CUDA",
         "Mesh": "a port Mesh of torch devices in place of jax.sharding",
         "Placement": "the port's placement in place of NamedSharding",
+        "PartitionSpec": "the port's partition spec in place of jax.sharding's (slice 15)",
         "make_mesh": "make_mesh defaults to every CUDA device and raises without CUDA",
         "sharding": "the port's placement in place of NamedSharding",
         "replicated": "the port's placement in place of NamedSharding",
@@ -270,7 +271,6 @@ COPIES = {
         "Replicated": "a value copied to each mesh entry in place of a replicated jax.Array",
         "DataParallelTrainState": "one replica per mesh entry, the first one updated",
         "tree_map": "the pytree walk of jax.tree_util",
-        "_dp_width": "only a mesh whose one axis is the data axis (ROADMAP A10b)",
         "_as_tensor": "host leaves become tensors",
         "shard_batch": "the host splits each leaf into equal shards",
         "host_parts": "a placement's parts on the host, for the prefetch",
@@ -280,11 +280,7 @@ COPIES = {
         "data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
         "jit_data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
     },
-    "parallel/__init__.py": {
-        "from bioengine_tpu_torch.parallel.tensor_parallel import CONV_TP_RULES, VIT_TP_RULES, make_tp_apply, shard_params, tp_param_specs":
-            "tensor parallelism waits for ROADMAP A10b",
-        "__all__": "tensor parallelism waits for ROADMAP A10b",
-    },
+    "parallel/__init__.py": {},
 }
 
 def _key(i: int, node: ast.stmt) -> str:
@@ -367,10 +363,11 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 def _listed_differences() -> str:
     """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (",
-    "Slice 13 (" and "Slice 14 (" differences sections."""
+    "Slice 13 (", "Slice 14 (" and "Slice 15 (" differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
-    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 (", "Slice 14 ("):
+    for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 (", "Slice 14 (",
+                    "Slice 15 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
