@@ -13,6 +13,10 @@ blocks of ``models/unet.py`` with the same arithmetic:
 - ``make_train_step``: forward, loss, backward and one ``torch.optim.AdamW``
   step, the contract of the JAX ``make_train_step`` on one device.
 
+The forward is written over an ops object that carries out its layers:
+``LocalOps`` on one batch of whole images, ``parallel/lockstep.py``
+``RingOps`` on height-split blocks over a mesh (the (dp, sp) train step).
+
 Submodules carry flax's names in flax's creation order (``ResBlock_i``,
 ``ConvTranspose_j``, ``StyleMod_j.Dense_0``, ``Conv_0``; inside a block
 ``GroupNorm_0, Conv_0, GroupNorm_1, Conv_1`` and the 1x1 shortcut
@@ -36,6 +40,26 @@ from bioengine_tpu_torch.ops.flows import FLOW_SCALE
 from bioengine_tpu_torch.runtime.devices import DeviceLike, resolve_device
 
 
+class LocalOps:
+    """CellposeNet's layers on one batch of whole (B, C, H, W) images: a
+    conv, a norm or any other layer is its module's own call, ``each`` a
+    plain call, ``spatial_mean`` the f32 mean over (H, W)."""
+
+    @staticmethod
+    def layer(module, x, *args):
+        return module(x, *args)
+
+    conv = group_norm = layer
+
+    @staticmethod
+    def each(fn, *xs):
+        return fn(*xs)
+
+    @staticmethod
+    def spatial_mean(x):
+        return x.float().mean((2, 3))
+
+
 class ResBlock(nn.Module):
     """GN -> SiLU -> Conv3x3, GN -> SiLU -> Conv3x3, plus a 1x1 shortcut
     when the channel count changes. The first norm sees the input's
@@ -50,12 +74,12 @@ class ResBlock(nn.Module):
         if in_ch != features:
             self.Conv_2 = Conv(in_ch, features, (1, 1), dtype)
 
-    def forward(self, x):
-        h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
-        h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
+    def forward(self, x, ops=LocalOps):
+        h = ops.conv(self.Conv_0, ops.each(F.silu, ops.group_norm(self.GroupNorm_0, x)))
+        h = ops.conv(self.Conv_1, ops.each(F.silu, ops.group_norm(self.GroupNorm_1, h)))
         if hasattr(self, "Conv_2"):
-            x = self.Conv_2(x)
-        return x + h
+            x = ops.conv(self.Conv_2, x)
+        return ops.each(torch.add, x, h)
 
 
 class StyleMod(nn.Module):
@@ -110,27 +134,34 @@ class CellposeNet(nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         reset_flax_scales(self, seed)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops=LocalOps) -> torch.Tensor:
+        """``ops`` carries out the layers: ``LocalOps`` on ``x`` itself,
+        ``parallel/lockstep.py`` ``RingOps`` on one height block per mesh
+        entry (``x`` and the result then lists of blocks)."""
         dt = self.dtype
-        x = x.to(dt).permute(0, 3, 1, 2)
+        x = ops.each(lambda t: t.to(dt).permute(0, 3, 1, 2), x)
         n = len(self.features) - 1
         skips = []
         for i in range(n):
-            x = getattr(self, f"ResBlock_{i}")(x)
+            x = getattr(self, f"ResBlock_{i}")(x, ops)
             skips.append(x)
-            x = F.max_pool2d(x, 2, 2)
-        x = getattr(self, f"ResBlock_{n}")(x)
+            x = ops.each(lambda t: F.max_pool2d(t, 2, 2), x)
+        x = getattr(self, f"ResBlock_{n}")(x, ops)
         # style: global average of the bottleneck (f32 sums, a dtype
         # result), divided by its f32 L2 norm + 1e-6 rounded to dtype
-        style = x.float().mean((2, 3)).to(dt)
-        norm = torch.linalg.vector_norm(style.float(), dim=-1, keepdim=True)
-        style = style / (norm + 1e-6).to(dt)
+        style = ops.each(lambda m: _unit_style(m.to(dt)), ops.spatial_mean(x))
         for j, skip in enumerate(reversed(skips)):
-            x = getattr(self, f"ConvTranspose_{j}")(x)
-            x = getattr(self, f"ResBlock_{n + 1 + j}")(torch.cat([x, skip], dim=1))
-            x = getattr(self, f"StyleMod_{j}")(x, style)
-        y = self.Conv_0(x.float())
-        return y.permute(0, 2, 3, 1).contiguous()
+            x = ops.layer(getattr(self, f"ConvTranspose_{j}"), x)
+            x = ops.each(lambda up, s: torch.cat([up, s], dim=1), x, skip)
+            x = getattr(self, f"ResBlock_{n + 1 + j}")(x, ops)
+            x = ops.layer(getattr(self, f"StyleMod_{j}"), x, style)
+        y = ops.conv(self.Conv_0, ops.each(lambda t: t.float(), x))
+        return ops.each(lambda t: t.permute(0, 2, 3, 1).contiguous(), y)
+
+
+def _unit_style(style: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.vector_norm(style.float(), dim=-1, keepdim=True)
+    return style / (norm + 1e-6).to(style.dtype)
 
 
 def cellpose_loss(pred: torch.Tensor, flows: torch.Tensor, cellprob: torch.Tensor):

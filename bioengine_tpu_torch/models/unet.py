@@ -92,18 +92,22 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        B, C = x.shape[:2]
-        G = self.num_groups
         xf = x.float()
-        g = xf.reshape(B, G, -1)
+        g = xf.reshape(x.shape[0], self.num_groups, -1)
         mean = g.mean(-1)
         var = ((g * g).mean(-1) - mean * mean).clamp_min(0.0)
-        per_group = C // G
+        return self.normalize(xf, mean, var).to(x.dtype)
+
+    def normalize(self, xf, mean, var):
+        """f32 ``xf`` normalised with (B, groups) f32 statistics, scaled
+        and shifted in f32 (``parallel/spatial.py`` passes statistics
+        summed over a ring of height shards)."""
+        B, C = xf.shape[:2]
+        per_group = C // self.num_groups
         mean = mean.repeat_interleave(per_group, 1)
         mul = torch.rsqrt(var + self.eps).repeat_interleave(per_group, 1) * self.weight
-        shape = (B, C) + (1,) * (x.dim() - 2)
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape[1:])
-        return y.to(x.dtype)
+        shape = (B, C) + (1,) * (xf.dim() - 2)
+        return (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape[1:])
 
 
 @torch.no_grad()

@@ -10,7 +10,9 @@ the whole device group:
 - ``shard_batch`` splits every leaf's leading dimension on the host into
   equal shards, one on each device; over a mesh of several axes (dp x tp,
   dp x sp) a placement splits one dimension over one axis and replicates
-  over the others, the entries holding their parts in the order of JAX's
+  over the others (``Shards``), or two dimensions over two axes
+  (``P("dp", "sp")``: ``Blocks``, each entry its (batch part, height part)
+  block), the entries holding their parts in the order of JAX's
   ``addressable_shards``;
 - ``data_parallel_step`` is the step of the GLOBAL batch, JAX's
   semantics: each replica runs forward on its shard, the predictions are
@@ -19,8 +21,11 @@ the whole device group:
   replica's gradients are summed onto the first replica in shard order by
   explicit device-to-device copies, one optimiser step runs there, and its
   parameters are copied to the others. After every step the replicas are
-  equal bit for bit. The step runs over a mesh whose one axis is the data
-  axis; the dp x sp step waits for ROADMAP A10d.
+  equal bit for bit. Over a (dp, sp) mesh the images are split over both
+  axes and the forward runs in lockstep over each sp ring
+  (``parallel/lockstep.py``: halos before every 3x3 conv, GroupNorm and
+  style statistics summed over the ring), which is the unsharded step
+  within summation order, as GSPMD's is for JAX.
 
 No ``torch.distributed`` process group and no DDP: the copies work the
 same on the CPU, on one card and on several, and they fix the order of
@@ -39,7 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from bioengine_tpu_torch.models.cellpose import LossTrainStep, TrainState
+from bioengine_tpu_torch.models.cellpose import CellposeNet, LossTrainStep, TrainState
+from bioengine_tpu_torch.parallel import lockstep
 from bioengine_tpu_torch.parallel.mesh import Mesh, Placement
 
 
@@ -76,6 +82,30 @@ class Shards(_PerEntry):
         device = device or self.mesh.devices[0]
         parts = [s.to(device).chunk(self.groups, self.dim) for s in self.parts()]
         return torch.cat([p[g] for g in range(self.groups) for p in parts], dim=self.dim)
+
+
+class Blocks(_PerEntry):
+    """A tensor split on two dimensions over two mesh axes: dimension
+    ``dims[k]`` over ``axes[k]``, one block per entry, on that entry's
+    device, in mesh order; entries that differ only along other axes hold
+    copies of the same block."""
+
+    def __new__(cls, values, mesh: Mesh, axes: tuple, dims: tuple):
+        obj = super().__new__(cls, values, mesh)
+        obj.axes, obj.dims = axes, dims
+        return obj
+
+    def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """The whole tensor on ``device`` (the mesh's first by default),
+        blocks concatenated in order; differentiable."""
+        device = device or self.mesh.devices[0]
+        (outer, inner), (d0, d1) = self.axes, self.dims
+        at = {}
+        for e, c in enumerate(zip(self.mesh.coords(outer), self.mesh.coords(inner))):
+            at.setdefault(c, self[e])
+        n0, n1 = self.mesh.shape[outer], self.mesh.shape[inner]
+        rows = [torch.cat([at[i, j].to(device) for j in range(n1)], dim=d1) for i in range(n0)]
+        return torch.cat(rows, dim=d0)
 
 
 class Replicated(_PerEntry):
@@ -121,38 +151,47 @@ def _as_tensor(x: Any) -> torch.Tensor:
 
 
 def host_parts(placement: Placement, x: Any) -> tuple[Callable, list]:
-    """A leaf under a ``Placement``, still on the host: (a ``Shards``
-    maker and each entry's part, for a spec that splits one dimension over
-    one mesh axis: equal parts along that axis, the same part on entries
-    that differ only along other axes) or (``Replicated`` and the whole
-    leaf once per entry, for ``replicated``). Raises where the dimension
-    does not divide, as JAX's sharded ``device_put`` does."""
+    """A leaf under a ``Placement``, still on the host: (a ``Shards`` or,
+    for two split dimensions, a ``Blocks`` maker and each entry's part, for
+    a spec that splits one or two dimensions, each over one mesh axis:
+    equal parts along each, the same part on entries that differ only
+    along the mesh's other axes) or
+    (``Replicated`` and the whole leaf once per entry, for ``replicated``).
+    Raises where a dimension does not divide, as JAX's sharded
+    ``device_put`` does."""
     mesh, spec = placement.mesh, tuple(placement.spec)
     x = _as_tensor(x)
     split = [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
     if not split:
         return Replicated, [x] * mesh.size
-    if len(split) > 1 or isinstance(split[0][1], tuple):
+    axes = [axis for _, axis in split]
+    if len(split) > 2 or any(isinstance(a, tuple) for a in axes) or len(set(axes)) < len(axes):
         raise NotImplementedError(
-            f"partition spec {spec}: a spec that splits over more than one "
-            "mesh axis waits for the dp x sp train step (ROADMAP A10d)"
+            f"partition spec {spec}: a placement splits at most two dimensions, "
+            "each over one mesh axis of its own"
         )
-    dim, axis = split[0]
-    if axis not in mesh.axis_names:
-        raise ValueError(f"partition spec {spec} names {axis!r}, not an axis of the mesh {mesh.shape}")
-    n = mesh.shape[axis]
-    if x.dim() <= dim or x.shape[dim] % n:
-        where = "leading dimension" if dim == 0 else f"dimension {dim}"
-        raise ValueError(
-            f"{where} of shape {tuple(x.shape)} does not divide "
-            f"into {axis}={n} equal shards"
-        )
-    parts = x.chunk(n, dim)
-
-    def shards(values, mesh: Mesh) -> Shards:
-        return Shards(values, mesh, axis, dim)
-
-    return shards, [parts[c] for c in mesh.coords(axis)]
+    for dim, axis in split:
+        if axis not in mesh.axis_names:
+            raise ValueError(f"partition spec {spec} names {axis!r}, not an axis of the mesh {mesh.shape}")
+        n = mesh.shape[axis]
+        if x.dim() <= dim or x.shape[dim] % n:
+            where = "leading dimension" if dim == 0 else f"dimension {dim}"
+            raise ValueError(
+                f"{where} of shape {tuple(x.shape)} does not divide "
+                f"into {axis}={n} equal shards"
+            )
+    coords = list(zip(*(mesh.coords(axis) for axis in axes)))
+    blocks = {}
+    for c in dict.fromkeys(coords):  # one view per block, shared by its entries
+        block = x
+        for (dim, axis), k in zip(split, c):
+            block = block.chunk(mesh.shape[axis], dim)[k]
+        blocks[c] = block
+    parts = [blocks[c] for c in coords]
+    (dim, axis), *second = split
+    if second:
+        return lambda values, mesh: Blocks(values, mesh, (axis, second[0][1]), (dim, second[0][0])), parts
+    return lambda values, mesh: Shards(values, mesh, axis, dim), parts
 
 
 def place(placement: Placement, x: Any) -> Any:
@@ -215,30 +254,45 @@ def _sum_gradients(replicas) -> None:
 def data_parallel_step(step: LossTrainStep, mesh: Mesh, axis: str = "dp") -> Callable:
     """A ``(state, *batch) -> (state, metrics)`` step of the global batch
     over ``mesh``; ``state`` is ``replicate(mesh, state)``'s and each batch
-    leaf a tensor or ``shard_batch``'s ``Shards``. ``step`` is
-    ``make_loss_train_step``'s (``make_train_step``,
-    ``make_stardist_train_step``): its ``loss_call`` runs once over the
-    whole batch and its ``update`` on the first replica."""
-    if mesh.shape.get(axis) != mesh.size:
+    leaf a tensor or a placed leaf (``shard_batch``'s, or over a (dp, sp)
+    mesh ``P(axis, "sp")``'s). ``step`` is ``make_loss_train_step``'s
+    (``make_train_step``, ``make_stardist_train_step``): its ``loss_call``
+    runs once over the whole batch and its ``update`` on the first replica.
+
+    The mesh holds ``axis`` and at most ``sp`` besides. With ``sp`` wider
+    than 1 the images' height is split over it too and the forward runs in
+    lockstep over each sp ring (CellposeNet only); at width 1 the step is
+    the dp step."""
+    if axis not in mesh.axis_names or set(mesh.axis_names) - {axis, "sp"}:
         raise NotImplementedError(
-            f"a train step over {axis} of the mesh {mesh.shape}: the step over "
-            "a mesh with more axes than the data axis waits for the exact dp x sp "
-            "train step (ROADMAP A10d)"
+            f"a train step over the mesh {mesh.shape}: the batch splits over {axis!r} "
+            "and image height over 'sp', and the step splits over no other axis"
         )
-    placement = Placement(mesh, (axis,))
+    spatial = mesh.shape.get("sp", 1) > 1
+    placement = Placement(mesh, (axis, "sp") if spatial else (axis,))
+    rings = mesh.groups("sp") if spatial else None
 
     def dp_step(state: DataParallelTrainState, images, *targets):
         if not isinstance(state, DataParallelTrainState) or state.mesh != mesh:
             raise TypeError("data_parallel_step takes replicate(mesh, state) of its own mesh")
+        if spatial and not isinstance(state.module, CellposeNet):
+            raise NotImplementedError(
+                f"the forward split over sp is CellposeNet's; the model is a {type(state.module).__name__}"
+            )
         images = place(placement, images)
+        if spatial and (getattr(images, "axes", None), getattr(images, "dims", None)) != ((axis, "sp"), (0, 1)):
+            raise ValueError(f"over a (dp, sp) mesh the images are split P({axis!r}, 'sp'): batch and height")
         targets = [place(placement, t).gather() for t in targets]
         state.optimizer.zero_grad(set_to_none=True)
         for replica in state.replicas:
             replica.train()
         for replica in state.replicas[1:]:
             replica.zero_grad(set_to_none=True)
-        pred = Shards([r(x) for r, x in zip(state.replicas, images)], mesh).gather()
-        loss, parts = step.loss_call(pred, *targets)
+        if spatial:
+            pred = Blocks(lockstep.forward(state.replicas, rings, list(images)), mesh, images.axes, images.dims)
+        else:
+            pred = Shards([r(x) for r, x in zip(state.replicas, images)], mesh)
+        loss, parts = step.loss_call(pred.gather(), *targets)
         loss.backward()
         _sum_gradients(state.replicas)
         step.update(state)

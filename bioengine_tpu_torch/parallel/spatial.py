@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from bioengine_tpu_torch.parallel.data_parallel import Replicated, Shards, place
+from bioengine_tpu_torch.parallel.lockstep import exchange_halo
 from bioengine_tpu_torch.parallel.mesh import Mesh, Placement, PartitionSpec as P
 
 
@@ -36,15 +37,7 @@ def halo_exchange(blocks: Shards, halo: int) -> list[torch.Tensor]:
     unsharded conv)."""
     if halo == 0:
         return list(blocks)
-    out: list = [None] * len(blocks)
-    for ring in blocks.mesh.groups(blocks.axis):
-        for j, e in enumerate(ring):
-            x = blocks[e]
-            zeros = torch.zeros_like(x[:, :halo])
-            above = blocks[ring[j - 1]][:, -halo:].to(x.device) if j > 0 else zeros
-            below = blocks[ring[j + 1]][:, :halo].to(x.device) if j < len(ring) - 1 else zeros
-            out[e] = torch.cat([above, x, below], dim=1)
-    return out
+    return exchange_halo(list(blocks), blocks.mesh.groups(blocks.axis), 1, halo)
 
 
 def spatial_shard_apply(

@@ -29,8 +29,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    map, projects a query and answers 8 searches with their
    ``query_projection`` (a corpus crop must come back first); then a seeded
    1M x 768 mixture of 10,000 components with 64 perturbed queries and
-   exact f32 top-10 on the card: ``build_index`` IVFFlat over 200K (nlist
-   447; k-means, sort and save seconds, npz size) reloaded and served by
+   exact f32 top-10 on the card: ``build_index`` IVFFlat over 100K (nlist
+   316; k-means, sort and save seconds, npz size) reloaded and served by
    the app, IVFFlat nlist 1000 and IVFPQ nlist 4096 over 1M (training
    seconds on the card, host search ms at Q = 1 and 64, recall@10 held
    to floors), the card's nearest-centroid assignment and one Lloyd update
@@ -296,8 +296,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``ShardedKnnIndex`` over the seeded 1M x 768 corpus, top-10 ids equal to
    ``topk_inner_product``'s apart from ties; one ``parallel_layer`` JSON
    line;
-21. one JSON line of the kernels' numbers;
-22. the result line ``{"ok": true, "device": {...}}``, printed last.
+21. the exact dp x sp train step and the dry run (slice 16),
+   ``phase_dryrun``: (a) CellposeNet (32, 64, 128, 256) at the
+   cellpose-finetuning defaults, 8 x 256^2 of synthetic fields, bf16 and
+   then f32 (TF32 off): ``data_parallel_step`` over a stacked dp 2 x sp 2
+   mesh of four ``cuda:0`` entries against the single-device step on the
+   same seeded weights and batch, the loss's relative difference, each
+   summed gradient's cosine and relative L2 held to bounds
+   (``DRY_BOUNDS``), ms per step (CUDA events) and peak memory for both;
+   (b) ``graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4)`` to its
+   OK line, whose meshes, shapes and transfer bytes must be the JAX dry
+   run's for 4 devices; (c) no flash launch on the path; one ``dryrun``
+   JSON line; then the seconds of every phase;
+22. one JSON line of the kernels' numbers;
+23. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -329,6 +341,7 @@ import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
+from bioengine_tpu_torch import graft_entry
 from bioengine_tpu_torch.apps.builder import AppBuilder
 from bioengine_tpu_torch.apps.cell_image_search.embedder import ViTEmbedder, model_input
 from bioengine_tpu_torch.apps.cell_image_search.index import (
@@ -874,7 +887,7 @@ INDEX_CLUSTERS = 10_000  # mixture components the corpus is drawn from
 INDEX_SPREAD = 1.0  # noise norm around a component's unit centre
 INDEX_QUERIES = 64
 QUERY_SPREAD = 0.1  # noise norm of a query around its corpus vector
-INDEX_IVF_ROWS = 200_000  # the build_index IVFFlat corpus (nlist 447)
+INDEX_IVF_ROWS = 100_000  # the build_index IVFFlat corpus (nlist 316), the smallest that build_index serves as IVFFlat
 IVFFLAT_NLIST, IVFFLAT_NPROBE = 1000, 16
 IVFPQ_NLIST = 4096
 PQ_TOTAL = 20_000_000  # codes on the card: the real ones plus seeded uniform codes
@@ -6344,33 +6357,202 @@ def phase_parallel_layer(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- slice 16: the exact dp x sp train step and the dry run --------------------------
+DRY_FEATURES = CELLPOSE_FEATURES  # the cellpose-finetuning backbone (apps/cellpose-finetuning/main.py:52)
+DRY_MESH = {"dp": 2, "sp": 2}  # four entries of one card: the batch over dp, image height over sp
+DRY_STEPS = 5  # timed steps per leg, after one warm-up step
+DRY_ENTRIES = 4  # the dry run's mesh, stacked on the card
+# (loss rtol, min cosine, max relative L2) of the dp x sp step's summed
+# gradients against one device's, per tensor; f32 with TF32 off is the
+# unsharded step within summation order, bf16 rounds its activations
+# after every layer, so a rounding can flip wherever the order differs.
+# f32's loss rtol and cosine are the contract's; the other bounds sit 6-17x
+# above the H100's readings (f32 relative L2 6.99e-6; bf16 loss 1.22e-5,
+# cosine 1 - 5.7e-6, relative L2 0.0034; PERF.md section 6)
+DRY_BOUNDS = {torch.float32: (1e-5, 0.99999, 1e-4), torch.bfloat16: (2e-4, 0.9999, 0.02)}
+# a conv bias feeding a GroupNorm of one channel per group has a zero
+# gradient in exact arithmetic: a tensor whose one-device gradient norm is
+# below this share of the whole gradient's norm is rounding noise on both
+# sides, and is held to stay below it there instead of to a cosine
+DRY_ZERO_GRAD = 1e-4
+
+
+def _grad_agreement(single, split) -> dict:
+    """Per-tensor cosine and relative L2 of ``split``'s gradients against
+    ``single``'s (f64 on the host); the tensors that are zero by structure
+    (below DRY_ZERO_GRAD of the whole norm) apart."""
+    ga = {k: p.grad.detach().double().cpu().flatten() for k, p in single.named_parameters()}
+    gb = {k: p.grad.detach().double().cpu().flatten() for k, p in split.named_parameters()}
+    floor = DRY_ZERO_GRAD * float(torch.sqrt(sum(g.dot(g) for g in ga.values())))
+    zero = sorted(k for k, g in ga.items() if float(g.norm()) < floor)
+    cos = {k: float(ga[k].dot(gb[k]) / (ga[k].norm() * gb[k].norm())) for k in ga if k not in zero}
+    rel = {k: float((gb[k] - ga[k]).norm() / ga[k].norm()) for k in ga if k not in zero}
+    return {"min_cos": min(cos.values()), "min_cos_at": min(cos, key=cos.get),
+            "max_rel_l2": max(rel.values()), "max_rel_l2_at": max(rel, key=rel.get), "floor": floor,
+            "zero_by_structure": zero, "zero_norms_ok": all(max(float(ga[k].norm()), float(gb[k].norm())) < floor
+                                                            for k in zero)}
+
+
+def _dry_step_leg(card: str, device: str, dev0: torch.device, dtype, batch) -> dict:
+    """The dp 2 x sp 2 CellposeNet step on a stacked mesh of four ``dev0``
+    entries against the single-device step, same seeded weights and batch:
+    loss, summed gradients, ms per step and peak memory of each."""
+    mesh = make_mesh(DRY_MESH, [dev0] * DRY_ENTRIES)
+    cfg = CellposeConfig(features=DRY_FEATURES)
+
+    def state():
+        model = CellposeNet(features=DRY_FEATURES, dtype=dtype)
+        model.reset_parameters(SEED + 16)
+        return TrainState.create(model.to(dev0), cfg.learning_rate, cfg.weight_decay)
+
+    steps = {"single": (state(), make_train_step())}
+    steps["dp2_sp2"] = (replicate(mesh, state()), data_parallel_step(make_train_step(), mesh))
+    r: dict = {"loss": {}, "peak_mib": {}, "ms": {}}
+    for key, (st, step) in steps.items():
+        _release(device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() if device == "cuda" else 0
+        r["loss"][key] = float(step(st, *batch)[1]["loss"])  # .grad keeps the seeded weights' gradients
+        r["peak_mib"][key] = (torch.cuda.max_memory_allocated() - start) / 2**20 if device == "cuda" else 0.0
+    r["grads"] = _grad_agreement(steps["single"][0].module, steps["dp2_sp2"][0].module)
+    for key, (st, step) in steps.items():
+        r["ms"][key] = _device_ms(device, lambda: step(st, *batch), iters=DRY_STEPS)
+    r["loss_rel"] = abs(r["loss"]["dp2_sp2"] - r["loss"]["single"]) / abs(r["loss"]["single"])
+    loss_rtol, min_cos, max_rel = DRY_BOUNDS[dtype]
+    g = r["grads"]
+    name = str(dtype).removeprefix("torch.")
+    print(f"[{card}] dry run: CellposeNet {DRY_FEATURES} {name}, {tuple(batch[0].shape)}: dp 2 x sp 2 on "
+          f"{DRY_ENTRIES} x {dev0} against one device, loss {r['loss']['dp2_sp2']!r} vs {r['loss']['single']!r} "
+          f"(rel {r['loss_rel']:.3g}, bound {loss_rtol}); summed gradients per tensor min cosine "
+          f"{g['min_cos']:.8f} ({g['min_cos_at']}, bound {min_cos}), max relative L2 {g['max_rel_l2']:.3g} "
+          f"({g['max_rel_l2_at']}, bound {max_rel}); zero by structure (both sides below {g['floor']:.3g}): "
+          f"{g['zero_by_structure']}; ms per step (CUDA events, {DRY_STEPS} after a warm-up) "
+          f"{json.dumps({k: round(v, 3) for k, v in r['ms'].items()})}; peak MiB above the start "
+          f"{json.dumps({k: round(v, 1) for k, v in r['peak_mib'].items()})}")
+    check(np.isfinite(list(r["loss"].values())).all() and r["loss_rel"] <= loss_rtol,
+          f"{name} dp x sp step loss rel {r['loss_rel']} to one device, bound {loss_rtol}")
+    check(g["min_cos"] >= min_cos and g["max_rel_l2"] <= max_rel,
+          f"{name} dp x sp gradients: min cosine {g['min_cos']} at {g['min_cos_at']} (bound {min_cos}), max "
+          f"relative L2 {g['max_rel_l2']} at {g['max_rel_l2_at']} (bound {max_rel})")
+    check(g["zero_norms_ok"], f"{name}: a gradient zero by structure {g['zero_by_structure']} rose above "
+          f"{g['floor']}")
+    return r
+
+
+def _dry_batch(dev0: torch.device, rng) -> list:
+    """8 x 256^2 tiles of synthetic cell fields with their cell
+    probabilities, flow targets drawn from ``rng`` (as phase_data_parallel)."""
+    nb, tile = CELLPOSE_CFG["batch_size"], CELLPOSE_CFG["tile"]
+    images, masks = synthetic_cell_fields(nb, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED + 16)
+    bi = np.ascontiguousarray(CellposeFinetune._prepare_images(list(images))[:, :tile, :tile])
+    bf = rng.uniform(-1, 1, (nb, tile, tile, 2)).astype(np.float32)
+    bp = (masks[:, :tile, :tile] > 0).astype(np.float32)
+    return [torch.from_numpy(a).to(dev0) for a in (bi, bf, bp)]
+
+
+def _dry_expected(n: int) -> dict:
+    """The OK line's fields of ``dryrun_multichip(n)``, as the JAX dry run
+    prints them for ``n`` devices."""
+    sp = tp = 2 if n % 2 == 0 else 1
+    half = max(1, n // 2)
+    stage_bytes = 2 * half * 16 * 16 * graft_entry.STAGE_CHANNELS * 4  # f32 in, f32 out of each stage
+    return {"mesh": str({"dp": n // sp, "sp": sp}), "batch": str(n // sp * 2), "step": "1",
+            "tp_mesh": str({"dp": n // tp, "tp": tp}), "tp_out": str((n // tp * 2, graft_entry.VIT["dim"])),
+            "sp3d_out": str((1, 4 * n, 16, 16, 1)), "serving_mesh": str({"dp": n}), "serving_parity_ok": "True",
+            "cross_host_stages": "2", "cross_host_parity_ok": "True",
+            "cross_host_transfer_bytes": str(2 * 2 * stage_bytes)}
+
+
+def phase_dryrun(card: str, device: str = "cuda") -> dict:
+    """Slice 16: (a) CellposeNet at the cellpose-finetuning width, bf16 and
+    then f32 (TF32 off), 8 x 256^2: the exact dp 2 x sp 2 train step on a
+    stacked mesh of four card entries against the single-device step on the
+    same weights and batch; (b) ``graft_entry.dryrun_multichip`` over four
+    stacked entries to its OK line, parsed and checked; (c) the flash
+    kernel's launches around the phase, which must be none: CellposeNet has
+    no attention, and the dry run's ViT (16 tokens, head dim 16) runs its
+    attention inline, as JAX's does. One ``dryrun`` JSON line."""
+    t_phase = time.perf_counter()
+    dev0 = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    rng = np.random.default_rng(SEED + 16)
+    r: dict = {}
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    attention.launch_count = 0
+    try:
+        batch = _dry_batch(dev0, rng)
+        for dtype in (torch.bfloat16, torch.float32):
+            r[str(dtype).removeprefix("torch.")] = _dry_step_leg(card, device, dev0, dtype, batch)
+            gc.collect()
+            _release(device)
+        t0 = time.perf_counter()
+        line = graft_entry.dryrun_multichip(DRY_ENTRIES, devices=[dev0] * DRY_ENTRIES)
+        r["dryrun_s"] = time.perf_counter() - t0
+        check(line.startswith("dryrun_multichip OK: "), f"the dry run printed {line!r}")
+        fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\([^)]*\)|\S+)", line.removeprefix("dryrun_multichip OK: ")))
+        want = _dry_expected(DRY_ENTRIES)
+        got = {k: fields.get(k) for k in want}
+        check(got == want, f"the dry run's OK line {got}, expected {want}")
+        check(np.isfinite([float(fields["loss"]), float(fields["cpsam_dp_loss"])]).all(),
+              f"the dry run's losses {fields['loss']}, {fields['cpsam_dp_loss']}")
+        r["dryrun_fields"] = fields
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    # no attention kernel on this path: CellposeNet has none, and the dry
+    # run's ViT is a 16-token, head-dim-16 ViT with inline attention, as in
+    # JAX (the kernel takes head dims 32, 64 and 128)
+    launches = attention.launch_count
+    check(launches == 0, f"the dry-run path launched flash_attn_fwd {launches} times, expected none")
+    r["flash_attn_fwd_launches"] = launches
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] dry run: dryrun_multichip({DRY_ENTRIES}) over {DRY_ENTRIES} x {dev0} in {r['dryrun_s']:.3f} s, "
+          f"its OK line as the JAX dry run's for {DRY_ENTRIES} devices; flash_attn_fwd launches {launches}")
+    print(f"[{card}] dry run phase: {r['phase_s']:.3f} s")
+    out = {"card": card, "flash_attn_fwd_launches": launches,
+           "step_ms": {k: r[k]["ms"] for k in ("bfloat16", "float32")},
+           "peak_mib": {k: r[k]["peak_mib"] for k in ("bfloat16", "float32")}, "detail": r}
+    print("dryrun " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     # every controller this run starts keeps its compile-cache tier in a
     # temporary directory (the default is under the home directory)
     tier_root = tempfile.TemporaryDirectory(prefix="chip_smoke_tier_")
     os.environ.setdefault("BIOENGINE_COMPILE_TIER_DIR", tier_root.name)
     card, name = phase_device()
-    ptxas = phase_build(card)
-    main_cases = phase_kernels(card)
+    phase_s: dict = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[phase.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 3)
+        return out
+
+    ptxas = timed(phase_build, card)
+    main_cases = timed(phase_kernels, card)
     main_case, f32_case = main_cases[torch.bfloat16], main_cases[torch.float32]
-    launches = phase_main_path(card)
-    main_f32 = phase_main_path_f32(card)
-    index = phase_index(card)
-    forward = phase_forward(card)
-    model_runner = phase_model_runner(card)
-    cellpose = phase_cellpose(card)
-    transformers = phase_cellpose_transformers(card)
-    zoo = phase_zoo(card)
-    decode = phase_decode(card)
-    serving = phase_serving(card)
-    worker = phase_worker(card)
-    apps = phase_apps(card)
-    hosts = phase_hosts(card)
-    scenario_runs = phase_scenarios(card)
-    prefetch = phase_prefetch(card)
-    checkpoints = phase_checkpoints(card)
-    data_parallel = phase_data_parallel(card)
-    parallel_layer = phase_parallel_layer(card)
+    launches = timed(phase_main_path, card)
+    main_f32 = timed(phase_main_path_f32, card)
+    index = timed(phase_index, card)
+    forward = timed(phase_forward, card)
+    model_runner = timed(phase_model_runner, card)
+    cellpose = timed(phase_cellpose, card)
+    transformers = timed(phase_cellpose_transformers, card)
+    zoo = timed(phase_zoo, card)
+    decode = timed(phase_decode, card)
+    serving = timed(phase_serving, card)
+    worker = timed(phase_worker, card)
+    apps = timed(phase_apps, card)
+    hosts = timed(phase_hosts, card)
+    scenario_runs = timed(phase_scenarios, card)
+    prefetch = timed(phase_prefetch, card)
+    checkpoints = timed(phase_checkpoints, card)
+    data_parallel = timed(phase_data_parallel, card)
+    parallel_layer = timed(phase_parallel_layer, card)
+    dryrun = timed(phase_dryrun, card)
+    print(f"[{card}] seconds per phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -6408,7 +6590,10 @@ def main() -> int:
                              # slice 15: ViT-B/14 at tp = 2 and dp 2 x tp 2 (the
                              # kernel on every tp shard), the f32 flash path beside
                              # the ring; decode, spatial, ring and knn have none
-                             "parallel_layer": parallel_layer["flash_attn_fwd_launches"]},
+                             "parallel_layer": parallel_layer["flash_attn_fwd_launches"],
+                             # slice 16: none, checked: CellposeNet has no attention and
+                             # the dry run's ViT (16 tokens, head dim 16) runs it inline
+                             "dryrun": dryrun["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

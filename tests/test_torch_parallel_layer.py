@@ -474,6 +474,8 @@ def test_sharded_uneven_corpus():
     ({"dp": 2, "sp": 2}, ("dp",)),
     ({"dp": 2, "sp": 4}, (None, "sp")),
     ({"dp": 4, "tp": 2}, (None, None, "tp")),
+    ({"dp": 2, "sp": 2}, ("dp", "sp")),
+    ({"dp": 2, "sp": 4}, ("dp", "sp")),
 ])
 def test_placement_follows_jax_addressable_shards(axes, spec):
     x = np.arange(8 * 8 * 4, dtype=np.float32).reshape(8, 8, 4)
@@ -494,12 +496,26 @@ def test_placement_follows_jax_addressable_shards(axes, spec):
 
 
 def test_two_axis_spec_and_multi_axis_train_step_still_raise():
+    """A spec splitting two dimensions over two axes places each entry's
+    block and a (dp, sp) mesh takes the train step (both were refused
+    before the dp x sp step); a spec naming one axis twice or a tuple of
+    axes for one dimension, and a step over any axis but dp and sp, still
+    raise."""
     m = cpu_mesh({"dp": 2, "sp": 2})
-    with pytest.raises(NotImplementedError, match="A10d"):
-        dp.place(dp.Placement(m, ("dp", "sp")), np.zeros((4, 4)))
+    x = np.arange(16, dtype=np.float32).reshape(4, 4)
+    placed = dp.place(dp.Placement(m, ("dp", "sp")), x)
+    assert [t.tolist() for t in placed] == [x[:2, :2].tolist(), x[:2, 2:].tolist(),
+                                            x[2:, :2].tolist(), x[2:, 2:].tolist()]
+    np.testing.assert_array_equal(placed.gather().numpy(), x)
+    for spec in (("dp", "dp"), (("dp", "sp"),)):
+        with pytest.raises(NotImplementedError, match="at most two dimensions, each over one mesh axis"):
+            dp.place(dp.Placement(m, spec), np.zeros((4, 4)))
     from bioengine_tpu_torch.models.cellpose import make_train_step
 
-    with pytest.raises(NotImplementedError, match="A10d"):
-        dp.data_parallel_step(make_train_step(), m)
+    assert callable(dp.data_parallel_step(make_train_step(), m))
+    with pytest.raises(NotImplementedError, match="splits over no other axis"):
+        dp.data_parallel_step(make_train_step(), cpu_mesh({"dp": 2, "tp": 2}))
     with pytest.raises(ValueError, match="does not divide"):
         dp.place(dp.Placement(m, (None, "sp")), np.zeros((4, 3)))
+    with pytest.raises(ValueError, match="does not divide"):
+        dp.place(dp.Placement(m, ("dp", "sp")), np.zeros((4, 3)))

@@ -83,6 +83,11 @@ SLICE15_MODULES = [
     "parallel/tensor_parallel.py", "parallel/spatial.py", "parallel/ring.py", "ops/knn.py",
     "runtime/engine.py", "runtime/decode_engine.py", "apps/generate/service.py",
 ]
+# the modules of slice 16: the exact dp x sp train step and the dry run
+SLICE16_MODULES = [
+    "graft_entry.py", "parallel/spatial.py", "parallel/data_parallel.py", "parallel/lockstep.py",
+    "datasets/prefetch.py", "models/unet.py", "models/cellpose.py",
+]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -150,7 +155,7 @@ def test_port_files_exist():
     for rel in SLICE13_MODULES:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 14: the parallel layer; slice 15: the rest of it
-    for rel in SLICE14_MODULES + SLICE15_MODULES:
+    for rel in SLICE14_MODULES + SLICE15_MODULES + SLICE16_MODULES:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
     # slice 10: a bundle for every app of the JAX repo (tpu-test's twin is gpu-test)
     jax_apps = {p.name for p in (REPO / "apps").iterdir() if (p / "manifest.yaml").is_file()}
@@ -604,3 +609,37 @@ def test_slice15_entry_points_default_to_cuda(no_cuda):
     engine = DecodeEngine(device="cpu", device_ids=[0, 1])
     assert engine.devices == [torch.device("cpu")] * 2
     assert ShardedKnnIndex(np.zeros((4, 8), np.float32), device="cpu").corpus.device.type == "cpu"
+
+
+def test_slice16_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 16 imports and no
+    module of jax, flax, ``bioengine_tpu`` or the other forbidden packages
+    has been imported."""
+    modules = ["bioengine_tpu_torch." + rel.removesuffix(".py").replace("/", ".") for rel in SLICE16_MODULES]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    importlib.import_module(module)
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_slice16_entry_points_default_to_cuda(no_cuda):
+    """``entry`` and ``dryrun_multichip`` default to ``cuda`` and raise
+    without it, as does the command without ``--device cpu``."""
+    import inspect
+
+    from bioengine_tpu_torch import graft_entry
+
+    for fn in (graft_entry.entry, graft_entry.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for call in (graft_entry.entry, lambda: graft_entry.dryrun_multichip(2), lambda: graft_entry.main(["2"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    fn, (params, images) = graft_entry.entry(device="cpu")
+    assert fn(params, images).shape == (1, 256, 256, 3)

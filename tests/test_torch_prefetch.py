@@ -112,8 +112,8 @@ def test_batches_in_flight_match_the_jax_prefetch():
 def test_device_rules(monkeypatch):
     # a placement over a CPU mesh places every leaf over it, whatever
     # ``device`` says; a spec may split any one dimension over one axis of
-    # a mesh of several, placed as JAX's ``addressable_shards``; a spec
-    # splitting two dimensions waits for ROADMAP A10d
+    # a mesh of several, or two dimensions over two axes, placed as JAX's
+    # ``addressable_shards``; a spec naming one axis twice raises
     mesh = make_mesh({"dp": 2}, ["cpu", "cpu"])
     (batch,) = prefetch_to_device(iter([np.arange(4)]), device="cuda", sharding=sharding(mesh, "dp"))
     assert isinstance(batch, Shards) and [t.tolist() for t in batch] == [[0, 1], [2, 3]]
@@ -125,8 +125,13 @@ def test_device_rules(monkeypatch):
     jshards = sorted(theirs.addressable_shards, key=lambda s: s.device.id)
     assert [t.tolist() for t in ours] == [np.asarray(s.data).tolist() for s in jshards]
     assert ours.gather().tolist() == x.tolist()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
-        list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh4, "dp", "sp")))
+    (ours,) = prefetch_to_device(iter([x]), sharding=sharding(mesh4, "dp", "sp"))
+    (theirs,) = jax_prefetch.prefetch_to_device(iter([x]), sharding=NamedSharding(jmesh, JP("dp", "sp")))
+    jshards = sorted(theirs.addressable_shards, key=lambda s: s.device.id)
+    assert [t.tolist() for t in ours] == [np.asarray(s.data).tolist() for s in jshards]
+    assert ours.gather().tolist() == x.tolist()
+    with pytest.raises(NotImplementedError, match="each over one mesh axis"):
+        list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh4, "sp", "sp")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

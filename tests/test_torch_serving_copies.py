@@ -263,11 +263,13 @@ COPIES = {
         "import numpy as np": "host leaves become tensors",
         "import torch": "explicit device-to-device copies in place of XLA's all-reduce",
         "from torch import nn": "replicas of a module",
-        "from bioengine_tpu_torch.models.cellpose import LossTrainStep, TrainState":
-            "the port's train step and state",
+        "from bioengine_tpu_torch.models.cellpose import CellposeNet, LossTrainStep, TrainState":
+            "the port's train step and state; the dp x sp forward is CellposeNet's",
+        "from bioengine_tpu_torch.parallel import lockstep": "the dp x sp forward over each sp ring",
         "from bioengine_tpu_torch.parallel.mesh import Mesh, Placement": "the port's Mesh and placement",
         "_PerEntry": "a value per mesh entry",
         "Shards": "a leaf split over the mesh in place of a sharded jax.Array",
+        "Blocks": "a leaf split on two dimensions over two mesh axes in place of a sharded jax.Array",
         "Replicated": "a value copied to each mesh entry in place of a replicated jax.Array",
         "DataParallelTrainState": "one replica per mesh entry, the first one updated",
         "tree_map": "the pytree walk of jax.tree_util",
