@@ -835,6 +835,10 @@ class CellposeFinetune:
             model = self._infer_models.get(key)
             if model is None:
                 model, _ = build_model(cfg)
+                # inference-module memo: bounded by distinct architecture
+                # keys, and evicting on session delete would rebuild the
+                # module for siblings sharing the arch
+                # bioengine: ignore[BE-LIFE-401]
                 model = self._infer_models[key] = model.to(self.device).eval()
             model.load_state_dict(state)
             bh, bw = bucket_shape((H, W), divisor=model.divisor)

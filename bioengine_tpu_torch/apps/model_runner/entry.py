@@ -303,8 +303,10 @@ class ModelCache:
                 await asyncio.to_thread(dest.write_bytes, data)
             tmp.rename(package)
         except BaseException:
-            # synchronous: an await here could be cancelled again and leak
-            # the temp dir
+            # cleanup must stay synchronous: awaiting inside a handler
+            # that may hold a CancelledError would get re-cancelled and
+            # leak the temp dir
+            # bioengine: ignore[BE-ASYNC-001]
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         finally:

@@ -11,6 +11,7 @@ import json
 
 import click
 
+from bioengine_tpu_torch.cli.analyze import analyze_command
 from bioengine_tpu_torch.cli.apps import apps_group
 from bioengine_tpu_torch.cli.call import call_command
 from bioengine_tpu_torch.cli.cluster import cluster_group
@@ -24,10 +25,10 @@ from bioengine_tpu_torch.cli.slo import slo_group, top_command
 @click.group()
 @click.version_option(package_name="bioengine-tpu", prog_name="bioengine-torch")
 def main() -> None:
-    """BioEngine command line interface for the PyTorch/CUDA worker
-    (no analyze command: the analysis modules are not ported)."""
+    """BioEngine command line interface for the PyTorch/CUDA worker."""
 
 
+main.add_command(analyze_command)
 main.add_command(call_command)
 main.add_command(apps_group)
 main.add_command(cluster_group)

@@ -605,6 +605,10 @@ class DecodeEngine:
                     logits = logits.cpu().numpy()
                     # [L, T, H, Dh] cropped to real length -> paged blocks
                     self.pools[entry].write_prefill(seq_id, K[:, :T], V[:, :T])
+                # per-sequence pin, not a leak: finish() pops it, and the
+                # decode loop's close() finishes every live sequence
+                # before the engine's close() runs
+                # bioengine: ignore[BE-LIFE-401]
                 self._entry[seq_id] = entry
             tok = int(np.argmax(logits))
             ctx = tracing.current_trace()

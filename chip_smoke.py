@@ -307,9 +307,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (b) ``graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4)`` to its
    OK line, whose meshes, shapes and transfer bytes must be the JAX dry
    run's for 4 devices; (c) no flash launch on the path; one ``dryrun``
-   JSON line; then the seconds of every phase;
-22. one JSON line of the kernels' numbers;
-23. the result line ``{"ok": true, "device": {...}}``, printed last.
+   JSON line;
+22. the static analyzer (slice 17), ``phase_analysis``: (a) the port's
+   gate, ``bioengine_tpu_torch.analysis.__main__.main(["bioengine_tpu_torch",
+   "--cache", tmp, "--stats-json", tmp])`` in a fresh interpreter, must
+   return 0 against ``.analyze-torch-baseline.json``, with its wall
+   seconds, files indexed and findings baselined; (b) each BE-GRAPH rule's
+   fixture (``tests/torch_analysis_fixtures/fx_graph_*.py``, imported by
+   path) on the card: every seeded positive shows its rule's hazard under
+   ``torch.cuda.graph`` (capture raises for 101, 102, 103 and 105; for 104
+   the side effect happens once at capture and 3 replays leave it so), and
+   every negative captures and replays 3 times on fresh inputs bit for bit
+   equal to eager; (c) no flash launch on the path; one ``analysis`` JSON
+   line; then the seconds of every phase;
+23. one JSON line of the kernels' numbers;
+24. the result line ``{"ok": true, "device": {...}}``, printed last.
 
 Any failed check exits non-zero before the result line. f32 comparisons
 run with TF32 off for both cuBLAS and cuDNN, so the plain versions are full
@@ -322,6 +334,7 @@ import asyncio
 import dataclasses
 import gc
 import importlib
+import importlib.util
 import json
 import os
 import re
@@ -3313,7 +3326,7 @@ WORKER_FIELD_SIZE = 896
 WORKER_CROPS_PER_FIELD = 50
 WORKER_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
 WORKER_SEARCHES = 16
-WORKER_ROUNDS = 3  # timed rounds over the queries (and the predicts), the paths interleaved call by call
+WORKER_ROUNDS = 2  # timed rounds over the queries (and the predicts), the paths interleaved call by call
 WORKER_PROFILED_SEARCHES = 2
 WORKER_PREDICTS = 16  # 512^2 f32 predicts through the model-runner over the wire
 WORKER_INGEST_TIMEOUT_S = 600
@@ -6516,6 +6529,183 @@ def phase_dryrun(card: str, device: str = "cuda") -> dict:
     return out
 
 
+
+# ---- slice 17: the static analyzer and its capture rules on the card ----------
+
+ANALYSIS_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                 "torch_analysis_fixtures")
+# each BE-GRAPH rule, its fixture, and whether its positives raise at capture
+# (BE-GRAPH-104's capture succeeds: its mutation runs once and never on replay)
+GRAPH_RULE_FIXTURES = {
+    "BE-GRAPH-101": ("fx_graph_branch.py", True),
+    "BE-GRAPH-102": ("fx_graph_hostcopy.py", True),
+    "BE-GRAPH-103": ("fx_graph_coercion.py", True),
+    "BE-GRAPH-104": ("fx_graph_closure.py", False),
+    "BE-GRAPH-105": ("fx_graph_shape.py", True),
+}
+GRAPH_CASE_SHAPE = (4, 8)  # float32 input of every fixture case
+GRAPH_REPLAYS = 3
+
+
+def _load_by_path(path: str):
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{os.path.basename(path)[:-3]}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _graph_input(device: str, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(GRAPH_CASE_SHAPE).astype(np.float32)).to(device)
+
+
+def _capture_case(fn, x: torch.Tensor, stream):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        out = fn(x)
+    return graph, out
+
+
+def _capture_raises(call) -> str:
+    """The first line of what ``call`` raised while capturing, or "" if it
+    captured; the device is synchronised after a raise either way."""
+    try:
+        call()
+    except Exception as exc:  # the hazard under test: any error counts, recorded
+        while exc.__context__ is not None:  # the capture's end re-raises: show the cause
+            exc = exc.__context__
+        return f"{type(exc).__name__}: {str(exc).strip().splitlines()[0][:160]}"
+    finally:
+        torch.cuda.synchronize()
+    return ""
+
+
+def _graph_rule_cases(rule: str, fixture: str, raises: bool, device: str, seed: int) -> dict:
+    """Every case of one BE-GRAPH fixture on ``device``: each ``pos_*`` runs
+    eagerly and then under capture (it must raise, or, for BE-GRAPH-104,
+    its side effect must happen once at capture and never on replay); each
+    ``block_pos_*`` holds its own capture block, judged alike; each
+    ``neg_*`` is captured and replayed on fresh inputs, bit for bit equal to
+    eager on the same stream. On the CPU every case runs eagerly only."""
+    module = _load_by_path(os.path.join(ANALYSIS_FIXTURES, fixture))
+    names = sorted(n for n in vars(module) if n.startswith(("pos_", "neg_", "block_pos_")))
+    r: dict = {"fixture": fixture, "positives": {}, "negatives": {}}
+    x = _graph_input(device, seed)
+    for name in names:
+        fn = getattr(module, name)
+        positive = not name.startswith("neg_")
+        if device != "cuda":
+            if not name.startswith("block_pos_"):
+                fn(x.clone())
+            (r["positives"] if positive else r["negatives"])[name] = "eager only (capture needs CUDA)"
+            continue
+        if positive:
+            if name.startswith("pos_"):
+                fn(x.clone())  # the case is valid code: it runs eagerly
+                call = lambda: _capture_case(fn, x.clone(), torch.cuda.Stream())  # noqa: E731
+            else:
+                call = lambda: fn(x.clone(), stream=torch.cuda.Stream())  # noqa: E731
+            if raises:
+                err = _capture_raises(call)
+                check(bool(err), f"{rule} {name}: capture did not raise")
+                r["positives"][name] = err
+            else:
+                module.reset()
+                graph, _ = call()
+                torch.cuda.synchronize()
+                captured = module.effects()
+                for _ in range(GRAPH_REPLAYS):
+                    graph.replay()
+                torch.cuda.synchronize()
+                replayed = module.effects()
+                check(captured == 1 and replayed == 1,
+                      f"{rule} {name}: side effects {captured} after capture, {replayed} after "
+                      f"{GRAPH_REPLAYS} replays (expected 1 and 1)")
+                r["positives"][name] = {"after_capture": captured, "after_replays": replayed}
+                del graph
+            continue
+        static_x = x.clone()
+        fn(static_x.clone())  # warm-up, eager
+        torch.cuda.synchronize()
+        graph, out = _capture_case(fn, static_x, torch.cuda.Stream())
+        torch.cuda.synchronize()
+        equal = []
+        for i in range(GRAPH_REPLAYS):
+            fresh = _graph_input(device, seed + 1 + i)
+            static_x.copy_(fresh)
+            graph.replay()
+            want = fn(fresh)
+            equal.append(bool(out.shape == want.shape and torch.equal(out, want)))
+        check(all(equal), f"{rule} {name}: replays equal to eager {equal}")
+        r["negatives"][name] = f"{GRAPH_REPLAYS} replays bit for bit"
+        del graph, out
+    return r
+
+
+def phase_analysis(card: str, device: str = "cuda") -> dict:
+    """Slice 17: (a) the port's analyzer gate over ``bioengine_tpu_torch``
+    against ``.analyze-torch-baseline.json`` (a fresh cache), its wall
+    seconds, files indexed and findings baselined; (b) each BE-GRAPH rule's
+    fixture run under ``torch.cuda.graph`` on the card: every seeded
+    positive shows the hazard its rule names, every negative replays bit for
+    bit equal to eager; (c) the flash kernel's launches around the phase,
+    which must be none. One ``analysis`` JSON line."""
+    t_phase = time.perf_counter()
+    attention.launch_count = 0
+    r: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        stats_path = os.path.join(tmp, "stats.json")
+        argv = ["bioengine_tpu_torch", "--cache", os.path.join(tmp, "cache.json"), "--stats-json", stats_path]
+        # main(argv) in a fresh interpreter: its index pool forks a process
+        # that holds no CUDA context and none of this run's threads; the
+        # baseline's paths are relative to the checkout's root
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; from bioengine_tpu_torch.analysis.__main__ import main; "
+             f"sys.exit(main({argv!r}))"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
+        r["gate_s"] = time.perf_counter() - t0
+        rc = proc.returncode
+        check(rc == 0, f"the port's analyzer gate exited {rc}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        with open(stats_path) as f:
+            stats = json.load(f)
+    check(stats["files_cached"] == 0 and stats["files_indexed"] == stats["files_total"] > 0,
+          f"the gate's scan was not cold: {stats}")
+    r["gate"] = {k: stats[k] for k in ("wall_s", "files_total", "files_indexed", "findings", "jobs")}
+    print(f"[{card}] analysis gate: rc {rc} in {r['gate_s']:.3f} s (analyzer wall {stats['wall_s']} s), "
+          f"{stats['files_indexed']} files indexed, {stats['findings']} findings, all baselined")
+    r["rules"] = {}
+    for i, (rule, (fixture, raises)) in enumerate(GRAPH_RULE_FIXTURES.items()):
+        t0 = time.perf_counter()
+        cases = _graph_rule_cases(rule, fixture, raises, device, SEED + 17 + 10 * i)
+        cases["s"] = time.perf_counter() - t0
+        r["rules"][rule] = cases
+        pos, neg = cases["positives"], len(cases["negatives"])
+        if device != "cuda":
+            shown = f"{len(pos)} positives and {neg} negatives ran eagerly (capture needs CUDA)"
+        elif raises:
+            shown = (f"{len(pos)} positives raised under capture (e.g. {next(iter(pos.values()))}); {neg} "
+                     f"negatives captured, {GRAPH_REPLAYS} replays on fresh inputs bit for bit equal to eager")
+        else:
+            shown = (f"{len(pos)} positives captured with their side effect once, unchanged by "
+                     f"{GRAPH_REPLAYS} replays; {neg} negatives captured, {GRAPH_REPLAYS} replays on fresh "
+                     f"inputs bit for bit equal to eager")
+        print(f"[{card}] {rule} ({fixture}): {shown} ({cases['s']:.3f} s)")
+    # nothing in this slice has attention: the analyzer reads source, and the
+    # fixtures' cases are elementwise ops and reductions
+    launches = attention.launch_count
+    check(launches == 0, f"the analysis path launched flash_attn_fwd {launches} times, expected none")
+    r["flash_attn_fwd_launches"] = launches
+    r["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] analysis phase: {r['phase_s']:.3f} s; flash_attn_fwd launches {launches}")
+    out = {"card": card, "gate": r["gate"], "gate_s": r["gate_s"],
+           "rules": {k: {"positives": v["positives"], "negatives": len(v["negatives"]), "s": v["s"]}
+                     for k, v in r["rules"].items()},
+           "flash_attn_fwd_launches": launches, "phase_s": r["phase_s"]}
+    print("analysis " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     # every controller this run starts keeps its compile-cache tier in a
     # temporary directory (the default is under the home directory)
@@ -6552,6 +6742,7 @@ def main() -> int:
     data_parallel = timed(phase_data_parallel, card)
     parallel_layer = timed(phase_parallel_layer, card)
     dryrun = timed(phase_dryrun, card)
+    analysis = timed(phase_analysis, card)
     print(f"[{card}] seconds per phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
@@ -6593,7 +6784,10 @@ def main() -> int:
                              "parallel_layer": parallel_layer["flash_attn_fwd_launches"],
                              # slice 16: none, checked: CellposeNet has no attention and
                              # the dry run's ViT (16 tokens, head dim 16) runs it inline
-                             "dryrun": dryrun["flash_attn_fwd_launches"]},
+                             "dryrun": dryrun["flash_attn_fwd_launches"],
+                             # slice 17: none, checked: the analyzer reads source, and
+                             # the capture fixtures' cases have no attention
+                             "analysis": analysis["flash_attn_fwd_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -14,8 +14,9 @@ difference: the port reports the CUDA allocator snapshot's size
 ``pprof_bytes``. ``models convert`` writes npz files that must be equal
 member by member. ``scenarios`` and ``fuzz`` need no worker: both CLIs
 run them in process, the port's hosts on ``--device cpu``, and their JSON
-must be equal with the timings left out. The standalone uploader and
-``analyze`` stay JAX-only: their script and commands are not ported. Each worker runs in a thread of
+must be equal with the timings left out. The standalone uploader stays
+JAX-only: its script is not ported; ``analyze`` is held against the JAX
+analyzer in ``test_torch_analysis.py``. Each worker runs in a thread of
 its own with its own event loop, workspace, ``HOME`` and shared-memory
 segment, with geolocation and the JAX compile cache off.
 """
@@ -294,9 +295,9 @@ def test_usage_errors(workers, monkeypatch):
 
 
 def test_command_tree():
-    """The port's CLI has every command of the JAX CLI's but analyze, with
-    the same options; ``scenarios run`` and ``fuzz`` also take ``--device``
-    and ``--n-devices`` (where the in-process worker hosts run)."""
+    """The port's CLI has every command of the JAX CLI's, with the same
+    options; ``scenarios run`` and ``fuzz`` also take ``--device`` and
+    ``--n-devices`` (where the in-process worker hosts run)."""
     def tree(group):
         out = {}
         for name, cmd in group.commands.items():
@@ -305,7 +306,6 @@ def test_command_tree():
         return out
 
     jax_tree = tree(jax_cli.main)
-    jax_tree.pop("analyze")
     for opts in (jax_tree["scenarios"]["run"], jax_tree["fuzz"]):
         opts[:] = sorted(opts + ["--device", "--n-devices"])
     assert tree(torch_cli.main) == jax_tree

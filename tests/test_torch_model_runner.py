@@ -205,7 +205,13 @@ def test_streamed_manifest_equals_eager(packages, tmp_path):
         broken.close()
 
 
-def test_test_report_is_cached_on_weight_mtimes(packages):
+def test_test_report_is_cached_on_weight_mtimes(packages, monkeypatch):
+    from bioengine_tpu_torch.utils import compile_cache
+
+    # a cold process: no kernel-library cache enabled by an earlier test
+    # (an eager CPU program writes no entry, so an enabled cache would
+    # count its build as a cache hit)
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
     package = packages["unet3d-float32"]
     deployment = RuntimeDeployment(device="cpu")
 

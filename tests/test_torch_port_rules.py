@@ -88,6 +88,13 @@ SLICE16_MODULES = [
     "graft_entry.py", "parallel/spatial.py", "parallel/data_parallel.py", "parallel/lockstep.py",
     "datasets/prefetch.py", "models/unet.py", "models/cellpose.py",
 ]
+# the modules of slice 17: the static analyzer, its command, the requirement pins
+SLICE17_MODULES = [
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/core.py", "analysis/baseline.py",
+    "analysis/sarif.py", "analysis/project.py", "analysis/async_rules.py", "analysis/interproc.py",
+    "analysis/obs_rules.py", "analysis/dist_rules.py", "analysis/lifecycle_rules.py",
+    "analysis/hotpath_rules.py", "analysis/capture_rules.py", "cli/analyze.py", "utils/requirements.py",
+]
 BUNDLE_FILES = [
     "apps/bundles/cell-image-search/main.py", "apps/bundles/demo-app/demo_deployment.py",
     "apps/bundles/model-runner/entry_deployment.py", "apps/bundles/model-runner/runtime_deployment.py",
@@ -164,10 +171,19 @@ def test_port_files_exist():
     for app in ("cellpose-finetuning", "cell-image-search", "fibsem-mito-analysis", "composition-demo"):
         assert (BUNDLES / app / "frontend" / "index.html").is_file(), app
     # slice 11: the worker host and the CLI; slice 12: the scenario engine,
-    # the fuzzer and their commands (no analyze: analysis/ is not ported)
-    for rel in SLICE11_MODULES + SLICE12_MODULES + ["cli/__main__.py"]:
+    # the fuzzer and their commands; slice 17: the analyzer and its command
+    for rel in SLICE11_MODULES + SLICE12_MODULES + SLICE17_MODULES + ["cli/__main__.py"]:
         assert (REPO / "bioengine_tpu_torch" / rel).is_file(), rel
-    assert not (REPO / "bioengine_tpu_torch" / "cli" / "analyze.py").exists()
+    assert len([m for m in SLICE17_MODULES if m.startswith("analysis/")]) == 13
+    assert {p.name for p in (REPO / "bioengine_tpu_torch" / "analysis").glob("*.py")} == {
+        m.removeprefix("analysis/") for m in SLICE17_MODULES if m.startswith("analysis/")
+    }
+    from click.testing import CliRunner
+
+    from bioengine_tpu_torch.cli.cli import main as cli_main
+
+    out = CliRunner().invoke(cli_main, ["--help"])
+    assert out.exit_code == 0 and "  analyze " in out.output, out.output
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -369,10 +385,14 @@ print("ok")
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 
 
-def test_worker_entry_points_default_to_cuda(no_cuda, tmp_path):
+def test_worker_entry_points_default_to_cuda(no_cuda, tmp_path, monkeypatch):
     """``BioEngineWorker`` and the CLI's parsed kwargs default to ``cuda``;
     without CUDA the worker raises at ``start()``, before the workspace lock."""
     import inspect
+
+    # ``start()`` enables the kernel-library cache for the whole process
+    # before it raises; off, so no later test in this worker inherits it
+    monkeypatch.setenv("BIOENGINE_COMPILE_CACHE", "off")
 
     from bioengine_tpu_torch.worker import __main__ as cli
     from bioengine_tpu_torch.worker.worker import BioEngineWorker
@@ -429,8 +449,8 @@ import importlib, sys
 for module in {modules!r}:
     importlib.import_module(module)
 from bioengine_tpu_torch.cli.cli import main
-assert {{"call", "apps", "cluster", "debug", "fuzz", "models", "scenarios", "slo", "top", "status",
-         "worker"}} == set(main.commands)
+assert {{"analyze", "call", "apps", "cluster", "debug", "fuzz", "models", "scenarios", "slo", "top",
+         "status", "worker"}} == set(main.commands)
 bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
 assert not bad, bad
 print("ok")
@@ -643,3 +663,24 @@ def test_slice16_entry_points_default_to_cuda(no_cuda):
             call()
     fn, (params, images) = graft_entry.entry(device="cpu")
     assert fn(params, images).shape == (1, 256, 256, 3)
+
+
+def test_slice17_imports_load_nothing_forbidden():
+    """In a fresh interpreter, every module of slice 17 imports and no
+    module of jax, flax, ``bioengine_tpu`` or the other forbidden packages
+    has been imported; the analyzer is host-only and loads no torch."""
+    modules = ["bioengine_tpu_torch." + rel.removesuffix(".py").replace("/", ".") for rel in SLICE17_MODULES]
+    script = f"""
+import importlib, sys
+for module in {modules!r}:
+    if module != "bioengine_tpu_torch.cli.analyze":
+        importlib.import_module(module)
+assert "torch" not in sys.modules, "the analyzer imported torch"
+importlib.import_module("bioengine_tpu_torch.cli.analyze")
+bad = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

@@ -11,8 +11,8 @@ its test, any other expression statement by its text, the module
 docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
-ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13, slice-14 or
-slice-15 differences.
+ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13, slice-14,
+slice-15 or slice-17 differences.
 """
 
 import ast
@@ -148,9 +148,7 @@ COPIES = {
     "cli/slo.py": {},
     "cli/models.py": {},
     "cli/cli.py": {
-        "from bioengine_tpu_torch.cli.analyze import analyze_command": "analysis/ is not ported (Queue A)",
-        "main.add_command(analyze_command)": "analysis/ is not ported (Queue A)",
-        "main": "prog name bioengine-torch; the docstring names what is not ported",
+        "main": "prog name bioengine-torch; the docstring names the CUDA worker",
     },
     # slice 12: the scenario engine, the fuzzer, the controller process, their commands
     "testing/invariants.py": {},
@@ -283,6 +281,50 @@ COPIES = {
         "jit_data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
     },
     "parallel/__init__.py": {},
+    # slice 17: the static analyzer, its command, the requirement pins
+    "analysis/__init__.py": {
+        "__doc__": "the BE-GRAPH capture rules in place of the BE-JAX tracer rules",
+        "from bioengine_tpu_torch.analysis import jax_rules as _jax_rules":
+            "the BE-GRAPH capture rules in place of the BE-JAX tracer rules",
+        "from bioengine_tpu_torch.analysis import capture_rules as _capture_rules":
+            "the BE-GRAPH capture rules in place of the BE-JAX tracer rules",
+    },
+    "analysis/__main__.py": {
+        "__doc__": "the command is bioengine-torch analyze",
+        "build_parser": "prog python -m bioengine_tpu_torch.analysis; default paths bioengine_tpu_torch",
+    },
+    "analysis/core.py": {
+        "__doc__": "captured functions in place of jitted ones",
+    },
+    "analysis/baseline.py": {
+        "DEFAULT_BASELINE": "the port's baseline .analyze-torch-baseline.json",
+    },
+    "analysis/sarif.py": {
+        "__doc__": "the SARIF tool name bioengine-torch-analyze",
+        "render_sarif": "the SARIF tool name bioengine-torch-analyze",
+    },
+    "analysis/project.py": {
+        "__doc__": "the port's cache .analyze-torch-cache.json",
+        "DEFAULT_CACHE": "the port's cache .analyze-torch-cache.json",
+    },
+    "analysis/async_rules.py": {},
+    "analysis/interproc.py": {},
+    "analysis/obs_rules.py": {},
+    "analysis/dist_rules.py": {
+        "__doc__": "the history is told without the JAX repository's PR count",
+    },
+    "analysis/lifecycle_rules.py": {
+        "__doc__": "the history is told without the JAX repository's PR numbers",
+    },
+    "analysis/hotpath_rules.py": {},
+    "cli/analyze.py": {
+        "__doc__": "the command is bioengine-torch analyze",
+        "analyze_command": "the help names the capture rules and bioengine-torch",
+    },
+    "utils/requirements.py": {
+        "__doc__": "the image stack is torch and triton",
+        "SKIP_PACKAGES": "the image stack is torch and triton",
+    },
 }
 
 def _key(i: int, node: ast.stmt) -> str:
@@ -365,11 +407,12 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 def _listed_differences() -> str:
     """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (",
-    "Slice 13 (", "Slice 14 (" and "Slice 15 (" differences sections."""
+    "Slice 13 (", "Slice 14 (", "Slice 15 (" and "Slice 17 (" differences
+    sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
     for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 (", "Slice 14 (",
-                    "Slice 15 ("):
+                    "Slice 15 (", "Slice 17 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
