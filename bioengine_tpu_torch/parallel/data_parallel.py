@@ -9,20 +9,22 @@ the whole device group:
   train state, or a tree of tensors);
 - ``shard_batch`` splits every leaf's leading dimension on the host into
   equal shards, one on each device; over a mesh of several axes (dp x tp,
-  dp x sp) a placement splits one dimension over one axis and replicates
-  over the others (``Shards``), or two dimensions over two axes
-  (``P("dp", "sp")``: ``Blocks``, each entry its (batch part, height part)
-  block), the entries holding their parts in the order of JAX's
-  ``addressable_shards``;
+  dp x sp) a placement splits one dimension over one axis, or over a tuple
+  of axes (their product, row-major), and replicates over the others
+  (``Shards``), or several dimensions (``P("dp", "sp")``: ``Blocks``, each
+  entry its (batch part, height part) block), the entries holding their
+  parts in the order of JAX's ``addressable_shards``; a spec naming one
+  axis twice raises ``DuplicateSpecError``, as in JAX;
 - ``data_parallel_step`` is the step of the GLOBAL batch, JAX's
-  semantics: each replica runs forward on its shard, the predictions are
-  concatenated on the first device in shard order, the unchanged
-  ``loss_call`` runs once over the whole batch and ``backward`` runs; each
-  replica's gradients are summed onto the first replica in shard order by
-  explicit device-to-device copies, one optimiser step runs there, and its
-  parameters are copied to the others. After every step the replicas are
-  equal bit for bit. Over a (dp, sp) mesh the images are split over both
-  axes and the forward runs in lockstep over each sp ring
+  semantics: each replica at coordinate 0 of the mesh's other axes runs
+  forward on its shard, the predictions are concatenated on the first
+  device in shard order, the unchanged ``loss_call`` runs once over the
+  whole batch and ``backward`` runs; those replicas' gradients are summed
+  onto the first replica in shard order by explicit device-to-device
+  copies, one optimiser step runs there, and its parameters are copied to
+  every other replica. After every step the replicas are equal bit for
+  bit. Over a (dp, sp) mesh CellposeNet's images are split over both axes
+  and the forward runs in lockstep over each sp ring
   (``parallel/lockstep.py``: halos before every 3x3 conv, GroupNorm and
   style statistics summed over the ring), which is the unsharded step
   within summation order, as GSPMD's is for JAX.
@@ -57,55 +59,89 @@ class _PerEntry(tuple):
         obj.mesh = mesh
         return obj
 
+    def over_tp(self, dim: int, groups: Optional[int] = None, bounds: Optional[tuple] = None) -> bool:
+        """Whether this splits ``dim`` over ``tp`` alone (in ``groups``
+        groups and at ``bounds``, where given): only a ``Shards`` does."""
+        return False
+
 
 class Shards(_PerEntry):
-    """A tensor split over one mesh axis: one part per entry, on that
-    entry's device, in mesh order. ``dim`` is the tensor's split dimension
-    and ``axis`` the mesh axis; entries that differ only along other axes
-    hold copies of the same part (replicated over them). With ``groups``
-    > 1 the dimension is that many equal groups and a part is one slice of
-    each (a fused qkv weight split by heads)."""
+    """A tensor split over one mesh axis, or a tuple of axes: one part per
+    entry, on that entry's device, in mesh order. ``dim`` is the tensor's
+    split dimension and ``axis`` the mesh axis; entries that differ only
+    along other axes hold copies of the same part (replicated over them).
+    With ``groups`` > 1 the dimension is that many equal groups and a part
+    is one slice of each (a fused qkv weight split by heads); ``bounds``,
+    the n + 1 offsets within a group where the parts start (even when
+    None), lets the parts differ in size (heads that do not divide)."""
 
-    def __new__(cls, values, mesh: Mesh, axis: str = "dp", dim: int = 0, groups: int = 1):
+    def __new__(cls, values, mesh: Mesh, axis="dp", dim: int = 0, groups: int = 1,
+                bounds: Optional[tuple] = None):
         obj = super().__new__(cls, values, mesh)
-        obj.axis, obj.dim, obj.groups = axis, dim, groups
+        obj.axis, obj.dim, obj.groups, obj.bounds = axis, dim, groups, bounds
         return obj
+
+    def over_tp(self, dim: int, groups: Optional[int] = None, bounds: Optional[tuple] = None) -> bool:
+        return (self.axis == "tp" and self.dim == dim and groups in (None, self.groups)
+                and (bounds is None or tuple(self.bounds or ()) == tuple(bounds)))
 
     def parts(self) -> list:
         """One part per coordinate along ``axis``, in order."""
         coords = self.mesh.coords(self.axis)
-        return [self[coords.index(j)] for j in range(self.mesh.shape[self.axis])]
+        return [self[coords.index(j)] for j in range(self.mesh.axis_size(self.axis))]
 
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The whole tensor on ``device`` (the mesh's first by default),
         parts concatenated in order; differentiable."""
         device = device or self.mesh.devices[0]
-        parts = [s.to(device).chunk(self.groups, self.dim) for s in self.parts()]
+        parts = [s.to(device).tensor_split(self.groups, self.dim) for s in self.parts()]
         return torch.cat([p[g] for g in range(self.groups) for p in parts], dim=self.dim)
 
 
 class Blocks(_PerEntry):
-    """A tensor split on two dimensions over two mesh axes: dimension
-    ``dims[k]`` over ``axes[k]``, one block per entry, on that entry's
-    device, in mesh order; entries that differ only along other axes hold
-    copies of the same block."""
+    """A tensor split on several dimensions, each over a mesh axis or a
+    tuple of axes: dimension ``dims[k]`` over ``axes[k]``, one block per
+    entry, on that entry's device, in mesh order; entries that differ
+    only along other axes hold copies of the same block."""
 
     def __new__(cls, values, mesh: Mesh, axes: tuple, dims: tuple):
         obj = super().__new__(cls, values, mesh)
         obj.axes, obj.dims = axes, dims
         return obj
 
+    @property
+    def spec(self) -> tuple:
+        """The partition spec this placement follows."""
+        out = [None] * (max(self.dims) + 1)
+        for axis, dim in zip(self.axes, self.dims):
+            out[dim] = axis
+        return tuple(out)
+
+    def _at(self) -> dict:
+        at = {}
+        for e, c in enumerate(zip(*(self.mesh.coords(a) for a in self.axes))):
+            at.setdefault(c, self[e])
+        return at
+
+    def parts(self) -> list:
+        """One block per combination of coordinates, in row-major order."""
+        at = self._at()
+        return [at[c] for c in sorted(at)]
+
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The whole tensor on ``device`` (the mesh's first by default),
         blocks concatenated in order; differentiable."""
         device = device or self.mesh.devices[0]
-        (outer, inner), (d0, d1) = self.axes, self.dims
-        at = {}
-        for e, c in enumerate(zip(self.mesh.coords(outer), self.mesh.coords(inner))):
-            at.setdefault(c, self[e])
-        n0, n1 = self.mesh.shape[outer], self.mesh.shape[inner]
-        rows = [torch.cat([at[i, j].to(device) for j in range(n1)], dim=d1) for i in range(n0)]
-        return torch.cat(rows, dim=d0)
+        at = self._at()
+        sizes = [self.mesh.axis_size(a) for a in self.axes]
+
+        def cat(prefix: tuple) -> torch.Tensor:
+            if len(prefix) == len(sizes):
+                return at[prefix].to(device)
+            level = len(prefix)
+            return torch.cat([cat(prefix + (i,)) for i in range(sizes[level])], dim=self.dims[level])
+
+        return cat(())
 
 
 class Replicated(_PerEntry):
@@ -150,48 +186,67 @@ def _as_tensor(x: Any) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
 
 
+class DuplicateSpecError(ValueError):
+    """A partition spec that names one mesh axis twice, as JAX's
+    ``DuplicateSpecError`` (a ``ValueError``)."""
+
+
+def _split_dims(mesh: Mesh, spec: tuple) -> list:
+    """(dim, axis) of each split dimension of ``spec`` (an axis is a name
+    or a tuple of names), checked against ``mesh`` as JAX's
+    ``NamedSharding`` checks it: every name an axis of the mesh, none
+    named twice."""
+    split = [(dim, axis) for dim, axis in enumerate(spec) if axis not in (None, ())]
+    seen = set()
+    for _, axis in split:
+        for name in axis if isinstance(axis, tuple) else (axis,):
+            if name not in mesh.axis_names:
+                raise ValueError(f"partition spec {spec} names {name!r}, not an axis of the mesh {mesh.shape}")
+            if name in seen:
+                raise DuplicateSpecError(
+                    f"partition spec {spec} names the mesh axis {name!r} twice: a mesh axis "
+                    "splits at most one dimension"
+                )
+            seen.add(name)
+    return split
+
+
 def host_parts(placement: Placement, x: Any) -> tuple[Callable, list]:
-    """A leaf under a ``Placement``, still on the host: (a ``Shards`` or,
-    for two split dimensions, a ``Blocks`` maker and each entry's part, for
-    a spec that splits one or two dimensions, each over one mesh axis:
-    equal parts along each, the same part on entries that differ only
-    along the mesh's other axes) or
+    """A leaf under a ``Placement``, still on the host: (a ``Shards``, or
+    for several split dimensions a ``Blocks``, maker and each entry's
+    part: equal parts along each split dimension, a dimension split over a
+    tuple of axes as over their product in row-major order, the same part
+    on entries that differ only along the mesh's other axes) or
     (``Replicated`` and the whole leaf once per entry, for ``replicated``).
     Raises where a dimension does not divide, as JAX's sharded
-    ``device_put`` does."""
+    ``device_put`` does, and ``DuplicateSpecError`` for a spec naming one
+    axis twice."""
     mesh, spec = placement.mesh, tuple(placement.spec)
     x = _as_tensor(x)
-    split = [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
+    split = _split_dims(mesh, spec)
     if not split:
         return Replicated, [x] * mesh.size
-    axes = [axis for _, axis in split]
-    if len(split) > 2 or any(isinstance(a, tuple) for a in axes) or len(set(axes)) < len(axes):
-        raise NotImplementedError(
-            f"partition spec {spec}: a placement splits at most two dimensions, "
-            "each over one mesh axis of its own"
-        )
     for dim, axis in split:
-        if axis not in mesh.axis_names:
-            raise ValueError(f"partition spec {spec} names {axis!r}, not an axis of the mesh {mesh.shape}")
-        n = mesh.shape[axis]
+        n = mesh.axis_size(axis)
         if x.dim() <= dim or x.shape[dim] % n:
             where = "leading dimension" if dim == 0 else f"dimension {dim}"
             raise ValueError(
                 f"{where} of shape {tuple(x.shape)} does not divide "
                 f"into {axis}={n} equal shards"
             )
-    coords = list(zip(*(mesh.coords(axis) for axis in axes)))
+    coords = list(zip(*(mesh.coords(axis) for _, axis in split)))
     blocks = {}
     for c in dict.fromkeys(coords):  # one view per block, shared by its entries
         block = x
         for (dim, axis), k in zip(split, c):
-            block = block.chunk(mesh.shape[axis], dim)[k]
+            block = block.chunk(mesh.axis_size(axis), dim)[k]
         blocks[c] = block
     parts = [blocks[c] for c in coords]
-    (dim, axis), *second = split
-    if second:
-        return lambda values, mesh: Blocks(values, mesh, (axis, second[0][1]), (dim, second[0][0])), parts
-    return lambda values, mesh: Shards(values, mesh, axis, dim), parts
+    if len(split) == 1:
+        (dim, axis), = split
+        return lambda values, mesh: Shards(values, mesh, axis, dim), parts
+    axes, dims = tuple(a for _, a in split), tuple(d for d, _ in split)
+    return lambda values, mesh: Blocks(values, mesh, axes, dims), parts
 
 
 def place(placement: Placement, x: Any) -> Any:
@@ -251,50 +306,84 @@ def _sum_gradients(replicas) -> None:
                 p0.grad.add_(g)
 
 
+def _whole(x: Any) -> Any:
+    """A placed leaf's whole value on its mesh's first device; any other
+    leaf as it is."""
+    if isinstance(x, Replicated):
+        return x[0]
+    return x.gather() if isinstance(x, _PerEntry) else x
+
+
 def data_parallel_step(step: LossTrainStep, mesh: Mesh, axis: str = "dp") -> Callable:
     """A ``(state, *batch) -> (state, metrics)`` step of the global batch
     over ``mesh``; ``state`` is ``replicate(mesh, state)``'s and each batch
-    leaf a tensor or a placed leaf (``shard_batch``'s, or over a (dp, sp)
-    mesh ``P(axis, "sp")``'s). ``step`` is ``make_loss_train_step``'s
+    leaf a tensor or a placed leaf. ``step`` is ``make_loss_train_step``'s
     (``make_train_step``, ``make_stardist_train_step``): its ``loss_call``
     runs once over the whole batch and its ``update`` on the first replica.
 
-    The mesh holds ``axis`` and at most ``sp`` besides. With ``sp`` wider
-    than 1 the images' height is split over it too and the forward runs in
-    lockstep over each sp ring (CellposeNet only); at width 1 the step is
-    the dp step."""
-    if axis not in mesh.axis_names or set(mesh.axis_names) - {axis, "sp"}:
-        raise NotImplementedError(
-            f"a train step over the mesh {mesh.shape}: the batch splits over {axis!r} "
-            "and image height over 'sp', and the step splits over no other axis"
-        )
-    spatial = mesh.shape.get("sp", 1) > 1
-    placement = Placement(mesh, (axis, "sp") if spatial else (axis,))
-    rings = mesh.groups("sp") if spatial else None
+    The batch splits over ``axis`` and the mesh's other axes replicate, as
+    ``jit_data_parallel_step``'s constraints do over any mesh: the
+    replicas at coordinate 0 of every other axis run the forward on their
+    parts, and after the update every replica holds the first one's
+    parameters. Over a mesh with ``sp`` wider than 1, CellposeNet's images
+    (host arrays, or placed ``P(axis, "sp")``) are split on height too and
+    its forward runs in lockstep over each sp ring; any other model, or
+    images placed ``P(axis)``, takes the step with ``sp`` replicated."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"partition spec P({axis!r}) names {axis!r}, not an axis of the mesh {mesh.shape}")
+
+    def firsts(keep: set) -> list:
+        """The entries at coordinate 0 of every axis but ``keep``, in mesh
+        order: entry 0 first."""
+        return [e for e in range(mesh.size) if all(mesh.coords(a)[e] == 0 for a in mesh.axis_names if a not in keep)]
+
+    lead = firsts({axis})  # one entry per coordinate along ``axis``
+    batch = Placement(mesh, (axis,))
+    spatial = axis != "sp" and mesh.shape.get("sp", 1) > 1
+    blocks = Placement(mesh, (axis, "sp")) if spatial else None
+    if spatial:
+        # the lockstep runs one entry per (axis, sp) block; its rings are
+        # lists of positions in ``lock``
+        lock = firsts({axis, "sp"})
+        at = {e: i for i, e in enumerate(lock)}
+        rings = [[at[e] for e in ring] for ring in mesh.groups("sp") if ring[0] in at]
+        block = {(mesh.coords(axis)[e], mesh.coords("sp")[e]): i for i, e in enumerate(lock)}
+        source = [block[mesh.coords(axis)[e], mesh.coords("sp")[e]] for e in range(mesh.size)]
+
+    def lockstep_images(state, images) -> bool:
+        if not (spatial and isinstance(state.module, CellposeNet)):
+            return False
+        if not isinstance(images, _PerEntry):
+            return True
+        return isinstance(images, Blocks) and images.mesh == mesh and (images.axes, images.dims) == ((axis, "sp"), (0, 1))
 
     def dp_step(state: DataParallelTrainState, images, *targets):
         if not isinstance(state, DataParallelTrainState) or state.mesh != mesh:
             raise TypeError("data_parallel_step takes replicate(mesh, state) of its own mesh")
-        if spatial and not isinstance(state.module, CellposeNet):
-            raise NotImplementedError(
-                f"the forward split over sp is CellposeNet's; the model is a {type(state.module).__name__}"
-            )
-        images = place(placement, images)
-        if spatial and (getattr(images, "axes", None), getattr(images, "dims", None)) != ((axis, "sp"), (0, 1)):
-            raise ValueError(f"over a (dp, sp) mesh the images are split P({axis!r}, 'sp'): batch and height")
-        targets = [place(placement, t).gather() for t in targets]
-        state.optimizer.zero_grad(set_to_none=True)
-        for replica in state.replicas:
-            replica.train()
-        for replica in state.replicas[1:]:
-            replica.zero_grad(set_to_none=True)
-        if spatial:
-            pred = Blocks(lockstep.forward(state.replicas, rings, list(images)), mesh, images.axes, images.dims)
+        split_height = lockstep_images(state, images)
+        if split_height:
+            images = place(blocks, images)
+            targets = [place(blocks, t).gather() for t in targets]
+            replicas = [state.replicas[e] for e in lock]
         else:
-            pred = Shards([r(x) for r, x in zip(state.replicas, images)], mesh)
-        loss, parts = step.loss_call(pred.gather(), *targets)
+            placed = isinstance(images, Shards) and images.mesh == mesh and (images.axis, images.dim) == (axis, 0)
+            images = images if placed else place(batch, _whole(images))
+            targets = [place(batch, t).gather() for t in targets]
+            replicas = [state.replicas[e] for e in lead]
+        state.optimizer.zero_grad(set_to_none=True)
+        for replica in replicas:
+            replica.train()
+        for replica in replicas[1:]:
+            replica.zero_grad(set_to_none=True)
+        if split_height:
+            outs = lockstep.forward(replicas, rings, [images[e] for e in lock])
+            pred = Blocks([outs[i] for i in source], mesh, images.axes, images.dims).gather()
+        else:
+            first = mesh.devices[0]
+            pred = torch.cat([r(images[e]).to(first) for r, e in zip(replicas, lead)])
+        loss, parts = step.loss_call(pred, *targets)
         loss.backward()
-        _sum_gradients(state.replicas)
+        _sum_gradients(replicas)
         step.update(state)
         state.sync_replicas()
         return state, step.metrics(loss, parts)

@@ -126,8 +126,21 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
-    def coords(self, axis: str) -> list[int]:
-        """Each entry's coordinate along ``axis``, in mesh order."""
+    def axis_size(self, axis) -> int:
+        """The size of ``axis``, or of a tuple of axes (their product)."""
+        names = axis if isinstance(axis, tuple) else (axis,)
+        return math.prod(self.shape[a] for a in names)
+
+    def coords(self, axis) -> list[int]:
+        """Each entry's coordinate along ``axis``, in mesh order; along a
+        tuple of axes, their coordinates combined in row-major order (the
+        order of JAX's ``addressable_shards`` for such a dimension)."""
+        if isinstance(axis, tuple):
+            out = [0] * self.size
+            for a in axis:
+                inner = self.coords(a)
+                out = [c * self.shape[a] + k for c, k in zip(out, inner)]
+            return out
         if axis not in self.axis_names:
             raise ValueError(f"axis {axis!r} is not in the mesh {self.shape}")
         at = self.axis_names.index(axis)
@@ -147,10 +160,10 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """A mesh and a partition spec: the axis each leading dimension is
-    split over (``None`` keeps a dimension whole); an empty spec is
-    replicated. ``prefetch_to_device(sharding=)`` and the data-parallel
-    helpers take it as JAX's ``NamedSharding``."""
+    """A mesh and a partition spec: the axis, or tuple of axes, each
+    leading dimension is split over (``None`` keeps a dimension whole); an
+    empty spec is replicated. ``prefetch_to_device(sharding=)`` and the
+    data-parallel helpers take it as JAX's ``NamedSharding``."""
 
     mesh: Mesh
     spec: tuple = ()

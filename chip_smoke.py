@@ -71,7 +71,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the published ViT-L shape (~303 M parameters, seeded, scaled to flax's
    initialiser scales) converted by ``convert_checkpoint``; ``CellposeFinetune``
    fine-tunes ``"cpsam"`` from it at the app's defaults (8 x 256^2, bf16,
-   lr 1e-4) for 3 epochs on the 16 fields (loss must fall), then
+   lr 1e-4) for 2 epochs on the 16 fields (loss must fall), then
    ``"sam"`` (CellposeSAM, dim 256, depth 8, 8 heads, 8 x 128^2); for each:
    a step timed and profiled, the f32 step on the card against the CPU
    (cpsam: a depth-2 cut at full width, 2 x 128^2), ``infer`` on 2 x 512^2
@@ -159,7 +159,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    a bf16 128x128 matmul's norm is 16384.0; ``memory_info``); generate at
    ``DecoderConfig()`` (unary over the WebSocket, the HTTP bridge and MCP
    equal to the golden fixture, the deployment handle's ``generate_stream``
-   and its resume, 8 unary calls x 3 rounds over the WebSocket and on the
+   and its resume, 8 unary calls x 2 rounds over the WebSocket and on the
    handle in turns, TTFT and inter-token p50/p95/p99 of 8 concurrent handle
    streams of 64 tokens, a cold round and a warm one, beside the bundle's
    250 ms objective); cellpose-finetuning (``start_training`` over the wire
@@ -184,7 +184,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    with the card as its one chip; the cell-image-search bundle at ViT-B/14
    width is placed on it as a ``RemoteReplica`` leasing the chip, ingests 8
    synthetic 896^2 fields from a local directory, and answers 16 searches x
-   3 rounds through the controller's handle, each equal in ids and scores,
+   2 rounds through the controller's handle, each equal in ids and scores,
    bit for bit, to ``CellImageSearch(device="cuda")`` built here over the
    index the host wrote, with ms per search through the host and in
    process in turns and the hop's cost; the host's own ``torch.profiler``
@@ -236,9 +236,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``torch.profiler`` trace of the 16 after holds 12 ``flash_attn`` events
    per bucket forward; the times from the SIGKILL to ``RECONCILED`` and to
    the first answered search; one ``scenarios`` JSON line;
-17. device prefetch (slice 13), ``phase_prefetch``: 1024 seeded 224^2 RGB
+17. device prefetch (slice 13), ``phase_prefetch``: 512 seeded 224^2 RGB
    crops (uint8, as ``to_rgb_uint8`` makes them) in a zarr array on the
-   datasets plane (a ``DatasetsServer`` on loopback), streamed in 16
+   datasets plane (a ``DatasetsServer`` on loopback), streamed in 8
    batches of 64 by ``ZarrBatchLoader(prefetch_batches=2)`` onto the card,
    scaled there (``model_input``) and embedded by the cell-image-search
    ``ViTEmbedder`` (ViT-B/14, bf16): every run equal bit for bit to the
@@ -336,6 +336,7 @@ import gc
 import importlib
 import importlib.util
 import json
+import math
 import os
 import re
 import runpy
@@ -431,7 +432,7 @@ from bioengine_tpu_torch.runtime.checkpoints import CheckpointService
 from bioengine_tpu_torch.runtime.devices import resolve_devices
 from bioengine_tpu_torch.runtime.engine import GRAPH_WARMUP_ITERS, EngineConfig, InferenceEngine, _tile_starts
 from bioengine_tpu_torch.parallel.data_parallel import Shards, data_parallel_step, replicate, shard_batch
-from bioengine_tpu_torch.parallel.mesh import make_mesh, sharding
+from bioengine_tpu_torch.parallel.mesh import PartitionSpec as P, make_mesh, sharding
 from bioengine_tpu_torch.parallel.ring import make_ring_attention
 from bioengine_tpu_torch.parallel.spatial import spatial_shard_apply
 from bioengine_tpu_torch.parallel.tensor_parallel import CONV_TP_RULES, VIT_TP_RULES, shard_fraction
@@ -1656,7 +1657,7 @@ CELLPOSE_FIELD = 512
 CELLPOSE_CELLS = 60  # ellipse cells per 512^2 field
 CELLPOSE_CFG = {"tile": 256, "batch_size": 8, "epochs": 3}  # 8 steps an epoch
 CELLPOSE_TIMED_STEPS = 20
-CELLPOSE_INFER_REPEATS = 3
+CELLPOSE_INFER_REPEATS = 2  # timed requests after a warm-up call
 CELLPOSE_VOLUME = (32, 256, 256)
 # card against CPU, f32 with TF32 off: loss relative, gradients against the
 # largest gradient; the bf16 step's loss against the f32 one
@@ -2072,7 +2073,7 @@ CPSAM_PARITY_ARCH = {**CPSAM_ARCH, "depth": 2, "global_attn_indexes": (1,)}
 # them (and CPSAM_ARCH to match).
 CPSAM_OVERRIDES: dict = {}
 SAM_OVERRIDES: dict = {}
-TRANSFORMER_EPOCHS = 3
+TRANSFORMER_EPOCHS = 2  # each cpsam epoch saves a 1.2 GB snapshot
 
 
 def scaled_cpsam_state_dict(seed: int, **arch) -> dict[str, np.ndarray]:
@@ -2131,12 +2132,12 @@ def _check_training(label: str, r: dict, cfg: dict, fields: int, field: int) -> 
     print(f"{label}: status {status['status']}, epochs {status.get('current_epoch')}, "
           f"steps/epoch {status.get('steps_per_epoch')}, losses {losses}")
     check(status["status"] == "completed", f"{label}: training ended {status}")
-    check(status["current_epoch"] == TRANSFORMER_EPOCHS, f"{label}: epochs {status}")
+    check(status["current_epoch"] == cfg["epochs"], f"{label}: epochs {status}")
     want_steps = fields * (field // cfg["tile"]) ** 2 // cfg["batch_size"]
     check(status["steps_per_epoch"] == want_steps, f"{label}: steps per epoch {status['steps_per_epoch']}")
-    check(len(losses) == TRANSFORMER_EPOCHS and np.isfinite(losses).all(), f"{label}: losses {losses}")
+    check(len(losses) == cfg["epochs"] and np.isfinite(losses).all(), f"{label}: losses {losses}")
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
-    check(r["sessions"][0]["snapshots"] == TRANSFORMER_EPOCHS, f"{label}: sessions {r['sessions']}")
+    check(r["sessions"][0]["snapshots"] == cfg["epochs"], f"{label}: sessions {r['sessions']}")
     return losses
 
 
@@ -2152,9 +2153,9 @@ def run_transformer_backbone(card: str, svc: CellposeFinetune, label: str, confi
     cfg = svc.sessions[label].config
     fields, field = images.shape[0], images.shape[1]
     losses = _check_training(label, r, cfg, fields, field)
-    n_steps = TRANSFORMER_EPOCHS * r["status"]["steps_per_epoch"]
+    n_steps = cfg["epochs"] * r["status"]["steps_per_epoch"]
     print(f"[{card}] {label} training: data preparation (start_training, host) {r['t_prep']:.3f} s; "
-          f"{n_steps} steps + {TRANSFORMER_EPOCHS} snapshots {r['t_total'] - r['t_prep']:.3f} s host "
+          f"{n_steps} steps + {cfg['epochs']} snapshots {r['t_total'] - r['t_prep']:.3f} s host "
           f"clock; peak device memory {peak / 2**30:.2f} GiB")
 
     # c. one train step at the app's batch and tile, from the session's
@@ -3989,7 +3990,7 @@ class LoopbackCollection:
 
 
 APPS_UNARY_CALLS = 8  # unary generate calls a round, over the WebSocket and on the handle in turns
-APPS_ROUNDS = 3
+APPS_ROUNDS = 2
 APPS_INFER_ROUNDS = 8  # cellpose infers over the wire and in process in turns (~0.4 s each on the card)
 APPS_STREAMS = 8  # concurrent handle streams of APPS_STREAM_TOKENS tokens
 APPS_STREAM_TOKENS = 64
@@ -4416,7 +4417,7 @@ HOSTS_FIELDS = 8  # synthetic 896^2 fields in a local directory both hosts read
 HOSTS_CROPS_PER_FIELD = 50
 HOSTS_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width
 HOSTS_SEARCHES = 16
-HOSTS_ROUNDS = 3  # rounds over the queries, through the host and in process in turns
+HOSTS_ROUNDS = 2  # rounds over the queries, through the host and in process in turns
 HOSTS_PROFILED_SEARCHES = 2
 HOSTS_JOIN_S = 120
 HOSTS_HEALTHY_S = 300
@@ -5377,7 +5378,7 @@ def phase_scenarios(card: str, device: str = "cuda") -> dict:
 
 # ---- slice 13: device prefetch and train-state checkpoints --------------------
 
-PREFETCH_BATCHES = 16  # bucket-64 batches of 224^2 RGB crops, streamed per run
+PREFETCH_BATCHES = 8  # bucket-64 batches of 224^2 RGB crops, streamed per run
 PREFETCH_DEPTH = 2  # ZarrBatchLoader(prefetch_batches=...)
 PREFETCH_SOURCE_CROPS = 128  # distinct crops cut from synthetic fields; rows mix three of them
 PREFETCH_VIT = {"depth": VIT_DEPTH}  # ViT-B/14 at full width, bf16
@@ -5724,11 +5725,21 @@ def _dp_requests(engine, direct: np.ndarray, tiled: np.ndarray, device: str) -> 
     return outs, ms
 
 
+TRACE_RANGE = "chip_smoke.traced_call"  # the record_function range around a traced call
+TRACE_GUARD_S = 0.05  # idle host time between a traced call and the trace window's edges
+
+
 def _dp_trace_flash(card: str, fn, device: str, path: str) -> int:
-    """``flash_attn`` kernel events in a ``torch.profiler`` trace of ``fn``:
-    the active step of a schedule whose warm-up step runs ``fn`` once
-    before (a trace misses kernels that start right at the profiler's
-    start: PR 15's prefetch runs)."""
+    """``flash_attn`` kernels that one call of ``fn`` launched, read from a
+    ``torch.profiler`` trace: the active step of a schedule whose warm-up
+    step runs ``fn`` once before (a trace misses kernels that start right at
+    the profiler's start). The call runs inside ``TRACE_RANGE``, apart from
+    the window's edges by ``TRACE_GUARD_S`` on each side, and a kernel
+    counts only where the runtime call that launched it (its
+    ``correlation``) ran on this thread inside that range. A count of the
+    window's kernels alone took in one of the warm-up call's kernels, or
+    left out one of the traced call's, in some runs on the H100 (49 of 48,
+    23 of 24)."""
     if device != "cuda":
         return 0
     with torch.profiler.profile(
@@ -5736,13 +5747,31 @@ def _dp_trace_flash(card: str, fn, device: str, path: str) -> int:
         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
         on_trace_ready=lambda p: p.export_chrome_trace(path),
     ) as prof:
-        for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_GUARD_S)
+        prof.step()
+        time.sleep(TRACE_GUARD_S)
+        with torch.profiler.record_function(TRACE_RANGE):
             fn()
             torch.cuda.synchronize()
-            prof.step()
+        time.sleep(TRACE_GUARD_S)
+        prof.step()
     with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    return sum(1 for e in events if e.get("cat") == "kernel" and "flash_attn" in e.get("name", ""))
+        return _kernels_launched_in(json.load(f).get("traceEvents", []), TRACE_RANGE, "flash_attn")
+
+
+def _kernels_launched_in(events: list, range_name: str, kernel: str) -> int:
+    """Kernel events named like ``kernel`` whose launching runtime call
+    (matched by ``correlation``) lies inside a ``range_name`` range, on that
+    range's thread."""
+    ranges = [(e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == range_name]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+                and any(e.get("tid") == tid and a <= e["ts"] <= b for tid, a, b in ranges)}
+    return sum(1 for e in events if e.get("cat") == "kernel" and kernel in e.get("name", "")
+               and e.get("args", {}).get("correlation") in launched)
 
 
 def _replicas_equal(state) -> bool:
@@ -5969,6 +5998,25 @@ PL_KNN_QUERIES = 64
 PL_KNN_K = 10
 PL_KNN_SCORE_TOL = 2.0 ** -8  # bf16 resolution at unit scores
 PL_REPEATS = 3
+# slice 18: tp = 8 on ViT-B/14's 12 heads (2 or 1 a shard), a UNet2D with
+# its convolutions split on their input channels (row parallel), and train
+# steps over meshes with axes besides the batch's
+PL_TP8 = 8
+PL_LAYOUT_FEATURES = UNET2D_FEATURES  # f32 (TF32 off), held to one device at PL_STACK_TOL
+PL_LAYOUT_DIRECT = (4, 512)
+PL_LAYOUT_RULES = [(r"Conv_\d+\.weight$", P(None, "tp"))]
+PL_TRAIN_MESHES = (("cellpose", {"dp": 2, "tp": 2}), ("stardist", {"dp": 2, "tp": 2}),
+                   ("stardist", {"dp": 2, "sp": 2}))
+PL_TRAIN_STEPS = 2  # steps of each train leg, each against one device's at DP_LOSS_RTOL
+# the first step's summed gradients (of the same seeded weights) against
+# one device's, per tensor (min cosine, max relative L2; _grad_agreement):
+# a step that summed a part of the dp gradients misses them by far more
+# than the loss shows (half of them: relative L2 0.59, the loss 2e-5).
+# Later steps' weights differ by AdamW's rounding, which moves near-zero
+# gradients (a GroupNorm bias) by percents. The bounds sit 8-10x above
+# the H100's readings (min cosine 1 - 3.2e-6, max relative L2 0.0026;
+# PERF.md section 6)
+PL_TRAIN_GRAD_BOUNDS = (0.99997, 0.02)
 
 
 def _entry_step_logits(engine: DecodeEngine, ids: list, toks: list) -> np.ndarray:
@@ -6057,11 +6105,16 @@ def _pl_tp(card: str, device: str, dev0: torch.device, rng) -> dict:
     x = rng.standard_normal((BUCKET, 224, 224, 3)).astype(np.float32)
     cfg = EngineConfig(ladder=(224,))
     meshes = {"single": dict(device=device), "tp2": dict(devices=[dev0] * 2, mesh_axes={"tp": 2}),
-              "dp2tp2": dict(devices=[dev0] * 4, mesh_axes={"dp": 2, "tp": 2})}
+              "dp2tp2": dict(devices=[dev0] * 4, mesh_axes={"dp": 2, "tp": 2}),
+              "tp8": dict(devices=[dev0] * PL_TP8, mesh_axes={"tp": PL_TP8})}
     engines = {k: InferenceEngine("pl-vit", vit, config=cfg, cache=CompiledProgramCache(),
                                   tp_rules=VIT_TP_RULES if k != "single" else None, **kw)
                for k, kw in meshes.items()}
-    want = {"tp2": 2 * VIT_DEPTH, "dp2tp2": 4 * VIT_DEPTH} if device == "cuda" else {"tp2": 0, "dp2tp2": 0}
+    # a forward launches the kernel once a block on every tp shard holding
+    # heads: at tp = 8, 12 heads split 2, 1, 2, 1, ... (slice 18)
+    shards = {"tp2": 2, "dp2tp2": 4, "tp8": PL_TP8}
+    depth = PL_VIT.get("depth", VIT_DEPTH)
+    want = {k: n * depth if device == "cuda" else 0 for k, n in shards.items()}
     # a graph replay does not call the kernel's wrapper: building a shard's
     # program runs its forward GRAPH_WARMUP_ITERS times and captures it once
     want_build = {k: (GRAPH_WARMUP_ITERS + 1) * v for k, v in want.items()}
@@ -6080,7 +6133,8 @@ def _pl_tp(card: str, device: str, dev0: torch.device, rng) -> dict:
             if key == "single":
                 continue
             build[key] = built
-            check(engine.mesh_shape == {"dp": engine.dp, "tp": 2}, f"{key}: mesh {engine.mesh_shape}")
+            check(engine.mesh_shape == {"dp": engine.dp, "tp": engine.tp} and engine.dp * engine.tp == shards[key],
+                  f"{key}: mesh {engine.mesh_shape}")
             fraction[key] = shard_fraction(engine.params)
             check(fraction[key] < PL_SHARD_FRACTION, f"{key}: shard_fraction {fraction[key]}")
             # the engine's eager programs, which a tp group across cards gets,
@@ -6110,7 +6164,7 @@ def _pl_tp(card: str, device: str, dev0: torch.device, rng) -> dict:
     for key, c in eager_cos.items():
         check(c >= PL_TP_MIN_COS, f"ViT {key} eager programs: min cosine {c} to one device, bound {PL_TP_MIN_COS}")
     cos = {}
-    for key in ("tp2", "dp2tp2"):
+    for key in shards:
         a, b = emb[key], emb["single"]
         cos[key] = _min_cosine(a, b)
         check(a.shape == b.shape and cos[key] >= PL_TP_MIN_COS,
@@ -6120,7 +6174,8 @@ def _pl_tp(card: str, device: str, dev0: torch.device, rng) -> dict:
              launches_per_forward=per_forward, traced=traced, eager_min_cos=eager_cos, eager_vs_graph=eager_vs_graph,
              vit_ms_per_request=ms, vit_eager_ms=eager_ms, vit_images_per_s=images_per_s)
     print(f"[{card}] parallel layer tp: ViT-B/14 bf16, bucket {BUCKET}, VIT_TP_RULES through InferenceEngine "
-          f"at {{'tp': 2}} on [{dev0}] x 2 and {{'dp': 2, 'tp': 2}} on [{dev0}] x 4 (stacked): min cosine to one "
+          f"at {{'tp': 2}} on [{dev0}] x 2, {{'dp': 2, 'tp': 2}} on [{dev0}] x 4 and {{'tp': {PL_TP8}}} on "
+          f"[{dev0}] x {PL_TP8} (stacked; 12 heads at tp = {PL_TP8}: 2, 1, 2, 1, ... a shard): min cosine to one "
           f"device {json.dumps({k: round(v, 6) for k, v in cos.items()})} (bound {PL_TP_MIN_COS}); "
           f"shard_fraction {json.dumps({k: round(v, 4) for k, v in fraction.items()})} (bound "
           f"{PL_SHARD_FRACTION}); flash_attn_fwd launches building the graphs {build} ({GRAPH_WARMUP_ITERS} "
@@ -6181,6 +6236,109 @@ class _ConvStack(torch.nn.Module):
         for conv in self.convs:
             y = F.silu(conv(y))
         return y.movedim(1, -1)
+
+
+def _pl_layout(card: str, device: str, dev0: torch.device, rng) -> dict:
+    """UNet2D in f32 with every convolution split on its input channels
+    (row parallel: each shard convolves its channels, the partials summed
+    in shard order, the bias once) through InferenceEngine at tp = 2."""
+    unet = UNet2D(features=PL_LAYOUT_FEATURES, dtype=torch.float32)
+    unet.reset_parameters(SEED)
+    n, size = PL_LAYOUT_DIRECT
+    x = rng.standard_normal((n, size, size, 1), np.float32)
+    single = InferenceEngine("pl-unet-rows", unet, divisor=unet.divisor, cache=CompiledProgramCache(), device=device)
+    rows = InferenceEngine("pl-unet-rows", unet, divisor=unet.divisor, cache=CompiledProgramCache(),
+                           devices=[dev0] * 2, mesh_axes={"tp": 2}, tp_rules=PL_LAYOUT_RULES)
+    out, ms = {}, {}
+    try:
+        row_split = sorted(k for k, leaf in rows.params.items() if isinstance(leaf, Shards) and leaf.dim == 1)
+        check(len(row_split) > 0 and all(k.endswith("weight") for k in row_split),
+              f"the input-channel rule split {row_split}")
+        for key, engine in (("single", single), ("tp2_rows", rows)):
+            out[key] = engine.predict(x)
+            t0 = time.perf_counter()
+            for _ in range(PL_REPEATS):
+                engine.predict(x)
+            ms[key] = (time.perf_counter() - t0) * 1e3 / PL_REPEATS
+    finally:
+        single.close()
+        rows.close()
+    err = float(np.abs(out["tp2_rows"] - out["single"]).max())
+    check(out["tp2_rows"].shape == out["single"].shape and err <= PL_STACK_TOL,
+          f"UNet2D f32 with its convolutions split on input channels at tp = 2: max abs {err} to one device "
+          f"over {PL_STACK_TOL}")
+    print(f"[{card}] parallel layer rule layout: UNet2D {PL_LAYOUT_FEATURES} f32 (TF32 off), {n} x {size}^2, "
+          f"rules {[(r, tuple(spec)) for r, spec in PL_LAYOUT_RULES]} ({len(row_split)} convolutions row "
+          f"parallel, the 1-channel input conv whole) at tp = 2 (stacked): max abs {err:.4g} to one device "
+          f"(bound {PL_STACK_TOL}); ms per request (host, graph replays, mean of {PL_REPEATS}) "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return {"err": err, "bound": PL_STACK_TOL, "row_split": len(row_split), "ms": ms}
+
+
+def _pl_train(card: str, device: str, dev0: torch.device, rng) -> dict:
+    """CellposeNet and StarDist2D steps over (dp 2, tp 2), and StarDist2D
+    over (dp 2, sp 2), on stacked meshes of ``dev0``: the batch over dp,
+    the other axis replicated, as ``jit_data_parallel_step`` runs them;
+    each against one device's step with the same seeded weights and
+    batches: the losses at phase_data_parallel's bound and the first
+    step's summed gradients per tensor at PL_TRAIN_GRAD_BOUNDS."""
+    nb, tile = CELLPOSE_CFG["batch_size"], CELLPOSE_CFG["tile"]
+    images, masks = synthetic_cell_fields(nb, CELLPOSE_FIELD, CELLPOSE_CELLS, SEED + 18)
+    bi = np.ascontiguousarray(CellposeFinetune._prepare_images(list(images))[:, :tile, :tile])
+    rays = STARDIST_CFG["n_rays"]
+    targets = {
+        "cellpose": (rng.uniform(-1, 1, (nb, tile, tile, 2)).astype(np.float32),
+                     (masks[:, :tile, :tile] > 0).astype(np.float32)),
+        "stardist": ((masks[:, :tile, :tile] > 0).astype(np.float32),
+                     rng.uniform(0, 16, (nb, tile, tile, rays)).astype(np.float32)),
+    }
+    cfg = CellposeConfig(features=DP_CELLPOSE_FEATURES)
+
+    def state(kind: str) -> TrainState:
+        if kind == "cellpose":
+            return create_model_and_state(cfg, seed=SEED, device=device)[1]
+        model = StarDist2D(n_rays=rays, features=STARDIST_CFG["features"], in_channels=bi.shape[-1])
+        model.reset_parameters(SEED)
+        return TrainState.create(model.to(dev0), cfg.learning_rate, cfg.weight_decay)
+
+    makers = {"cellpose": make_train_step, "stardist": make_stardist_train_step}
+    r: dict = {}
+    for kind, axes in PL_TRAIN_MESHES:
+        key = f"{kind}_" + "_".join(f"{a}{n}" for a, n in axes.items())
+        batch = [torch.from_numpy(a).to(dev0) for a in (bi, *targets[kind])]
+        mesh = make_mesh(axes, [dev0] * math.prod(axes.values()))
+        single, single_step = state(kind), makers[kind]()
+        split, split_step = replicate(mesh, state(kind)), data_parallel_step(makers[kind](), mesh)
+        losses: dict = {"single": [], "split": []}
+        min_cos, max_rel = PL_TRAIN_GRAD_BOUNDS
+        for i in range(PL_TRAIN_STEPS):
+            losses["single"].append(float(single_step(single, *batch)[1]["loss"]))
+            losses["split"].append(float(split_step(split, *batch)[1]["loss"]))
+            check(_replicas_equal(split), f"{key} step {i + 1}: the replicas differ")
+            if i == 0:  # .grad keeps the step's summed gradients
+                g = _grad_agreement(single.module, split.module)
+        check(g["min_cos"] >= min_cos and g["max_rel_l2"] <= max_rel and g["zero_norms_ok"],
+              f"{key} step 1 gradients: min cosine {g['min_cos']} at {g['min_cos_at']} (bound {min_cos}), max "
+              f"relative L2 {g['max_rel_l2']} at {g['max_rel_l2_at']} (bound {max_rel}), zero by structure "
+              f"{g['zero_by_structure']} below {g['floor']}: {g['zero_norms_ok']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["split"], losses["single"]))
+        check(all(np.isfinite(losses["split"])) and rel <= DP_LOSS_RTOL,
+              f"{key}: losses {losses['split']} against one device's {losses['single']} (max rel {rel}, bound "
+              f"{DP_LOSS_RTOL})")
+
+        ms = {"single": _device_ms(device, lambda: single_step(single, *batch), iters=PL_REPEATS),
+              "split": _device_ms(device, lambda: split_step(split, *batch), iters=PL_REPEATS)}
+        r[key] = {"losses": losses, "max_rel": rel, "grads": g, "ms": ms, "replicas": len(split.replicas)}
+        del single, split
+        gc.collect()
+        print(f"[{card}] parallel layer train: {kind} bf16, {nb} x {tile}^2, over {axes} on [{dev0}] x "
+              f"{mesh.size} (batch over dp, the other axis replicated): {PL_TRAIN_STEPS} steps, losses "
+              f"{losses['split']} against one device's {losses['single']} (max rel {rel:.3g}, bound {DP_LOSS_RTOL}), "
+              f"step 1's summed gradients per tensor min cosine {g['min_cos']:.8f} ({g['min_cos_at']}, bound "
+              f"{min_cos}), max relative L2 {g['max_rel_l2']:.3g} ({g['max_rel_l2_at']}, bound {max_rel}), "
+              f"the {mesh.size} replicas equal bit for bit after every step; ms per step (CUDA events, "
+              f"{PL_REPEATS} steps) {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return r
 
 
 def _pl_spatial(card: str, device: str, dev0: torch.device, rng) -> dict:
@@ -6326,7 +6484,11 @@ def phase_parallel_layer(card: str, device: str = "cuda") -> dict:
     dp = 1 and 2, the 768 x 12 decoder with 8 concurrent sequences through
     ``DecodeLoop``); (b) tensor parallelism: ViT-B/14 bf16 through
     ``InferenceEngine`` with ``VIT_TP_RULES`` at tp = 2 and dp 2 x tp 2 (the
-    flash kernel on every tp shard), UNet2D with ``CONV_TP_RULES``; (c)
+    flash kernel on every tp shard), and at tp = 8, where ViT-B/14's 12
+    heads split 2, 1, 2, 1, ... a shard (slice 18), UNet2D with
+    ``CONV_TP_RULES``, and in f32 with its convolutions split on input
+    channels (slice 18); train steps over (dp 2, tp 2) and (dp 2, sp 2)
+    against one device's (slice 18); (c)
     spatial halo exchange: UNet3D depth-split over sp = 2, and an f32 conv
     stack; (d) ring attention in the ViT's ``attn_fn`` slot at 1,370 tokens;
     (e) the sharded FlatIP index over 1M rows. One ``parallel_layer`` JSON
@@ -6342,6 +6504,8 @@ def phase_parallel_layer(card: str, device: str = "cuda") -> dict:
     try:
         for name, leg in (("decode", lambda: _pl_decode(card, device, dev0, dict(np.load(DECODE_FIXTURE)))),
                           ("tp", lambda: _pl_tp(card, device, dev0, rng)),
+                          ("layout", lambda: _pl_layout(card, device, dev0, rng)),
+                          ("train", lambda: _pl_train(card, device, dev0, rng)),
                           ("spatial", lambda: _pl_spatial(card, device, dev0, rng)),
                           ("ring", lambda: _pl_ring(card, device, dev0, rng)),
                           ("knn", lambda: _pl_knn(card, device, dev0))):
@@ -6363,7 +6527,10 @@ def phase_parallel_layer(card: str, device: str = "cuda") -> dict:
           f"{json.dumps({k: round(v, 3) for k, v in legs_s.items()})}")
     print(f"[{card}] parallel layer phase: {r['phase_s']:.3f} s")
     out = {"card": card, "flash_attn_fwd_launches": launches,
-           "tp_launches_per_forward": r["tp"]["launches_per_forward"],
+           "tp_launches_per_forward": r["tp"]["launches_per_forward"], "tp_min_cos": r["tp"]["vit_min_cos"],
+           "layout_err": r["layout"]["err"],
+           "train_max_rel": {k: v["max_rel"] for k, v in r["train"].items()},
+           "train_grad": {k: (v["grads"]["min_cos"], v["grads"]["max_rel_l2"]) for k, v in r["train"].items()},
            "decode_tokens_per_s": r["decode"]["tokens_per_s"], "vit_images_per_s": r["tp"]["vit_images_per_s"],
            "ring_ms": r["ring"]["ring_ms"], "detail": r}
     print("parallel_layer " + json.dumps(out, default=str))

@@ -242,6 +242,99 @@ def _app_ids(workers) -> dict:
     return {name: next(iter(h["worker"].apps_manager.records)) for name, h in workers.items()}
 
 
+# ---- scenarios and fuzz: in process, no worker --------------------------------
+# (first in the file: they run before the module's live workers start, whose
+# threads would share this process with the scenarios' in-process hosts)
+
+# invariants whose detail carries a measured sample (a queue's peak depth, a
+# latency quantile): the verdict is compared, the sample is not
+SAMPLED = ("bounded_queues", "slo_attainment", "p99_recovery")
+
+
+@pytest.fixture
+def logging_restored():
+    """``scenarios run`` and ``fuzz`` silence logging below ERROR for the
+    process (``logging.disable``), as in JAX; give it back after the test."""
+    import logging
+
+    level = logging.root.manager.disable
+    yield
+    logging.disable(level)
+
+
+def _local(main, *args) -> tuple[int, dict]:
+    result = CliRunner().invoke(main, list(args), catch_exceptions=False)
+    return result.exit_code, json.loads(result.stdout)
+
+
+def _untimed(out: dict) -> dict:
+    """``scenarios run``'s JSON without its timings: wall and latency figures
+    and the sampled invariants' details."""
+    result = {k: v for k, v in out["result"].items() if k not in ("wall_s", "latency_ms", "phases")}
+    result["invariants"] = {k: {f: x for f, x in v.items() if not (k in SAMPLED and f == "detail")}
+                            for k, v in result["invariants"].items()}
+    return {**out, "result": result}
+
+
+def test_scenarios_list_equals_jax():
+    outs = {name: _local(pkg.main, "scenarios", "list") for name, pkg in PACKAGES.items()}
+    assert outs["torch"] == outs["jax"] and outs["torch"][0] == 0
+    assert {"slow_replica", "controller_crash", "router_loss"} <= {s["name"] for s in outs["torch"][1]}
+
+
+def test_scenarios_run_equals_jax(logging_restored, monkeypatch):
+    """A scenario with worker hosts, the port's on ``--device cpu`` (8 CPU
+    chips each, the JAX layout), through both CLIs with one seed.
+
+    Both packages' flight event types follow the host's speed in this
+    time-compressed scenario: a request still in flight when the
+    controller is killed fails over (``request.failover``), and a measured
+    service time about 4x the replica's 8 ms projects a wait that predicts
+    a scale-up (``scale.predict``) after the restart, in either package.
+    So the run gets a fixed budget, ``BIOENGINE_SCENARIO_SCALE=4.0``
+    (every time constant 4x, the request plan unchanged: a tick is 80 ms,
+    ten times the service time), and runs before the module's live workers
+    start, so no thread of theirs shares the process with its hosts."""
+    monkeypatch.setenv("BIOENGINE_SCENARIO_SCALE", "4.0")
+    args = ["scenarios", "run", "controller_crash", "--seed", "7"]
+    rc_jax, jax_out = _local(jax_cli.main, *args)
+    rc, out = _local(torch_cli.main, *args, "--device", "cpu")
+    assert rc == rc_jax == 0 and out["result"]["passed"]
+    differ = _diff(_untimed(out), _untimed(jax_out))
+    assert not differ, "\n".join(differ)
+
+
+def test_fuzz_replay_equals_jax(logging_restored):
+    path = str(REPO / "tests" / "fuzz_corpus" / "host_blip_drain_starvation.json")
+    rc_jax, jax_out = _local(jax_cli.main, "fuzz", "--replay", path)
+    rc, out = _local(torch_cli.main, "fuzz", "--replay", path, "--device", "cpu", "--n-devices", "8")
+    assert rc == rc_jax == 0 and out == jax_out
+    assert out["replays"][0]["matches_expect"] and out["replays"][0]["deterministic"] is True
+
+
+def test_host_scenario_on_one_card_fails_with_a_placement_error(monkeypatch, logging_restored):
+    """On a stood-in one-card ``torch.cuda`` a scenario whose replicas lease
+    2 chips fails before it runs, naming the chip it lacks and ``--device
+    cpu``; nothing is shrunk and nothing drops to the CPU. A host-less
+    scenario runs on the default device, which it never touches."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda i=0: (70 << 30, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    runner = CliRunner()
+    path = str(REPO / "tests" / "fuzz_corpus" / "drill_lease_leak.json")
+    for args in (["scenarios", "run", "slow_replica"], ["fuzz", "--replay", path]):
+        result = runner.invoke(torch_cli.main, args)
+        assert result.exit_code == 1, result.output
+        assert "places replicas of 2 chips" in result.stderr and "holds 1 (1 chip(s) short)" in result.stderr
+        assert "--device cpu" in result.stderr
+    result = runner.invoke(torch_cli.main, ["scenarios", "run", "slow_replica", "--device", "cpu",
+                                            "--n-devices", "1"])
+    assert result.exit_code == 1 and "run it with --n-devices 2" in result.stderr
+    rc, out = _local(torch_cli.main, "scenarios", "run", "hot_signature", "--seed", "5")
+    assert rc == 0 and out["result"]["passed"]
+
+
 # ---- pure helpers -----------------------------------------------------------
 
 
@@ -530,83 +623,3 @@ def test_cluster_modes_build_their_provisioner(mode, tmp_path):
                          else prov.build_startup_script("w1"))
     assert scripts["torch"] == scripts["jax"].replace("bioengine_tpu.", "bioengine_tpu_torch.")
     assert "exec python -m bioengine_tpu_torch.worker_host --worker-tag w1" in scripts["torch"]
-
-
-# ---- scenarios and fuzz: in process, no worker --------------------------------
-
-# invariants whose detail carries a measured sample (a queue's peak depth, a
-# latency quantile): the verdict is compared, the sample is not
-SAMPLED = ("bounded_queues", "slo_attainment", "p99_recovery")
-
-
-@pytest.fixture
-def logging_restored():
-    """``scenarios run`` and ``fuzz`` silence logging below ERROR for the
-    process (``logging.disable``), as in JAX; give it back after the test."""
-    import logging
-
-    level = logging.root.manager.disable
-    yield
-    logging.disable(level)
-
-
-def _local(main, *args) -> tuple[int, dict]:
-    result = CliRunner().invoke(main, list(args), catch_exceptions=False)
-    return result.exit_code, json.loads(result.stdout)
-
-
-def _untimed(out: dict) -> dict:
-    """``scenarios run``'s JSON without its timings: wall and latency figures
-    and the sampled invariants' details."""
-    result = {k: v for k, v in out["result"].items() if k not in ("wall_s", "latency_ms", "phases")}
-    result["invariants"] = {k: {f: x for f, x in v.items() if not (k in SAMPLED and f == "detail")}
-                            for k, v in result["invariants"].items()}
-    return {**out, "result": result}
-
-
-def test_scenarios_list_equals_jax():
-    outs = {name: _local(pkg.main, "scenarios", "list") for name, pkg in PACKAGES.items()}
-    assert outs["torch"] == outs["jax"] and outs["torch"][0] == 0
-    assert {"slow_replica", "controller_crash", "router_loss"} <= {s["name"] for s in outs["torch"][1]}
-
-
-def test_scenarios_run_equals_jax(logging_restored):
-    """A scenario with worker hosts, the port's on ``--device cpu`` (8 CPU
-    chips each, the JAX layout), through both CLIs with one seed."""
-    args = ["scenarios", "run", "controller_crash", "--seed", "7"]
-    rc_jax, jax_out = _local(jax_cli.main, *args)
-    rc, out = _local(torch_cli.main, *args, "--device", "cpu")
-    assert rc == rc_jax == 0 and out["result"]["passed"]
-    differ = _diff(_untimed(out), _untimed(jax_out))
-    assert not differ, "\n".join(differ)
-
-
-def test_fuzz_replay_equals_jax(logging_restored):
-    path = str(REPO / "tests" / "fuzz_corpus" / "host_blip_drain_starvation.json")
-    rc_jax, jax_out = _local(jax_cli.main, "fuzz", "--replay", path)
-    rc, out = _local(torch_cli.main, "fuzz", "--replay", path, "--device", "cpu", "--n-devices", "8")
-    assert rc == rc_jax == 0 and out == jax_out
-    assert out["replays"][0]["matches_expect"] and out["replays"][0]["deterministic"] is True
-
-
-def test_host_scenario_on_one_card_fails_with_a_placement_error(monkeypatch, logging_restored):
-    """On a stood-in one-card ``torch.cuda`` a scenario whose replicas lease
-    2 chips fails before it runs, naming the chip it lacks and ``--device
-    cpu``; nothing is shrunk and nothing drops to the CPU. A host-less
-    scenario runs on the default device, which it never touches."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda i=0: (70 << 30, 80 << 30))
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
-    runner = CliRunner()
-    path = str(REPO / "tests" / "fuzz_corpus" / "drill_lease_leak.json")
-    for args in (["scenarios", "run", "slow_replica"], ["fuzz", "--replay", path]):
-        result = runner.invoke(torch_cli.main, args)
-        assert result.exit_code == 1, result.output
-        assert "places replicas of 2 chips" in result.stderr and "holds 1 (1 chip(s) short)" in result.stderr
-        assert "--device cpu" in result.stderr
-    result = runner.invoke(torch_cli.main, ["scenarios", "run", "slow_replica", "--device", "cpu",
-                                            "--n-devices", "1"])
-    assert result.exit_code == 1 and "run it with --n-devices 2" in result.stderr
-    rc, out = _local(torch_cli.main, "scenarios", "run", "hot_signature", "--seed", "5")
-    assert rc == 0 and out["result"]["passed"]

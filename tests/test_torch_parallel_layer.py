@@ -10,8 +10,14 @@ Each case mirrors a JAX test (``tests/test_parallel.py`` ``TestSpatial``,
 ``TestRingAttention`` and ``TestTensorParallel``;
 ``tests/test_sharded_engine.py`` ``TestTensorParallel``;
 ``tests/test_cell_image_search.py``'s sharded index) on the same inputs and
-bridged weights, with its tolerances.
+bridged weights, with its tolerances. The configurations JAX runs and the
+port refused until slice 18 (head counts that do not divide by tp, rules
+on any layout, any ``make_tp_apply`` specs, a dimension split over a tuple
+of axes, several split dimensions) are held against JAX's results on
+seeded weights at rtol and atol 1e-5.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 from flax import linen as jnn
 from jax.sharding import NamedSharding, PartitionSpec as JP
 
-from _torch_parity import few_torch_threads  # noqa: F401
+from _torch_parity import few_torch_threads, seeded_flax_params  # noqa: F401
 from bioengine_tpu.models.unet import UNet2D as JaxUNet2D
 from bioengine_tpu.models.vit import ViT as JaxViT
 from bioengine_tpu.ops import knn as jax_knn
@@ -342,23 +348,218 @@ def test_replicated_leaves_live_once_per_tp_group():
         assert torch.equal(module.calib, state["calib"])
 
 
+def _seeded_vit(num_heads: int, dim: int, depth: int = 2, seed: int = 0, img: int = 32):
+    """A flax ViT and the port's, with the same seeded f32 weights (biases,
+    norms and tables drawn too), and 8 images of ``img``^2."""
+    cfg = dict(patch_size=8, dim=dim, depth=depth, num_heads=num_heads)
+    jax_model = JaxViT(**cfg, dtype=jnp.float32, softmax_dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, seeded_flax_params(jax_model, (1, img, img, 3), seed))
+    model = ViT(**cfg, dtype=torch.float32, softmax_dtype=torch.float32, img_size=img)
+    model.load_state_dict(convert.state_dict_from_flax(params))
+    x = np.random.default_rng(seed + 1).normal(size=(8, img, img, 3)).astype(np.float32)
+    return jax_model, params, model.eval(), x
+
+
+def _single(model, x) -> np.ndarray:
+    with torch.no_grad():
+        return model(torch.from_numpy(x)).numpy()
+
+
 def test_heads_that_do_not_split_over_tp_refuse():
-    # 6 heads at tp = 4: qkv's 144 rows divide by tp x 3, so the spec splits
-    # as JAX's does, but the port's heads-local attention cannot run 1.5
-    # heads an entry: it refuses (ROADMAP, slice 15's differences)
-    cfg = dict(patch_size=8, dim=48, depth=1, num_heads=6)
-    jax_model = JaxViT(**cfg, dtype=jnp.float32)
-    params = jax.eval_shape(jax_model.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
+    """Heads whose qkv columns do not divide over tp: 5 heads of 4 at tp = 8
+    (60 columns). The rule is refused and qkv left whole, as JAX's
+    ``_divisible`` leaves it (so is ``proj``'s 20 input columns); the MLP's
+    80 still split. The result is JAX's and one device's."""
+    jax_model, params, model, x = _seeded_vit(num_heads=5, dim=20, depth=1)
+    jspecs = jax_tp.tp_param_specs(params, jax_tp.VIT_TP_RULES, jax_mesh_of({"tp": 8}))
+    ours = tp.tp_param_specs(model, tp.VIT_TP_RULES, cpu_mesh({"tp": 8}))
+    assert jspecs["block0"]["attn"]["qkv"]["kernel"] == JP() and ours["block0.attn.qkv.weight"] == P()
+    assert jspecs["block0"]["attn"]["proj"]["kernel"] == JP() and ours["block0.attn.proj.weight"] == P()
+    assert ours["block0.mlp.Dense_0.weight"] == P("tp", None)
+    apply_fn, sharded = tp.make_tp_apply(model, cpu_mesh({"tp": 8}))
+    qkv = sharded["block0.attn.qkv.weight"]
+    assert isinstance(qkv, dp.Replicated) and all(t is qkv[0] for t in qkv)
+    module, = tp.tp_group_modules(model, cpu_mesh({"tp": 8}), sharded)
+    assert isinstance(module.block0.attn, type(model.block0.attn))
+    assert isinstance(module.block0.mlp, tp.TPMlp)
+    jfn, jsharded = jax_tp.make_tp_apply(jax_model, jax_mesh_of({"tp": 8}), params)
+    out = apply_fn(sharded, x).numpy()
+    np.testing.assert_allclose(out, np.asarray(jfn(jsharded, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, _single(model, x), rtol=1e-5, atol=1e-5)
+
+
+def test_heads_that_do_not_divide_tp_match_jax():
+    """6 heads at tp = 4 (qkv's 144 rows divide by tp, so the spec splits as
+    JAX's does) ran in JAX and were refused by the port until slice 18: now
+    each entry holds whole heads, [⌊s·6/4⌋, ⌊(s+1)·6/4⌋) = 1, 2, 1, 2 of them,
+    through ``make_tp_apply`` and the engine, held against JAX's."""
+    jax_model, params, model, x = _seeded_vit(num_heads=6, dim=48, depth=1)
     jspecs = jax_tp.tp_param_specs(params, jax_tp.VIT_TP_RULES, jax_mesh_of({"tp": 4}))
-    model = ViT(**cfg, dtype=torch.float32, img_size=32)
     ours = tp.tp_param_specs(model, tp.VIT_TP_RULES, cpu_mesh({"tp": 4}))
     assert jspecs["block0"]["attn"]["qkv"]["kernel"] == JP(None, "tp")
     assert ours["block0.attn.qkv.weight"] == P("tp", None)
-    with pytest.raises(ValueError, match="6 heads do not split over tp=4"):
-        tp.make_tp_apply(model, cpu_mesh({"tp": 4}))
-    with pytest.raises(ValueError, match="6 heads do not split over tp=4"):
-        InferenceEngine("vit6", model, cache=CompiledProgramCache(), devices=["cpu"] * 4, tp=4,
-                        tp_rules=tp.VIT_TP_RULES)
+    apply_fn, sharded = tp.make_tp_apply(model, cpu_mesh({"tp": 4}))
+    qkv, proj = sharded["block0.attn.qkv.weight"], sharded["block0.attn.proj.weight"]
+    assert [t.shape[0] for t in qkv] == [3 * 8 * h for h in (1, 2, 1, 2)]
+    assert [t.shape[1] for t in proj] == [8 * h for h in (1, 2, 1, 2)]
+    full = model.state_dict()["block0.attn.qkv.weight"]
+    assert torch.equal(qkv[1], torch.cat([full[g * 48 + 8 : g * 48 + 24] for g in range(3)]))
+    assert torch.equal(qkv.gather(), full) and torch.equal(proj.gather(), model.state_dict()["block0.attn.proj.weight"])
+    jfn, jsharded = jax_tp.make_tp_apply(jax_model, jax_mesh_of({"tp": 4}), params)
+    expected = np.asarray(jfn(jsharded, jnp.asarray(x)))
+    out = apply_fn(sharded, x).numpy()
+    np.testing.assert_allclose(out, expected, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, _single(model, x), rtol=1e-5, atol=1e-5)
+    # the entry holding 1 head of 6 holds less than JAX's even quarter (a
+    # listed difference): qkv and proj at 1/6, the MLP at 1/4
+    state = model.state_dict()
+    whole = sum(t.nbytes for t in state.values())
+    split = {"block0.attn.qkv.weight": 1 / 6, "block0.attn.qkv.bias": 1 / 6, "block0.attn.proj.weight": 1 / 6,
+             "block0.mlp.Dense_0.weight": 1 / 4, "block0.mlp.Dense_0.bias": 1 / 4, "block0.mlp.Dense_1.weight": 1 / 4}
+    local = sum(t.nbytes * split.get(k, 1) for k, t in state.items())
+    assert tp.shard_fraction(sharded) == pytest.approx(local / whole)
+    assert jax_tp.shard_fraction(jsharded) > tp.shard_fraction(sharded)
+    # the engine's tp, at the engine's smallest spatial bucket
+    jax_model, params, model, x = _seeded_vit(num_heads=6, dim=48, depth=1, img=64)
+    jtp = JaxEngine("vit6", lambda p, v: jax_model.apply({"params": p}, v), params, cache=JaxCache(),
+                    devices=jax.devices()[:4], tp=4, tp_rules=jax_tp.VIT_TP_RULES)
+    etp = InferenceEngine("vit6", model, cache=CompiledProgramCache(), devices=["cpu"] * 4, tp=4,
+                          tp_rules=tp.VIT_TP_RULES)
+    try:
+        assert etp.mesh_shape == jtp.mesh_shape == {"dp": 1, "tp": 4}
+        ours = etp.predict(x)
+        np.testing.assert_allclose(ours, np.asarray(jtp.predict(x)), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ours, _single(model, x), rtol=1e-5, atol=1e-5)
+    finally:
+        etp.close()
+        jtp.close()
+
+
+def test_qkv_split_off_head_boundaries_raises():
+    """``shard_params`` splits qkv at head boundaries; a qkv split evenly
+    across heads (6 heads at tp = 4: 36 rows a group, 9 each) placed by
+    hand is refused when the group's model is built, not run whole."""
+    _, _, model, _ = _seeded_vit(num_heads=6, dim=48, depth=1)
+    m = cpu_mesh({"tp": 4})
+    sharded, _ = tp.shard_params(m, model, tp.VIT_TP_RULES)
+    full, even = model.state_dict()["block0.attn.qkv.weight"], (0, 12, 24, 36, 48)
+    sharded["block0.attn.qkv.weight"] = dp.Shards(
+        [tp.tp_slice(full, 0, 4, j, 3, even) for j in range(4)], m, "tp", 0, 3, even)
+    with pytest.raises(ValueError, match=r"block0\.attn\.qkv\.weight is split over tp at \(0, 12, 24, 36, 48\), "
+                                         "not at the head boundaries of heads 8 wide"):
+        tp.tp_group_modules(model, m, sharded)
+
+
+@pytest.mark.parametrize("heads, dim, width", [(12, 48, 8), (2, 16, 4)], ids=["12_heads_tp8", "2_heads_tp4"])
+def test_uneven_heads_match_jax(heads, dim, width):
+    """ViT-B/14's 12 heads at tp = 8 (2 or 1 a shard; 2304 of its columns
+    divide by 8, as 144 do here), and 2 heads at tp = 4, where two entries
+    hold none and add nothing: JAX's GSPMD result, and one device's."""
+    jax_model, params, model, x = _seeded_vit(num_heads=heads, dim=dim)
+    m = cpu_mesh({"tp": width})
+    apply_fn, sharded = tp.make_tp_apply(model, m)
+    hd = dim // heads
+    counts = [(s + 1) * heads // width - s * heads // width for s in range(width)]
+    assert [t.shape[0] for t in sharded["block1.attn.qkv.weight"]] == [3 * hd * c for c in counts]
+    assert 0 in counts or min(counts) == 1
+    jfn, jsharded = jax_tp.make_tp_apply(jax_model, jax_mesh_of({"tp": width}), params)
+    out = apply_fn(sharded, x).numpy()
+    np.testing.assert_allclose(out, np.asarray(jfn(jsharded, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, _single(model, x), rtol=1e-5, atol=1e-5)
+    # the layers run each entry's heads: every entry with heads, no other
+    (group,) = tp.tp_group_modules(model, m, sharded)
+    assert isinstance(group.block0.attn, tp.TPAttention)
+    assert [h.num_heads for h in group.block0.attn.heads] == counts
+
+
+# rules on layouts beyond the Megatron one: (port rules, JAX rules, model)
+_VIT_QKV = [(r"attn\.qkv\.weight$", P("tp", None), 3), (r"attn\.qkv\.bias$", P("tp"), 3)]
+_JAX_QKV = [(r"attn/qkv/kernel$", JP(None, "tp")), (r"attn/qkv/bias$", JP("tp"))]
+LAYOUT_CASES = {
+    "vit_proj_column": (
+        _VIT_QKV + [(r"attn\.proj\.weight$", P("tp", None)), (r"attn\.proj\.bias$", P("tp"))] + tp.VIT_TP_RULES[3:],
+        _JAX_QKV + [(r"attn/proj/kernel$", JP(None, "tp")), (r"attn/proj/bias$", JP("tp"))]
+        + jax_tp.VIT_TP_RULES[3:],
+        "vit"),
+    "vit_rows_and_contiguous_qkv": (
+        [(r"attn\.qkv\.weight$", P("tp", None)), (r"mlp\.Dense_0\.weight$", P(None, "tp"))],
+        [(r"attn/qkv/kernel$", JP(None, "tp")), (r"mlp/Dense_0/kernel$", JP("tp", None))],
+        "vit"),
+    "vit_norms_and_embeddings": (
+        [(r"^norm\.weight$", P("tp")), (r"norm1\.bias$", P("tp")), (r"patch_embed\.weight$", P("tp")),
+         (r"ls1$", P("tp")), (r"pos_embed$", P(None, None, "tp")), (r"cls_token$", P(None, None, "tp"))]
+        + tp.VIT_TP_RULES,
+        [(r"^norm/scale$", JP("tp")), (r"norm1/bias$", JP("tp")), (r"patch_embed/kernel$", JP(None, None, None, "tp")),
+         (r"ls1$", JP("tp")), (r"pos_embed$", JP(None, None, "tp")), (r"cls_token$", JP(None, None, "tp"))]
+        + jax_tp.VIT_TP_RULES,
+        "vit"),
+    "unet_conv_input_channels": (
+        [(r"Conv_\d+\.weight$", P(None, "tp"))],
+        [(r"Conv_\d+/kernel$", JP(None, None, "tp", None))],
+        "unet"),
+    "unet_conv_transpose_outputs": (
+        [(r"ConvTranspose_\d+\.weight$", P(None, "tp")), (r"ConvTranspose_\d+\.bias$", P("tp"))],
+        [(r"ConvTranspose_\d+/kernel$", JP(None, None, None, "tp")), (r"ConvTranspose_\d+/bias$", JP("tp"))],
+        "unet"),
+    "unet_conv_transpose_inputs_and_norms": (
+        [(r"ConvTranspose_\d+\.weight$", P("tp")), (r"GroupNorm_\d+\.weight$", P("tp"))] + tp.CONV_TP_RULES,
+        [(r"ConvTranspose_\d+/kernel$", JP(None, None, "tp", None)), (r"GroupNorm_\d+/scale$", JP("tp"))]
+        + jax_tp.CONV_TP_RULES,
+        "unet"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_rules_on_any_layout_match_jax(case):
+    """A rule splitting any Linear or convolution on its outputs (column
+    parallel) or inputs (row parallel), or any other tensor (gathered where
+    its module runs), through the port's tp layers against JAX's GSPMD
+    result and one device's, on bridged seeded weights."""
+    rules, jrules, kind = LAYOUT_CASES[case]
+    if kind == "vit":
+        jax_model, params, model, x = _seeded_vit(num_heads=4, dim=48)
+    else:
+        jax_model = JaxUNet2D(features=(8, 16), out_channels=1, dtype=jnp.float32)
+        params = jax.tree.map(np.asarray, seeded_flax_params(jax_model, (1, 32, 32, 1)))
+        model = UNet2D(features=(8, 16), out_channels=1, in_channels=1, dtype=torch.float32).eval()
+        model.load_state_dict(convert.state_dict_from_flax(params))
+        x = np.random.default_rng(1).normal(size=(4, 32, 32, 1)).astype(np.float32)
+    m = cpu_mesh({"tp": 4})
+    apply_fn, sharded = tp.make_tp_apply(model, m, None, rules, data_spec=P())
+    jfn, jsharded = jax_tp.make_tp_apply(jax_model, jax_mesh_of({"tp": 4}), params, jrules, data_spec=JP())
+    assert tp.shard_fraction(sharded) == pytest.approx(jax_tp.shard_fraction(jsharded))
+    assert sum(isinstance(leaf, dp.Shards) for leaf in sharded.values()) >= 2
+    out = apply_fn(sharded, x).numpy()
+    np.testing.assert_allclose(out, np.asarray(jfn(jsharded, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, _single(model, x), rtol=1e-5, atol=1e-5)
+    # a state dict copied in reaches the gathered tensors too
+    scaled = {k: v * 0.5 for k, v in model.state_dict().items()}
+    other = copy.deepcopy(model)
+    other.load_state_dict(scaled)
+    np.testing.assert_allclose(apply_fn(scaled, x).numpy(), _single(other, x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("axes, data_spec, out_spec", [
+    ({"tp": 4}, ("tp",), None),
+    ({"dp": 2, "tp": 2}, (("dp", "tp"),), None),
+    ({"dp": 2, "tp": 2}, (("tp", "dp"),), None),
+    ({"dp": 2, "tp": 2}, ("dp",), ()),
+    ({"dp": 2, "tp": 2}, (None, "tp"), None),
+], ids=["tp", "dp_tp", "tp_dp", "dp_out_replicated", "height_over_tp"])
+def test_make_tp_apply_takes_jax_specs(axes, data_spec, out_spec):
+    """Any data and output spec JAX's ``make_tp_apply`` takes: the port
+    returns the same array, whole, on the mesh's first device."""
+    jax_model, params, model, x = _seeded_vit(num_heads=4, dim=48)
+    kw = {} if out_spec is None else {"out_spec": P(*out_spec)}
+    apply_fn, sharded = tp.make_tp_apply(model, cpu_mesh(axes), data_spec=P(*data_spec), **kw)
+    jkw = {} if out_spec is None else {"out_spec": JP(*out_spec)}
+    jfn, jsharded = jax_tp.make_tp_apply(jax_model, jax_mesh_of(axes), params, data_spec=JP(*data_spec), **jkw)
+    out = apply_fn(sharded, x)
+    assert out.device == torch.device("cpu") and tuple(out.shape) == (8, 48)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jfn(jsharded, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+    if data_spec[0] is not None:  # a batch that does not divide refuses, as JAX's jit does
+        with pytest.raises(ValueError, match="does not divide"):
+            apply_fn(sharded, x[:3])
 
 
 def test_conv_rules_on_unet():
@@ -476,6 +677,11 @@ def test_sharded_uneven_corpus():
     ({"dp": 4, "tp": 2}, (None, None, "tp")),
     ({"dp": 2, "sp": 2}, ("dp", "sp")),
     ({"dp": 2, "sp": 4}, ("dp", "sp")),
+    ({"dp": 2, "sp": 4}, (("dp", "sp"),)),
+    ({"dp": 2, "sp": 4}, (("sp", "dp"),)),
+    ({"dp": 2, "sp": 2, "tp": 2}, ("dp", "sp", "tp")),
+    ({"dp": 2, "sp": 2, "tp": 2}, (("tp", "dp"), None, "sp")),
+    ({"dp": 2, "sp": 2, "tp": 2}, (None, ("sp", "tp"))),
 ])
 def test_placement_follows_jax_addressable_shards(axes, spec):
     x = np.arange(8 * 8 * 4, dtype=np.float32).reshape(8, 8, 4)
@@ -496,26 +702,67 @@ def test_placement_follows_jax_addressable_shards(axes, spec):
 
 
 def test_two_axis_spec_and_multi_axis_train_step_still_raise():
-    """A spec splitting two dimensions over two axes places each entry's
-    block and a (dp, sp) mesh takes the train step (both were refused
-    before the dp x sp step); a spec naming one axis twice or a tuple of
-    axes for one dimension, and a step over any axis but dp and sp, still
-    raise."""
+    """What still raises: a spec naming one axis twice, over two
+    dimensions or in a tuple, as JAX's ``DuplicateSpecError`` (the port's
+    a ``ValueError``); a dimension that does not divide its axes; and the
+    train step over a mesh without its axis, as JAX's ``P("dp")`` over
+    such a mesh."""
     m = cpu_mesh({"dp": 2, "sp": 2})
+    jm = jax_mesh_of({"dp": 2, "sp": 2})
+    for spec, axis in ((("dp", "dp"), "dp"), (("sp", ("dp", "sp")), "sp")):
+        with pytest.raises(ValueError, match=f"names the mesh axis '{axis}' twice") as ours:
+            dp.place(dp.Placement(m, spec), np.zeros((4, 4)))
+        with pytest.raises(Exception, match=f"duplicate entries for `{axis}`") as theirs:
+            NamedSharding(jm, JP(*spec))
+        assert type(ours.value).__name__ == type(theirs.value).__name__ == "DuplicateSpecError"
+    with pytest.raises(ValueError, match="does not divide"):
+        dp.place(dp.Placement(m, (None, "sp")), np.zeros((4, 3)))
+    with pytest.raises(ValueError, match="does not divide"):
+        dp.place(dp.Placement(m, ("dp", "sp")), np.zeros((4, 3)))
+    with pytest.raises(ValueError, match="does not divide"):
+        dp.place(dp.Placement(m, (("dp", "sp"),)), np.zeros((6, 3)))
+    from bioengine_tpu_torch.models.cellpose import make_train_step
+
+    with pytest.raises(ValueError, match="'dp', not an axis of the mesh"):
+        dp.data_parallel_step(make_train_step(), cpu_mesh({"sp": 2, "tp": 2}))
+    with pytest.raises(ValueError):
+        jax.lax.with_sharding_constraint(jnp.zeros(4), NamedSharding(jax_mesh_of({"sp": 2, "tp": 2}), JP("dp")))
+
+
+def test_two_axis_and_tuple_specs_and_dp_tp_step():
+    """A spec splitting two dimensions over two axes places each entry's
+    block; a tuple of axes for one dimension (refused before slice 18)
+    places as JAX's ``addressable_shards``, the product in row-major
+    order, and the train step over a (dp, tp) mesh (refused before slice
+    18) runs, tp replicated: the dp = 2 step bit for bit."""
+    m = cpu_mesh({"dp": 2, "sp": 2})
+    jm = jax_mesh_of({"dp": 2, "sp": 2})
     x = np.arange(16, dtype=np.float32).reshape(4, 4)
     placed = dp.place(dp.Placement(m, ("dp", "sp")), x)
     assert [t.tolist() for t in placed] == [x[:2, :2].tolist(), x[:2, 2:].tolist(),
                                             x[2:, :2].tolist(), x[2:, 2:].tolist()]
     np.testing.assert_array_equal(placed.gather().numpy(), x)
-    for spec in (("dp", "dp"), (("dp", "sp"),)):
-        with pytest.raises(NotImplementedError, match="at most two dimensions, each over one mesh axis"):
-            dp.place(dp.Placement(m, spec), np.zeros((4, 4)))
-    from bioengine_tpu_torch.models.cellpose import make_train_step
+    y = np.arange(16, dtype=np.float32).reshape(8, 2)
+    tup = dp.place(dp.Placement(m, (("dp", "sp"),)), y)
+    jtup = jax.device_put(jnp.asarray(y), NamedSharding(jm, JP(("dp", "sp"))))
+    assert [t.tolist() for t in tup] == [np.asarray(s.data).tolist() for s in
+                                         sorted(jtup.addressable_shards, key=lambda s: s.device.id)]
+    assert [t.tolist() for t in tup] == [[[0, 1], [2, 3]], [[4, 5], [6, 7]], [[8, 9], [10, 11]], [[12, 13], [14, 15]]]
+    np.testing.assert_array_equal(tup.gather().numpy(), y)
+    from bioengine_tpu_torch.models.cellpose import CellposeNet, TrainState, make_train_step
 
-    assert callable(dp.data_parallel_step(make_train_step(), m))
-    with pytest.raises(NotImplementedError, match="splits over no other axis"):
-        dp.data_parallel_step(make_train_step(), cpu_mesh({"dp": 2, "tp": 2}))
-    with pytest.raises(ValueError, match="does not divide"):
-        dp.place(dp.Placement(m, (None, "sp")), np.zeros((4, 3)))
-    with pytest.raises(ValueError, match="does not divide"):
-        dp.place(dp.Placement(m, ("dp", "sp")), np.zeros((4, 3)))
+    rng = np.random.default_rng(0)
+    batch = (rng.normal(size=(4, 16, 16, 2)).astype(np.float32), rng.normal(size=(4, 16, 16, 2)).astype(np.float32),
+             rng.integers(0, 2, size=(4, 16, 16)).astype(np.float32))
+    results = []
+    for axes in ({"dp": 2}, {"dp": 2, "tp": 2}):
+        model = CellposeNet(features=(4, 8), dtype=torch.float32)
+        model.reset_parameters(1)
+        mesh_ = cpu_mesh(axes)
+        state = dp.replicate(mesh_, TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-2)))
+        state, metrics = dp.data_parallel_step(make_train_step(), mesh_)(state, *batch)
+        results.append((float(metrics["loss"]), [p.detach().clone() for p in state.module.parameters()]))
+        for replica in state.replicas[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(state.module.parameters(), replica.parameters()))
+    assert results[0][0] == results[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(results[0][1], results[1][1]))

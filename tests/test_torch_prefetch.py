@@ -113,7 +113,8 @@ def test_device_rules(monkeypatch):
     # a placement over a CPU mesh places every leaf over it, whatever
     # ``device`` says; a spec may split any one dimension over one axis of
     # a mesh of several, or two dimensions over two axes, placed as JAX's
-    # ``addressable_shards``; a spec naming one axis twice raises
+    # ``addressable_shards``; a spec naming one axis twice raises a
+    # ``ValueError`` (``DuplicateSpecError``, as JAX names it)
     mesh = make_mesh({"dp": 2}, ["cpu", "cpu"])
     (batch,) = prefetch_to_device(iter([np.arange(4)]), device="cuda", sharding=sharding(mesh, "dp"))
     assert isinstance(batch, Shards) and [t.tolist() for t in batch] == [[0, 1], [2, 3]]
@@ -130,13 +131,30 @@ def test_device_rules(monkeypatch):
     jshards = sorted(theirs.addressable_shards, key=lambda s: s.device.id)
     assert [t.tolist() for t in ours] == [np.asarray(s.data).tolist() for s in jshards]
     assert ours.gather().tolist() == x.tolist()
-    with pytest.raises(NotImplementedError, match="each over one mesh axis"):
+    with pytest.raises(ValueError, match="names the mesh axis 'sp' twice"):
         list(prefetch_to_device(iter([np.zeros((2, 2))]), sharding=sharding(mesh4, "sp", "sp")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             prefetch_to_device(iter([np.zeros(2)]), device=device)
     assert list(prefetch_to_device(iter([]), device="cpu")) == []
+
+
+@pytest.mark.parametrize("spec", [(("dp", "sp"),), (("sp", "dp"), None), (None, ("dp", "sp")), ("dp", ("sp", "tp"))],
+                         ids=["dp_sp", "sp_dp", "columns_dp_sp", "dp_then_sp_tp"])
+def test_tuple_axis_placement_matches_jax(spec):
+    """A dimension split over a tuple of axes (their product, row-major):
+    each entry's part equals JAX's ``addressable_shards`` through both
+    packages' ``prefetch_to_device``."""
+    axes = {"dp": 2, "sp": 2, "tp": 2}
+    x = np.arange(8 * 8 * 3).reshape(8, 8, 3)
+    mesh = make_mesh(axes, ["cpu"] * 8)
+    (ours,) = prefetch_to_device(iter([x]), sharding=sharding(mesh, *spec))
+    jmesh = jax_make_mesh(axes, jax.devices()[:8])
+    (theirs,) = jax_prefetch.prefetch_to_device(iter([x]), sharding=NamedSharding(jmesh, JP(*spec)))
+    jshards = sorted(theirs.addressable_shards, key=lambda s: s.device.id)
+    assert [t.tolist() for t in ours] == [np.asarray(s.data).tolist() for s in jshards]
+    assert ours.gather().tolist() == x.tolist()
 
 
 @pytest.fixture()

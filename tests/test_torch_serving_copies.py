@@ -12,7 +12,7 @@ docstring as ``__doc__``. A class whose methods are allow-listed is
 compared method by method. Every allow-listed key is a deliberate
 difference of the port and must be listed, with its module, in
 ROADMAP.md's slice-8, slice-9, slice-11, slice-12, slice-13, slice-14,
-slice-15 or slice-17 differences.
+slice-15, slice-17 or slice-18 differences.
 """
 
 import ast
@@ -279,6 +279,9 @@ COPIES = {
         "_sum_gradients": "gradients summed onto the first replica in shard order",
         "data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
         "jit_data_parallel_step": "the step of the global batch in place of jit_data_parallel_step",
+        "DuplicateSpecError": "a spec naming one axis twice refuses, as NamedSharding does (slice 18)",
+        "_split_dims": "a placement's split dimensions checked as NamedSharding checks them (slice 18)",
+        "_whole": "images placed otherwise re-placed over the batch axis (slice 18)",
     },
     "parallel/__init__.py": {},
     # slice 17: the static analyzer, its command, the requirement pins
@@ -407,12 +410,12 @@ def test_bundle_file_equals_the_jax_app(rel):
 
 def _listed_differences() -> str:
     """ROADMAP's "Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (",
-    "Slice 13 (", "Slice 14 (", "Slice 15 (" and "Slice 17 (" differences
-    sections."""
+    "Slice 13 (", "Slice 14 (", "Slice 15 (", "Slice 17 (" and "Slice 18 ("
+    differences sections."""
     text = (REPO / "ROADMAP.md").read_text()
     sections = []
     for heading in ("Slice 8 (", "Slice 9 (", "Slice 11 (", "Slice 12 (", "Slice 13 (", "Slice 14 (",
-                    "Slice 15 (", "Slice 17 ("):
+                    "Slice 15 (", "Slice 17 (", "Slice 18 ("):
         start = text.index(heading)
         end = text.find("\n\n\n", start)
         sections.append(text[start : end if end != -1 else len(text)])
