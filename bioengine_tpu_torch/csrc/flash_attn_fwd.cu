@@ -4,45 +4,66 @@
 // (_attn_kernel, launched by pl.pallas_call in _flash_forward). Same
 // arithmetic: online softmax with a running max m, a normaliser l and an f32
 // accumulator, a padding mask (col < n), an optional causal mask that skips
-// key tiles wholly above the diagonal, and zeros for rows whose l is 0.
+// key tiles wholly above the diagonal, and zeros for rows whose l is 0. Like
+// the TPU kernel it takes float32, bfloat16 and float16 and any head dim d
+// (up to kWideMaxD here), with the scale the true d^-1/2.
 //
-// Layout: q, k, v, o are contiguous (B*H, n, D), D in {32, 64, 128}, at
-// 16-byte-aligned addresses (TMA's rule). Work split, both paths: one block
-// per (b*h, query tile of 64 rows per consumer warpgroup), linear in
-// blockIdx.x = bh * q_tiles + q_tile,
-// so the query tiles of one head run next to each other and share that head's
-// K and V through L2. The TPU kernel carried m/l/acc across a sequential kv
-// grid axis in scratch; CUDA blocks run in no order, so a loop inside the
-// block walks the key/value tiles. The ragged end of n is masked in the
-// kernel: nothing is padded to a tile multiple, and D is not padded to 128
-// (both were TPU tiling rules). The caller passes the launch plan
-// (ops/attention.py launch_plan); the entry point refuses any plan other than
-// its own. In both paths TMA loads Q once and K/V tiles into a ring in shared
-// memory under mbarrier full/empty pairs, and consumer warpgroups (128
-// threads each) run the products with wgmma and the softmax. The tensor maps are
-// 3-D over (D, n, B*H), so rows past n come back zero-filled instead of as
-// the next head's rows; a box is one 128-byte row (the swizzle width) wide.
+// Layout: q, k, v, o are contiguous (B*H, n, ld) at 16-byte-aligned
+// addresses, ld the row pitch: d, or d rounded up by the caller to a
+// multiple of 16 bytes (TMA's rule for a row pitch) with zero columns, as
+// the TPU kernel's caller pads d to 128 (_pad_to). Work split, every path:
+// one block per (b*h, query tile), linear in blockIdx.x = bh * q_tiles +
+// q_tile, so the query tiles of one head run next to each other and share
+// that head's K and V through L2. The TPU kernel carried m/l/acc across a
+// sequential kv grid axis in scratch; CUDA blocks run in no order, so a loop
+// inside the block walks the key/value tiles. The ragged end of n is masked
+// in the kernel: nothing is padded to a tile multiple. The caller passes the
+// launch plan (ops/attention.py launch_plan); the entry point refuses any
+// plan other than its own.
+//
+// Three paths, chosen by dtype and d (plan_for):
+// - "wgmma" (bf16 and f16, d <= 256): both products on the tensor cores in
+//   the input's type, at a padded width Dp in {32, 64, 128, 192, 256};
+// - "tf32x3" (f32, d <= 128): both products as 3xTF32 on the tensor cores,
+//   at Dp in {32, 64, 128};
+// - "wide" (f32 above 128, 16-bit above 256, up to kWideMaxD): exact f32 FMA
+//   on the CUDA cores, K and V streamed through shared memory in column
+//   chunks.
+// The two tensor-core paths load Q once and K/V tiles into a ring in shared
+// memory by TMA under mbarrier full/empty pairs, and consumer warpgroups (128
+// threads each) run the products with wgmma and the softmax. Their tensor
+// maps are 3-D over (ld, n, B*H), so rows past n come back zero-filled
+// instead of as the next head's rows, and so do columns ld..Dp-1: a box is
+// one 128-byte row (the swizzle width) wide, and the boxes past ld read as
+// zeros, which add nothing to Q K^T and give zero columns of O. The
+// epilogue stores the first ld columns.
 //
 // Bound on an H100 SXM at the ViT-B/14 main-path shape (64, 12, 257, 64)
 // bf16: 4 tensors x 12.6 M elements x 2 B = 101 MB at 3.35 TB/s is 30 us;
 // 4*B*H*N^2*D = 13.0 GFLOP at 989 TFLOP/s is 13 us; 50.7 M exponentials at
-// the MUFU rate take ~15 us. So the bound is memory, ~30 us a call.
+// the MUFU rate take ~15 us. So the bound is memory, ~30 us a call. At the
+// ViT-H/14 shape (64, 16, 257, 80) bf16 or f16: 168 MB is 50 us, against
+// 21.6 GFLOP at d = 80 (22 us; the kernel computes 34.6 GFLOP at Dp = 128).
 //
-// bf16 path ("wgmma"): both products on the tensor cores, tiles in by TMA.
+// 16-bit path ("wgmma"): both products on the tensor cores, tiles in by TMA.
+// The same code for bf16 and f16 (m64nNk16 .bf16 or .f16, P rounded to the
+// input's type for P V, O rounded once to it).
 // - One producer warp issues the loads into a 2-stage ring. A box is 64 rows
-//   x 64 columns (128 B), and D = 128 takes two boxes per tile, D = 32 one
-//   box whose upper 32 columns TMA fills with zeros.
+//   x 64 columns (128 B), and Dp takes Dp / 64 boxes per tile (Dp = 32 one
+//   box whose upper 32 columns TMA fills with zeros). At Dp = 256 the ring
+//   is (1 + 2 x 2) x 4 boxes x 8 KB = 160 KB, one block an SM, and the
+//   consumer holds a 64 x 256 f32 O accumulator, 128 registers a thread.
 // - S = Q K^T: wgmma m64n64k16, both operands from 128-byte-swizzled shared
-//   memory (K stored as key rows is K-major for B), D/16 k-steps, f32
+//   memory (K stored as key rows is K-major for B), Dp/16 k-steps, f32
 //   accumulators in registers.
 // - Online softmax in registers: a row of the accumulator lies on 4 threads,
 //   so row max takes two xor shuffles; log2(e) d^-1/2 is one multiplier and
 //   exponentials are ex2.approx; only the last key tile (ragged n) and the
 //   causal diagonal tile are masked.
 // - O += P V: wgmma with P from registers (the S accumulator fragment is the
-//   A fragment, converted to bf16 in place), V as an MN-major B from shared
-//   memory. P never touches shared memory. O is rescaled by alpha between
-//   tiles, divided by l once, rounded once to bf16 and stored for rows < n.
+//   A fragment, converted to the input's type in place), V as an MN-major B
+//   from shared memory. P never touches shared memory. O is rescaled by alpha
+//   between tiles, divided by l once, rounded once and stored for rows < n.
 // Not yet: two consumer warpgroups, overlap of softmax with the products,
 // register rebalancing with setmaxnreg (the consumer fits its launch-bound
 // budget).
@@ -91,9 +112,34 @@
 // n = 257, 320 keys a row for 257); the last query tile at n = 257 holds one
 // row but computes 64 (m64 is wgmma's least M), in a block of its own whose
 // second consumer has no rows; each block fills its ring from empty.
+// D in this path's code is the padded width Dp (32, 64 or 128): d = 80 runs
+// the D = 128 geometry with columns 80..127 zero, a fifth of the products'
+// work wasted.
+//
+// Wide path ("wide"): what the tensor-core paths do not take, f32 with
+// d > 128 (the split Q and K/V rings of tf32x3 do not fit a block above 128)
+// and 16-bit with d > 256 (wgmma's widest N), up to d = kWideMaxD. Exact f32
+// FMA on the CUDA cores, softmax in f32 with expf, as the plain version.
+// - A block of 256 threads takes 16 query rows: warp w owns rows 2w and
+//   2w + 1, so a row's max and sum are warp shuffles. Q (scaled by d^-1/2,
+//   rounded once as the plain version rounds q * scale) and the O
+//   accumulator live in shared memory as f32, 16 x Dp each, Dp = d rounded
+//   up to 64 columns.
+// - Key tiles of 64 rows. S = Q K^T takes K 64 columns at a time through
+//   one shared chunk of 64 x 65 floats (the odd pitch keeps the 32 keys a
+//   warp reads at one column in 32 banks); each lane sums keys lane and
+//   lane + 32 of both its warp's rows. P goes to shared memory, and O += P V
+//   takes V through the same chunk, each lane on columns lane and lane + 32.
+// - Held by the 67 TFLOP/s of f32 FMA at large n, several times the bound of
+//   the function in its inputs' type (3xTF32 or 16-bit products on the
+//   tensor cores, or the bytes); no tensor cores, no TMA, no overlap of
+//   loads with compute: a simple kernel that is right, for the widths
+//   nothing else takes. The cap is shared memory: 2 x 16 x Dp x 4 B
+//   of Q and O beside the chunk and P, 151,808 B at 1024.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -109,8 +155,27 @@ static_assert(kBlockQ == kBlockK, "the causal diagonal tile is the key tile with
 // dtype and path codes shared with ops/attention.py
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 constexpr int kPathTf32x3 = 0;
 constexpr int kPathWgmma = 1;
+constexpr int kPathWide = 2;
+
+// The element type of a dtype code.
+template <int DT> struct Elem;
+template <> struct Elem<kDtypeF32> { using type = float; };
+template <> struct Elem<kDtypeBF16> { using type = __nv_bfloat16; };
+template <> struct Elem<kDtypeF16> { using type = __half; };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <int DT> __device__ __forceinline__ typename Elem<DT>::type from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<kDtypeF32>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<kDtypeBF16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<kDtypeF16>(float x) { return __float2half_rn(x); }
 
 // ---------------------------------------------------------------------------
 // Both paths: TMA, mbarriers, wgmma
@@ -120,16 +185,17 @@ constexpr int kConsumerThreads = 128;                    // one warpgroup
 constexpr int kWgmmaThreads = kConsumerThreads + 32;     // + one producer warp
 constexpr int kStages = 2;                               // K/V ring depth
 constexpr int kSwizzleBytes = 128;                       // a swizzled row; 8 of them make a 1 KB atom
-constexpr int kChunkCols = 64;                           // bf16 columns in one 128-byte swizzled row
-constexpr int kChunkBytes = kBlockK * kChunkCols * 2;    // one 64 x 64 bf16 box: 8 KB
+constexpr int kChunkCols = 64;                           // 16-bit columns in one 128-byte swizzled row
+constexpr int kChunkBytes = kBlockK * kChunkCols * 2;    // one 64 x 64 16-bit box: 8 KB
 constexpr int kBarrierBytes = 128;
 constexpr int kAlignSlack = 1024;                        // 128-byte swizzle wants 1024-byte-aligned tiles
 constexpr unsigned long long kWaitLimitCycles = 1ull << 33;  // ~5 s: a stuck pipeline traps, not hangs
 
-__host__ __device__ constexpr int chunks_for(int d) { return d > kChunkCols ? d / kChunkCols : 1; }
-__host__ __device__ constexpr int wgmma_smem_bytes(int d) {
+// 64-column boxes across a padded width dp (32 pads its one box)
+__host__ __device__ constexpr int chunks_for(int dp) { return dp > kChunkCols ? dp / kChunkCols : 1; }
+__host__ __device__ constexpr int wgmma_smem_bytes(int dp) {
   // Q, then K[stage][chunk], V[stage][chunk], then the barriers
-  return (1 + 2 * kStages) * chunks_for(d) * kChunkBytes + kBarrierBytes + kAlignSlack;
+  return (1 + 2 * kStages) * chunks_for(dp) * kChunkBytes + kBarrierBytes + kAlignSlack;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -219,46 +285,63 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path
+// 16-bit path (bf16, f16)
 // ---------------------------------------------------------------------------
 
 // d (64 x 64, f32) = A (64 x 16) B (16 x 64) [+ d], A and B from shared memory,
-// both K-major. scale_d = 0 overwrites d.
+// both K-major, in the 16-bit type TY ("bf16" or "f16"). scale_d = 0
+// overwrites d.
+#define WGMMA_SS_16BIT(TY)                                                                      \
+  asm volatile(                                                                                 \
+      "{\n\t.reg .pred p;\n\t"                                                                  \
+      "setp.ne.b32 p, %34, 0;\n\t"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "       \
+      "%32, %33, p, 1, 1, 0, 0;\n\t}"                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+template <int DT>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "setp.ne.b32 p, %34, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (DT == kDtypeF16)
+    WGMMA_SS_16BIT("f16");
+  else
+    WGMMA_SS_16BIT("bf16");
 }
+#undef WGMMA_SS_16BIT
 
-// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B from
+// d (64 x 64, f32) += A (64 x 16, TY in registers) B (16 x 64), B from
 // shared memory, MN-major (the transpose bit).
+#define WGMMA_RS_16BIT(TY)                                                                      \
+  asm volatile(                                                                                 \
+      "{\n\t.reg .pred p;\n\t"                                                                  \
+      "setp.ne.b32 p, %37, 0;\n\t"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "       \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+template <int DT>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "setp.ne.b32 p, %37, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (DT == kDtypeF16)
+    WGMMA_RS_16BIT("f16");
+  else
+    WGMMA_RS_16BIT("bf16");
 }
+#undef WGMMA_RS_16BIT
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -266,23 +349,33 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo, the lower column
-  return *reinterpret_cast<uint32_t*>(&h);
+// Two floats rounded to the 16-bit type, lo in the lower half (the lower
+// column, as the A fragment and memory order want).
+template <int DT>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (DT == kDtypeF16) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 // Accumulator fragment of wgmma m64nN (f32): thread t of the warpgroup holds
 // rows 16 (t / 32) + (t % 32) / 4 + 8 h, h = 0, 1, and in each 8-column block
 // j the columns 8 j + 2 (t % 4) + e, e = 0, 1, as register 4 j + 2 h + e.
-template <int D>
-__global__ void __launch_bounds__(kWgmmaThreads, 2)
+// DT is the 16-bit type's dtype code, DP the padded width.
+template <int DT, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, DP <= 128 ? 2 : 1)
 flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_k,
                         __grid_constant__ const CUtensorMap tm_v,
-                        __nv_bfloat16* __restrict__ o, int n, int q_tiles,
+                        typename Elem<DT>::type* __restrict__ o, int n, int ld, int q_tiles,
                         float scale_log2, int causal) {
-  constexpr int CH = chunks_for(D);  // 64-column boxes per tile
-  constexpr int KS = D / 16;         // k-steps of Q K^T
+  using T = typename Elem<DT>::type;
+  constexpr int CH = chunks_for(DP);  // 64-column boxes per tile
+  constexpr int KS = DP / 16;         // k-steps of Q K^T
   constexpr int TILE = CH * kChunkBytes;
 
   extern __shared__ uint8_t smem_raw[];
@@ -324,7 +417,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         const int s = j % kStages;
         const uint32_t phase = (j / kStages) & 1;
         mbar_wait(empty + 8 * s, phase ^ 1);  // the first round finds every stage free
-        // a box's full bytes count, rows TMA fills with zeros included
+        // a box's full bytes count, rows and columns TMA fills with zeros included
         mbar_expect_tx(k_full + 8 * s, TILE);
 #pragma unroll
         for (int c = 0; c < CH; ++c)
@@ -373,7 +466,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     for (int ks = 0; ks < KS; ++ks) {
       // k-step ks reads 16 columns (32 B) inside box ks / 4
       const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
-      wgmma_ss(s_acc, sw128_desc(q_s + off), sw128_desc(k_tile + off), ks > 0);
+      wgmma_ss<DT>(s_acc, sw128_desc(q_s + off), sw128_desc(k_tile + off), ks > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -423,13 +516,13 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 32; ++i) o_acc[c][i] *= alpha[(i / 2) & 1];
 
-    // P to bf16 A fragments: k-step kk covers keys 16 kk .. 16 kk + 15, which
-    // are accumulator registers 8 kk .. 8 kk + 7 in the A register order.
+    // P to 16-bit A fragments: k-step kk covers keys 16 kk .. 16 kk + 15,
+    // which are accumulator registers 8 kk .. 8 kk + 7 in the A register order.
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s_acc[8 * kk + 2 * r], s_acc[8 * kk + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack2<DT>(s_acc[8 * kk + 2 * r], s_acc[8 * kk + 2 * r + 1]);
 
     // O += P V
     mbar_wait(v_full + 8 * s, phase);
@@ -441,7 +534,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
 #pragma unroll
       for (int c = 0; c < CH; ++c)
         // 16 key rows of 128 B further down the box
-        wgmma_rs(o_acc[c], pa[kk], sw128_desc(v_tile + c * kChunkBytes + kk * 16 * 128));
+        wgmma_rs<DT>(o_acc[c], pa[kk], sw128_desc(v_tile + c * kChunkBytes + kk * 16 * 128));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -451,8 +544,8 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     mbar_arrive(empty + 8 * s);  // this thread no longer reads stage s
   }
 
-  // O / l, rounded once; rows past n are not stored.
-  __nv_bfloat16* ob = o + (size_t)bh * n * D;
+  // O / l, rounded once; rows past n and columns past ld are not stored.
+  T* ob = o + (size_t)bh * n * ld;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -462,15 +555,15 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     const float inv = l == 0.f ? 0.f : 1.f / l;
     const int row = q0 + r_lo + 8 * h;
     if (row >= n) continue;
-    __nv_bfloat16* dst = ob + (size_t)row * D;
+    T* dst = ob + (size_t)row * ld;
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int jb = 0; jb < 8; ++jb) {
         const int col = c * kChunkCols + 8 * jb + c_lo;
-        if (col < D)  // D = 32 computes a padded 64-column box
-          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-              o_acc[c][4 * jb + 2 * h] * inv, o_acc[c][4 * jb + 2 * h + 1] * inv);
+        if (col < ld)  // ld is even: col + 1 < ld too
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack2<DT>(o_acc[c][4 * jb + 2 * h] * inv, o_acc[c][4 * jb + 2 * h + 1] * inv);
       }
   }
 }
@@ -484,21 +577,22 @@ constexpr int kF32Cols = kSwizzleBytes / 4;  // f32 columns in one swizzled row
 constexpr int kSplitThreads = 128;  // the splitter warpgroup
 constexpr int kWorkStages = 2;      // ring of split K and V^T tiles
 
-// Per head dim, so that the buffers fit 227 KB: consumer warpgroups, each on
-// its own 64 query rows (2, or 1 at D = 128); key rows per tile (64, or 32 at
-// D = 128); f32 K/V tiles in flight from TMA (2 at D = 32, else 1).
-__host__ __device__ constexpr int tf32x3_consumers(int d) { return d == 128 ? 1 : 2; }
-__host__ __device__ constexpr int tf32x3_block_k(int d) { return d == 128 ? 32 : 64; }
-__host__ __device__ constexpr int tf32x3_land_stages(int d) { return d == 32 ? 2 : 1; }
-__host__ __device__ constexpr int tf32x3_threads(int d) {
-  return tf32x3_consumers(d) * kConsumerThreads + kSplitThreads;
+// Per padded width dp (32, 64 or 128), so that the buffers fit 227 KB:
+// consumer warpgroups, each on its own 64 query rows (2, or 1 at 128); key
+// rows per tile (64, or 32 at 128); f32 K/V tiles in flight from TMA (2 at
+// 32, else 1).
+__host__ __device__ constexpr int tf32x3_consumers(int dp) { return dp == 128 ? 1 : 2; }
+__host__ __device__ constexpr int tf32x3_block_k(int dp) { return dp == 128 ? 32 : 64; }
+__host__ __device__ constexpr int tf32x3_land_stages(int dp) { return dp == 32 ? 2 : 1; }
+__host__ __device__ constexpr int tf32x3_threads(int dp) {
+  return tf32x3_consumers(dp) * kConsumerThreads + kSplitThreads;
 }
-__host__ __device__ constexpr int tf32x3_smem_bytes(int d) {
+__host__ __device__ constexpr int tf32x3_smem_bytes(int dp) {
   // each consumer's Q big (over its landed f32 Q) and small; the landing
   // ring of f32 K and V tiles; the working ring of K big and small and V^T
   // big and small; then the barriers
-  return 4 * (2 * tf32x3_consumers(d) * kBlockQ * d +
-              (2 * tf32x3_land_stages(d) + 4 * kWorkStages) * tf32x3_block_k(d) * d) +
+  return 4 * (2 * tf32x3_consumers(dp) * kBlockQ * dp +
+              (2 * tf32x3_land_stages(dp) + 4 * kWorkStages) * tf32x3_block_k(dp) * dp) +
          kBarrierBytes + kAlignSlack;
 }
 
@@ -658,7 +752,7 @@ __global__ void __launch_bounds__(tf32x3_threads(D), 1)
 flash_attn_tf32x3_kernel(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_k,
                          __grid_constant__ const CUtensorMap tm_v, float* __restrict__ o,
-                         int n, int q_tiles, float scale, int causal) {
+                         int n, int ld, int q_tiles, float scale, int causal) {
   constexpr int NC = tf32x3_consumers(D);        // consumer warpgroups
   constexpr int BK = tf32x3_block_k(D);          // key rows per tile
   constexpr int LS = tf32x3_land_stages(D);      // f32 K/V tiles TMA keeps in flight
@@ -1000,8 +1094,8 @@ flash_attn_tf32x3_kernel(__grid_constant__ const CUtensorMap tm_q,
   }
   PROBE_FLUSH(kv_tiles);
 
-  // O / l; rows past n are not stored.
-  float* ob = o + (size_t)bh * n * D;
+  // O / l; rows past n and columns past ld are not stored.
+  float* ob = o + (size_t)bh * n * ld;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -1009,17 +1103,172 @@ flash_attn_tf32x3_kernel(__grid_constant__ const CUtensorMap tm_q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = q0 + r_lo + 8 * h;
     if (row >= n) continue;
-    float* dst = ob + (size_t)row * D;
+    float* dst = ob + (size_t)row * ld;
 #pragma unroll
     for (int c = 0; c < OC; ++c)
 #pragma unroll
       for (int jb = 0; jb < ON / 8; ++jb) {
         const int i = 4 * jb + 2 * h;
-        // a row with no visible key has l == 0: write 0, not NaN
-        *reinterpret_cast<float2*>(dst + c * ON + 8 * jb + c_lo) =
-            l == 0.f ? make_float2(0.f, 0.f)
-                     : make_float2(o_acc[c][i] / l, o_acc[c][i + 1] / l);
+        const int col = c * ON + 8 * jb + c_lo;
+        // a row with no visible key has l == 0: write 0, not NaN; ld is a
+        // multiple of 4, so col + 1 < ld too
+        if (col < ld)
+          *reinterpret_cast<float2*>(dst + col) =
+              l == 0.f ? make_float2(0.f, 0.f)
+                       : make_float2(o_acc[c][i] / l, o_acc[c][i + 1] / l);
       }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide path: exact f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWideBlockQ = 16;                // query rows per block: 2 per warp
+constexpr int kWideBlockK = 64;                // key rows per tile: 2 per lane
+constexpr int kWideCols = 64;                  // K or V columns per chunk: 2 per lane
+constexpr int kWidePitch = kWideCols + 1;      // floats per chunk row, odd: no bank conflicts
+constexpr int kWideThreads = 32 * kWideBlockQ / 2;
+constexpr int kWideMaxD = 1024;                // the cap: shared memory grows with d
+
+__host__ __device__ constexpr int wide_dp(int d) { return (d + kWideCols - 1) / kWideCols * kWideCols; }
+__host__ __device__ constexpr int wide_smem_bytes(int d) {
+  // Q and O (16 x Dp each), one K or V chunk, P (16 x 64), all f32
+  return 4 * (2 * kWideBlockQ * wide_dp(d) + kWideBlockK * kWidePitch + kWideBlockQ * kWideBlockK);
+}
+
+// A chunk of K or V into shared memory as f32: key rows k0.., columns c0..,
+// zeros past n and past d. The block's threads sync before (the chunk before
+// is read out) and after (the chunk is in).
+template <typename T>
+__device__ __forceinline__ void wide_load_chunk(const T* __restrict__ src, float* chunk, int n, int d,
+                                                int k0, int c0) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < kWideBlockK * kWideCols; i += kWideThreads) {
+    const int r = i / kWideCols, c = i % kWideCols;  // neighbouring threads, neighbouring columns
+    const int key = k0 + r, col = c0 + c;
+    chunk[r * kWidePitch + c] = key < n && col < d ? to_f32(src[(size_t)key * d + col]) : 0.f;
+  }
+  __syncthreads();
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kWideThreads)
+flash_attn_wide_kernel(const typename Elem<DT>::type* __restrict__ q,
+                       const typename Elem<DT>::type* __restrict__ k,
+                       const typename Elem<DT>::type* __restrict__ v,
+                       typename Elem<DT>::type* __restrict__ o, int n, int d, int q_tiles,
+                       float scale, int causal) {
+  extern __shared__ float wide_smem[];
+  const int dp = wide_dp(d);
+  float* const q_s = wide_smem;                         // [16][dp], q * d^-1/2
+  float* const o_s = q_s + kWideBlockQ * dp;            // [16][dp], the running sum
+  float* const chunk = o_s + kWideBlockQ * dp;          // [64][kWidePitch], K or V
+  float* const p_s = chunk + kWideBlockK * kWidePitch;  // [16][64]
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bh * q_tiles) * kWideBlockQ;
+  const size_t head = (size_t)bh * n * d;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 2 * warp;  // this warp's rows r0 and r0 + 1 of the tile
+
+  // Q * d^-1/2, rounded once as the plain version rounds q * scale (no FMA
+  // contraction); zeros past n and past d.
+  for (int i = threadIdx.x; i < kWideBlockQ * dp; i += kWideThreads) {
+    const int r = i / dp, c = i % dp, row = q0 + r;
+    q_s[i] = row < n && c < d ? __fmul_rn(to_f32(q[head + (size_t)row * d + c]), scale) : 0.f;
+    o_s[i] = 0.f;
+  }
+
+  float m_run[2] = {kNegInf, kNegInf};  // running max of each of the warp's rows
+  float l_run[2] = {0.f, 0.f};          // and its sum, the same in every lane
+  // Causal: keys past the block's last row add nothing.
+  const int kv_len = causal ? min(n, q0 + kWideBlockQ) : n;
+  for (int k0 = 0; k0 < kv_len; k0 += kWideBlockK) {
+    // S = Q K^T: lane holds keys lane and lane + 32 of rows r0 and r0 + 1
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int c0 = 0; c0 < dp; c0 += kWideCols) {
+      wide_load_chunk(k + head, chunk, n, d, k0, c0);
+      const float* qa = q_s + r0 * dp + c0;
+      const float* qb = qa + dp;
+      const float* ka = chunk + lane * kWidePitch;
+      const float* kb = ka + 32 * kWidePitch;
+#pragma unroll 8
+      for (int c = 0; c < kWideCols; ++c) {
+        s[0][0] = fmaf(qa[c], ka[c], s[0][0]);
+        s[0][1] = fmaf(qa[c], kb[c], s[0][1]);
+        s[1][0] = fmaf(qb[c], ka[c], s[1][0]);
+        s[1][1] = fmaf(qb[c], kb[c], s[1][1]);
+      }
+    }
+
+    // Online softmax in f32, each row within its warp.
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + h;
+      bool keep[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + lane + 32 * e;
+        keep[e] = col < n && !(causal && col > row);
+        if (!keep[e]) s[h][e] = kNegInf;
+      }
+      float mx = fmaxf(s[h][0], s[h][1]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[h], mx);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = keep[e] ? expf(s[h][e] - m_new) : 0.f;
+        p_s[(r0 + h) * kWideBlockK + lane + 32 * e] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l_run[h] = l_run[h] * alpha[h] + rs;
+    }
+    __syncwarp();  // the warp's P rows are written; only this warp reads them
+
+    // O = O alpha + P V: lane takes columns lane and lane + 32 of each chunk
+    for (int c0 = 0; c0 < dp; c0 += kWideCols) {
+      wide_load_chunk(v + head, chunk, n, d, k0, c0);
+      float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      const float* pa = p_s + r0 * kWideBlockK;
+      const float* pb = pa + kWideBlockK;
+#pragma unroll 8
+      for (int key = 0; key < kWideBlockK; ++key) {
+        const float va = chunk[key * kWidePitch + lane];
+        const float vb = chunk[key * kWidePitch + lane + 32];
+        acc[0][0] = fmaf(pa[key], va, acc[0][0]);
+        acc[0][1] = fmaf(pa[key], vb, acc[0][1]);
+        acc[1][0] = fmaf(pb[key], va, acc[1][0]);
+        acc[1][1] = fmaf(pb[key], vb, acc[1][1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* dst = o_s + (r0 + h) * dp + c0 + lane + 32 * e;
+          *dst = fmaf(*dst, alpha[h], acc[h][e]);
+        }
+    }
+    __syncwarp();  // P is read out before the next tile writes it
+  }
+
+  // O / l, rounded once; rows past n are not stored; a row with no visible
+  // key has l == 0: write 0, not NaN.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + h;
+    if (row >= n) continue;
+    const float l = l_run[h];
+    for (int c = lane; c < d; c += 32)
+      o[head + (size_t)row * d + c] = from_f32<DT>(l == 0.f ? 0.f : o_s[(r0 + h) * dp + c] / l);
   }
 }
 
@@ -1049,83 +1298,113 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 3-D map over a contiguous (bh, n, d) bf16 or f32 tensor, dims innermost
-// first: boxes of `box_rows` rows x one 128-byte row (64 bf16 or 32 f32
-// columns), 128-byte swizzle, out-of-bounds elements read as zero.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int n, int d, bool f32,
+// 3-D map over a contiguous (bh, n, ld) 16-bit or f32 tensor, dims
+// innermost first: boxes of `box_rows` rows x one 128-byte row (64 16-bit or
+// 32 f32 columns), 128-byte swizzle, out-of-bounds elements (rows past n,
+// columns past ld) read as zero.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int n, int ld, int dtype,
                      int box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t elem = f32 ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {d * elem, n * d * elem};  // bytes
+  const cuuint64_t elem = dtype == kDtypeF32 ? 4 : 2;
+  const CUtensorMapDataType type = dtype == kDtypeF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : dtype == kDtypeBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {ld * elem, n * ld * elem};  // bytes
   const cuuint32_t box[3] = {(cuuint32_t)(kSwizzleBytes / elem), (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        3, const_cast<void*>(ptr), dims,
-                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DT, int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                         float scale, int causal, int q_tiles, int grid, int smem,
+                         int ld, float scale, int causal, int q_tiles, int grid, int smem,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = make_map(&tq, q, bh, n, D, false, kBlockK)) != cudaSuccess) return err;
-  if ((err = make_map(&tk, k, bh, n, D, false, kBlockK)) != cudaSuccess) return err;
-  if ((err = make_map(&tv, v, bh, n, D, false, kBlockK)) != cudaSuccess) return err;
-  auto kernel = flash_attn_wgmma_kernel<D>;
+  if ((err = make_map(&tq, q, bh, n, ld, DT, kBlockK)) != cudaSuccess) return err;
+  if ((err = make_map(&tk, k, bh, n, ld, DT, kBlockK)) != cudaSuccess) return err;
+  if ((err = make_map(&tv, v, bh, n, ld, DT, kBlockK)) != cudaSuccess) return err;
+  auto kernel = flash_attn_wgmma_kernel<DT, DP>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const float log2e = 1.4426950408889634f;
-  kernel<<<grid, kWgmmaThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), n,
+  kernel<<<grid, kWgmmaThreads, smem, stream>>>(tq, tk, tv,
+                                                static_cast<typename Elem<DT>::type*>(o), n, ld,
                                                 q_tiles, scale * log2e, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                          float scale, int causal, int q_tiles, int grid, int smem,
+                          int ld, float scale, int causal, int q_tiles, int grid, int smem,
                           cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  constexpr int BK = tf32x3_block_k(D);
-  if ((err = make_map(&tq, q, bh, n, D, true, kBlockQ)) != cudaSuccess) return err;
-  if ((err = make_map(&tk, k, bh, n, D, true, BK)) != cudaSuccess) return err;
-  if ((err = make_map(&tv, v, bh, n, D, true, BK)) != cudaSuccess) return err;
-  auto kernel = flash_attn_tf32x3_kernel<D>;
+  constexpr int BK = tf32x3_block_k(DP);
+  if ((err = make_map(&tq, q, bh, n, ld, kDtypeF32, kBlockQ)) != cudaSuccess) return err;
+  if ((err = make_map(&tk, k, bh, n, ld, kDtypeF32, BK)) != cudaSuccess) return err;
+  if ((err = make_map(&tv, v, bh, n, ld, kDtypeF32, BK)) != cudaSuccess) return err;
+  auto kernel = flash_attn_tf32x3_kernel<DP>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, tf32x3_threads(D), smem, stream>>>(tq, tk, tv, static_cast<float*>(o), n,
-                                                    q_tiles, scale, causal);
+  kernel<<<grid, tf32x3_threads(DP), smem, stream>>>(tq, tk, tv, static_cast<float*>(o), n, ld,
+                                                     q_tiles, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, int n, int d,
+                        float scale, int causal, int q_tiles, int grid, int smem,
+                        cudaStream_t stream) {
+  using T = typename Elem<DT>::type;
+  auto kernel = flash_attn_wide_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWideThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                               static_cast<const T*>(v), static_cast<T*>(o), n, d,
+                                               q_tiles, scale, causal);
   return cudaGetLastError();
 }
 
 // The launch plan for these arguments, as ops/attention.py launch_plan
 // computes it. Returns false for what no path takes.
 struct Plan {
-  int path, q_tiles, grid, threads, smem_bytes;
+  int path, dp, ld, q_tiles, grid, threads, smem_bytes;
 };
 
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
 bool plan_for(int dtype, int bh, int n, int d, Plan* plan) {
-  if (bh <= 0 || n <= 0 || (d != 32 && d != 64 && d != 128)) return false;
-  if (dtype == kDtypeF32) {
+  if (bh <= 0 || n <= 0 || d <= 0 || d > kWideMaxD) return false;
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16 && dtype != kDtypeF16) return false;
+  long long rows;  // query rows per block
+  if (dtype == kDtypeF32 && d <= 128) {
     plan->path = kPathTf32x3;
-    plan->threads = tf32x3_threads(d);
-    plan->smem_bytes = tf32x3_smem_bytes(d);
-  } else if (dtype == kDtypeBF16) {
+    plan->dp = d <= 32 ? 32 : d <= 64 ? 64 : 128;
+    plan->ld = round_up(d, 4);  // a row pitch of 16-byte multiples
+    plan->threads = tf32x3_threads(plan->dp);
+    plan->smem_bytes = tf32x3_smem_bytes(plan->dp);
+    rows = tf32x3_consumers(plan->dp) * kBlockQ;
+  } else if (dtype != kDtypeF32 && d <= 256) {
     plan->path = kPathWgmma;
+    plan->dp = d <= 32 ? 32 : d <= 64 ? 64 : round_up(d, 64);
+    plan->ld = round_up(d, 8);
     plan->threads = kWgmmaThreads;
-    plan->smem_bytes = wgmma_smem_bytes(d);
+    plan->smem_bytes = wgmma_smem_bytes(plan->dp);
+    rows = kBlockQ;
   } else {
-    return false;
+    plan->path = kPathWide;
+    plan->dp = wide_dp(d);
+    plan->ld = d;  // plain loads: any pitch
+    plan->threads = kWideThreads;
+    plan->smem_bytes = wide_smem_bytes(d);
+    rows = kWideBlockQ;
   }
-  // query rows per block: 64 for each consumer warpgroup
-  const long long rows = dtype == kDtypeF32 ? tf32x3_consumers(d) * kBlockQ : kBlockQ;
   const long long q_tiles = (n + rows - 1) / rows;
   const long long grid = q_tiles * bh;
   if (grid > INT_MAX) return false;
@@ -1136,36 +1415,59 @@ bool plan_for(int dtype, int bh, int n, int d, Plan* plan) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; path: 0 = tf32x3, 1 = wgmma.
-// q_tiles, grid, threads and smem_bytes are the caller's launch plan; a plan
-// that differs from plan_for's is refused. Returns the cudaError_t of the
-// launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 0 = tf32x3, 1 = wgmma,
+// 2 = wide. d is the head dim, ld the row pitch of q, k, v and o in
+// elements, dp the padded width the kernel computes. ld, dp, path, q_tiles,
+// grid, threads and smem_bytes are the caller's launch plan; a plan that
+// differs from plan_for's is refused. scale is the caller's d^-1/2. Returns
+// the cudaError_t of the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int bh,
-                              int n, int d, float scale, int causal, int dtype, int path,
-                              int q_tiles, int grid, int threads, int smem_bytes,
+                              int n, int d, int ld, int dp, float scale, int causal, int dtype,
+                              int path, int q_tiles, int grid, int threads, int smem_bytes,
                               void* stream) {
   Plan plan;
-  if (!plan_for(dtype, bh, n, d, &plan) || path != plan.path || q_tiles != plan.q_tiles ||
-      grid != plan.grid || threads != plan.threads || smem_bytes != plan.smem_bytes)
+  if (!plan_for(dtype, bh, n, d, &plan) || path != plan.path || dp != plan.dp ||
+      ld != plan.ld || q_tiles != plan.q_tiles || grid != plan.grid || threads != plan.threads ||
+      smem_bytes != plan.smem_bytes)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte-aligned global addresses
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;
+#define FLASH_ARGS q, k, v, o, bh, n, ld, scale, causal, q_tiles, grid, smem_bytes, s
   if (path == kPathTf32x3) {
-    switch (d) {
-      case 32: return launch_tf32x3<32>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
-      case 64: return launch_tf32x3<64>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
-      case 128: return launch_tf32x3<128>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
+    switch (dp) {
+      case 32: return launch_tf32x3<32>(FLASH_ARGS);
+      case 64: return launch_tf32x3<64>(FLASH_ARGS);
+      case 128: return launch_tf32x3<128>(FLASH_ARGS);
     }
-    return cudaErrorInvalidValue;
+  } else if (path == kPathWgmma && dtype == kDtypeBF16) {
+    switch (dp) {
+      case 32: return launch_wgmma<kDtypeBF16, 32>(FLASH_ARGS);
+      case 64: return launch_wgmma<kDtypeBF16, 64>(FLASH_ARGS);
+      case 128: return launch_wgmma<kDtypeBF16, 128>(FLASH_ARGS);
+      case 192: return launch_wgmma<kDtypeBF16, 192>(FLASH_ARGS);
+      case 256: return launch_wgmma<kDtypeBF16, 256>(FLASH_ARGS);
+    }
+  } else if (path == kPathWgmma) {
+    switch (dp) {
+      case 32: return launch_wgmma<kDtypeF16, 32>(FLASH_ARGS);
+      case 64: return launch_wgmma<kDtypeF16, 64>(FLASH_ARGS);
+      case 128: return launch_wgmma<kDtypeF16, 128>(FLASH_ARGS);
+      case 192: return launch_wgmma<kDtypeF16, 192>(FLASH_ARGS);
+      case 256: return launch_wgmma<kDtypeF16, 256>(FLASH_ARGS);
+    }
+  } else {
+#undef FLASH_ARGS
+#define FLASH_ARGS q, k, v, o, n, d, scale, causal, q_tiles, grid, smem_bytes, s
+    switch (dtype) {
+      case kDtypeF32: return launch_wide<kDtypeF32>(FLASH_ARGS);
+      case kDtypeBF16: return launch_wide<kDtypeBF16>(FLASH_ARGS);
+      case kDtypeF16: return launch_wide<kDtypeF16>(FLASH_ARGS);
+    }
   }
-  switch (d) {
-    case 32: return launch_wgmma<32>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
-    case 64: return launch_wgmma<64>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, bh, n, scale, causal, q_tiles, grid, smem_bytes, s);
-  }
+#undef FLASH_ARGS
   return cudaErrorInvalidValue;
 }
 

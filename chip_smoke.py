@@ -8,10 +8,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ptxas's registers, shared memory and spills are printed per kernel;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and the test suite's, with CUDA-event times; for flash
-   attention both paths, bf16 (wgmma) and f32 (3xTF32), both on the tensor
-   cores, at every head dim across tile edges; the f32 main case is timed in
-   turns beside the plain version and SDPA (plain, kernel, SDPA, SDPA,
-   kernel, plain), with SDPA's own error against the plain version;
+   attention its three paths: bf16 and f16 (wgmma) and f32 (3xTF32) on the
+   tensor cores at every padded width (head dims 1 to 256, 16-bit, and 1 to
+   128, f32), and the wide path on the CUDA cores (f32 160 and 256, 16-bit
+   320 to 1024), each at n 1, 65 and 257 and causal; every instantiation
+   must be launched and within its tolerance (2e-5 f32, 2e-2 bf16, 2.5e-3
+   f16); the f32 and f16 ViT-B/14 cases and the ViT-H/14 cases (64, 16, 257,
+   80) in bf16 and f16 are timed in turns beside the plain version and SDPA
+   (plain, kernel, SDPA, SDPA, kernel, plain), with SDPA's own error against
+   the plain version;
 4. the main path: cell-image-search at ViT-B/14 width (dim 768, depth 12,
    heads 12, 224², bf16, bucket 64, weights from a numpy seed) ingests
    synthetic fields, builds a FlatIP index and answers ping,
@@ -21,7 +26,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``{"dtype": "float32"}``, TF32 off): 12 launches per forward, min cosine
    0.99999 against the plain-attention embedder, and images/s and one
    bucket forward's device ms with the kernel, the plain attention and
-   SDPA (a yardstick only) as ``attn_fn``, in turns;
+   SDPA (a yardstick only) as ``attn_fn``, in turns; then ``phase_vit_h14``:
+   ``ViTEmbedder`` at ViT-H/14 widths (1280, 32 blocks, 16 heads of 80,
+   seeded weights) in bf16 and with ``"dtype": "float16"`` on the same
+   state dict, 32 launches per bucket forward, min cosine 0.999 against the
+   same model with the plain attention, images/s and peak memory of each;
 5. cell-image-search at corpus scale (slice 6), ``phase_index``: the app
    at the same width registers a synthetic dataset of 8 896^2 fields,
    ingests it in a background session (FlatIP), stops a second session of
@@ -331,6 +340,7 @@ f32.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import dataclasses
 import gc
 import importlib
@@ -471,15 +481,41 @@ TOP_K = 10
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_TF32_FLOPS = 495e12
 F32_COSINE_FLOOR = 0.99999  # f32 kernel vs plain-attention embeddings
-# the test suite's tolerances (tests/test_ops_pallas.py): (atol, rtol)
-TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0)}
+# the test suite's tolerances (tests/test_ops_pallas.py): (atol, rtol); f16
+# a little over one f16 ulp at the outputs' largest magnitudes (2 to 4: 2^-9)
+TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 0.0), torch.float16: (2.5e-3, 0.0)}
+# head dims off the tensor-core paths' tiles, run at a padded width Dp
+PADDED_16BIT_DIMS = (1, 8, 16, 40, 48, 72, 80, 96, 100, 112, 160, 192, 256)
+PADDED_F32_DIMS = (1, 16, 40, 80, 96, 100)
+# the wide path (CUDA cores): f32 above 128, 16-bit above 256
+WIDE_DIMS = {torch.float32: (160, 256), torch.bfloat16: (320, 512, 1024), torch.float16: (320, 512, 1024)}
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _width_cases(dtype, dims) -> list:
+    """Each head dim at n 1, 65 and 257 and causal at 257, (2, 3) heads."""
+    name = DTYPE_NAMES[dtype]
+    return [(f"{name}_d{d}_n{n}", (2, 3, n, d), dtype, False) for d in dims for n in (1, 65, 257)] + [
+        (f"{name}_d{d}_n257_causal", (2, 3, 257, d), dtype, True) for d in dims
+    ]
+
+
 ATTENTION_CASES = [
     # (label, (B, H, N, d), dtype, causal)
     ("vit_b14_main_path", (BUCKET, 12, 257, 64), torch.bfloat16, False),
     ("vit_b14_main_path_f32", (BUCKET, 12, 257, 64), torch.float32, False),
+    # ViT-H/14's attention (16 heads of 80) in bf16 and f16, and ViT-B/14's in f16
+    ("vit_h14_main_path_bf16", (BUCKET, 16, 257, 80), torch.bfloat16, False),
+    ("vit_h14_main_path_f16", (BUCKET, 16, 257, 80), torch.float16, False),
+    ("vit_b14_main_path_f16", (BUCKET, 12, 257, 64), torch.float16, False),
+    # the same ViT-H/14 attention in f32 (tf32x3 at Dp 128), and the wide path
+    # at bucket shapes: f32 with 8 heads of 160, bf16 with 4 heads of 320
+    ("vit_h14_main_path_f32", (BUCKET, 16, 257, 80), torch.float32, False),
+    ("wide_f32_d160", (BUCKET, 8, 257, 160), torch.float32, False),
+    ("wide_bf16_d320", (BUCKET, 4, 257, 320), torch.bfloat16, False),
     ("n128", (2, 3, 128, 64), torch.float32, False),
     ("n200", (2, 3, 200, 64), torch.float32, False),
     ("n257", (2, 3, 257, 64), torch.float32, False),
@@ -503,8 +539,31 @@ ATTENTION_CASES = [
 ] + [
     (f"f32_d{d}_n257_causal", (2, 3, 257, d), torch.float32, True)
     for d in (32, 64, 128)
+] + [
+    # f16 (wgmma .f16) at the bf16 cases' widths and edges
+    (f"f16_d{d}_n{n}", (2, 3, n, d), torch.float16, False)
+    for d in (32, 64, 128)
+    for n in (1, 64, 65, 257, 300)
+] + [
+    (f"f16_d{d}_n257_causal", (2, 3, 257, d), torch.float16, True)
+    for d in (32, 64, 128)
+] + [
+    # every other head dim: padded widths of both tensor-core paths, then the
+    # wide path up to its cap
+    case
+    for dtype, dims in (
+        (torch.bfloat16, PADDED_16BIT_DIMS),
+        (torch.float16, PADDED_16BIT_DIMS),
+        (torch.float32, PADDED_F32_DIMS),
+        *WIDE_DIMS.items(),
+    )
+    for case in _width_cases(dtype, dims)
 ]
 MAIN_CASE = "vit_b14_main_path"
+# timed in turns against SDPA beside the f32 main case: plain, kernel, SDPA,
+# SDPA, kernel, plain
+TURNS_CASES = ("vit_b14_main_path_f32", "vit_h14_main_path_bf16", "vit_h14_main_path_f16",
+               "vit_b14_main_path_f16", "vit_h14_main_path_f32", "wide_f32_d160", "wide_bf16_d320")
 
 
 class SmokeFailure(RuntimeError):
@@ -532,16 +591,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def attention_bound_ms(shape, dtype) -> tuple[float, str]:
-    """Least time for one call: q, k, v read once and o written once over
-    HBM bandwidth, against 4*B*H*N^2*d FLOP over the peak of the products'
-    type. f32-grade products on the tensor cores are 3xTF32: three tf32
-    products each at the TF32 peak (``attention_cuda_core_ms`` gives the same
-    work on the CUDA cores)."""
+    """Least time for one call, from the function and the inputs' type alone,
+    whatever path the kernel takes: q, k, v read once and o written once
+    over HBM bandwidth, against 4*B*H*N^2*d FLOP at the tensor cores' peak
+    for the type: 16-bit products at the bf16/f16 peak, f32-grade ones as
+    3xTF32 (three tf32 products each at the TF32 peak)."""
     B, H, N, d = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     t_bytes = 4 * B * H * N * d * itemsize / PEAK_BYTES_PER_S
     flops = 4 * B * H * N * N * d
-    t_ops = 3 * flops / PEAK_TF32_FLOPS if dtype == torch.float32 else flops / PEAK_FLOPS[dtype]
+    if dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -573,18 +635,19 @@ def phase_device() -> tuple[str, str]:
 def ptxas_report(log: str) -> dict:
     """Registers, static shared memory and spill bytes of each kernel, from
     nvcc's ``-Xptxas -v`` log, keyed by a short name such as
-    ``flash_attn_wgmma_kernel<64>``."""
+    ``flash_attn_wgmma_kernel<1,64>`` (its integer template arguments)."""
 
     def short(mangled: str) -> str:
         # the kernel's name is the identifier before its template arguments,
         # prefixed by its length
-        m = re.search(r"ILi(\d+)E", mangled)
+        m = re.search(r"I((?:Li-?\d+E)+)E", mangled)
         if m:
             end = m.start()
+            args = ",".join(re.findall(r"Li(-?\d+)E", m.group(1)))
             for size in range(1, end):
                 digits = str(size)
                 if mangled[end - size - len(digits):end - size] == digits:
-                    return f"{mangled[end - size:end]}<{m.group(1)}>"
+                    return f"{mangled[end - size:end]}<{args}>"
         return mangled
 
     report: dict[str, dict] = {}
@@ -625,9 +688,7 @@ def phase_build(card: str) -> dict:
         ptxas[name] = ptxas_report(log)
         for kernel, info in ptxas[name].items():
             print(f"[{card}] ptxas {name}: {kernel} {json.dumps(info)}")
-    for kernel in ("flash_attn_wgmma_kernel<64>", *(
-        f"flash_attn_tf32x3_kernel<{d}>" for d in attention.HEAD_DIMS
-    )):
+    for kernel in attention.kernel_instantiations():
         info = ptxas.get(attention.KERNEL_NAME, {}).get(kernel)
         check(info is not None and "registers" in info, f"no ptxas report for {kernel}")
     return ptxas
@@ -644,15 +705,20 @@ def time_in_turns(fns: dict, order, device: str = "cuda") -> dict:
 
 def phase_kernels(card: str) -> dict:
     """Each attention case: the kernel against the plain version, both on
-    the card. Returns the main path's numbers by dtype."""
-    rng = np.random.default_rng(SEED)
+    the card. Returns the timed cases' numbers by label, and under
+    ``"instantiations"`` each kernel's cases, worst error and tolerance."""
+    # inputs drawn on the card from a seed: the bucket shapes' 12-21 M values
+    # a tensor would take seconds to draw on the host
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     main = {}
+    per_kernel: dict[str, dict] = {}
     for label, shape, dtype, causal in ATTENTION_CASES:
         q, k, v = (
-            torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
-            for _ in range(3)
+            torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3)
         )
+        before = attention.launch_count
         out = attention.flash_attention(q, k, v, causal=causal)
+        check(attention.launch_count == before + 1, f"{label}: the wrapper launched no kernel")
         ref = attention.reference_attention(q, k, v, causal)
         torch.cuda.synchronize()
         check(out.dtype == dtype and out.shape == q.shape, f"{label}: output {out.dtype} {tuple(out.shape)}")
@@ -662,19 +728,24 @@ def phase_kernels(card: str) -> dict:
         within = bool((diff <= atol + rtol * ref.float().abs()).all().item())
         check(bool(torch.isfinite(out).all().item()), f"{label}: non-finite output")
         check(within, f"{label}: max abs err {max_abs} over atol {atol} rtol {rtol}")
+        plan = attention.launch_plan(shape, dtype)
+        kernel = plan.kernel
         line = {
             "case": label, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-            "causal": causal, "path": attention.launch_plan(shape, dtype).path,
+            "causal": causal, "path": plan.path, "dp": plan.dp, "ld": plan.ld, "kernel": kernel,
             "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
         }
+        seen = per_kernel.setdefault(kernel, {"cases": 0, "max_abs_err": 0.0, "atol": atol, "rtol": rtol})
+        seen["cases"] += 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], max_abs)
         if label == MAIN_CASE:
             line["kernel_ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
             line["plain_ms"] = cuda_ms(lambda: attention.reference_attention(q, k, v))
             line["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)
             )
-        elif label.startswith(MAIN_CASE):
-            # f32: in turns, plain, kernel, SDPA, SDPA, kernel, plain
+        elif label in TURNS_CASES:
+            # in turns, plain, kernel, SDPA, SDPA, kernel, plain
             times = time_in_turns(
                 {
                     "plain": lambda: attention.reference_attention(q, k, v),
@@ -687,16 +758,21 @@ def phase_kernels(card: str) -> dict:
                 line[f"{name}_ms"] = sum(ms) / len(ms)
                 line[f"{name}_ms_turns"] = ms
             lib = F.scaled_dot_product_attention(q, k, v)
-            # the library's own f32 attention against the same plain version
+            # the library's own attention against the same plain version
             line["library_max_abs_err"] = (lib.float() - ref.float()).abs().max().item()
             line["bound_cuda_core_ms"] = attention_cuda_core_ms(shape)
             del lib
-        if label.startswith(MAIN_CASE):
+        if label == MAIN_CASE or label in TURNS_CASES:
             line["bound_ms"], line["bound_by"] = attention_bound_ms(shape, dtype)
             line["card"] = card
-            main[dtype] = line
+            main[label] = line
         print("attention " + json.dumps(line))
         del q, k, v, out, ref, diff
+    missing = [name for name in attention.kernel_instantiations() if name not in per_kernel]
+    check(not missing, f"no attention case launched {missing}")
+    print(f"[{card}] attention: {len(ATTENTION_CASES)} cases over {len(per_kernel)} kernels, "
+          "each within its tolerance: " + json.dumps(per_kernel))
+    main["instantiations"] = per_kernel
     return main
 
 
@@ -885,6 +961,123 @@ def phase_main_path_f32(card: str, device: str = "cuda") -> dict:
            "images_per_s": rates, "forward_ms": forward_ms, "card": card}
     print("main_path_f32 " + json.dumps(out))
     del embedders, svc, x
+    _release(device)
+    return out
+
+
+# ---- ViT-H/14 widths: head dim 80 in bf16 and f16 ----------------------------
+
+# ViT-H/14 (Dosovitskiy et al., ICLR 2021, Table 1): width 1280, 32 blocks, 16
+# heads of 80, MLP 5120 (the ViT's ratio 4), patch 14 at 224^2 (257 tokens);
+# the repo's ViT module, its DINOv2 LayerScale kept
+VIT_H14 = {"dim": 1280, "depth": 32, "num_heads": 16}
+VIT_H14_TIMED = 3  # bucket forwards per turn
+VIT_H14_COSINE_FLOOR = 0.999  # flash vs plain attention embeddings, bf16 and f16
+
+
+def phase_vit_h14(card: str, device: str = "cuda") -> dict:
+    """The ViT at ViT-H/14 widths through ``ViTEmbedder`` (seeded weights,
+    bucket 64), once in bfloat16 and once with ``"dtype": "float16"`` on the
+    same state dict (the seed's draws, checked by per-tensor sums; the two
+    embedders are built at once, and a leg's peak memory leaves out the other
+    leg's weights while both are on the card): each
+    bucket forward launches the kernel once per block at head dim 80 (Dp
+    128); the embeddings are held against the same model with the plain
+    ``reference_attention`` in its attention slots (min cosine >= 0.999);
+    images/s from CUDA events over bucket forwards in turns (kernel, plain,
+    plain, kernel) and the peak memory of each. One ``vit_h14`` JSON line."""
+    crops = synthetic_crops(SEED, N_FIELDS)[:BUCKET]
+    x = torch.from_numpy(
+        np.random.default_rng(SEED).standard_normal((BUCKET, 224, 224, 3), np.float32)
+    ).to(device)
+    depth = VIT_H14["depth"]
+    legs, flash_embs, fingerprint = {}, {}, None
+    print(f"vit_h14: ViT (width {VIT_H14['dim']}, {depth} blocks, {VIT_H14['num_heads']} heads of "
+          f"{VIT_H14['dim'] // VIT_H14['num_heads']}, patch 14, 224^2), bucket {BUCKET}, "
+          f"{len(crops)} crops; bf16 then f16")
+    embedders = {dtype: ViTEmbedder(batch_bucket=BUCKET, device=device, seed=SEED,
+                                    model_overrides={**VIT_H14, "dtype": dtype})
+                 for dtype in ("bfloat16", "float16")}
+    # each seeded build draws its weights on the host (numpy releases the GIL
+    # while it fills an array): both at once
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(embedders)) as pool:
+        for build in [pool.submit(emb.load) for emb in embedders.values()]:
+            build.result()
+    build_s = time.perf_counter() - t0
+    for dtype in ("bfloat16", "float16"):
+        emb = embedders.pop(dtype)
+        model = emb._model
+        check(model.dtype == getattr(torch, dtype), f"{dtype}: model dtype {model.dtype}")
+        sums = torch.stack([p.double().sum() for p in model.state_dict().values()]).cpu()
+        fingerprint = sums if fingerprint is None else fingerprint
+        check(torch.equal(sums, fingerprint), f"{dtype}: the state dict is not the bfloat16 leg's")
+        # the other leg's weights, still on the card, are not this leg's memory
+        resident = sum(p.numel() * p.element_size() for e in embedders.values()
+                       for p in e._model.parameters())
+
+        def use(attn_fn):
+            for block in model.blocks():
+                block.attn.attn_fn = attn_fn
+
+        def peak_reset():
+            _sync(device)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+
+        def peak() -> int:
+            return torch.cuda.max_memory_allocated() - resident if device == "cuda" else 0
+
+        peak_reset()
+        attention.launch_count = 0
+        forwards0 = emb.forward_count
+        flash = emb.embed_batch(crops)
+        launches = attention.launch_count
+        forwards = emb.forward_count - forwards0
+        peak_flash = peak()
+        want = depth * forwards if device == "cuda" else 0
+        check(forwards > 0 and launches == want,
+              f"{dtype}: {launches} flash launches for {forwards} bucket forwards, expected {want}")
+        check(flash.shape == (len(crops), VIT_H14["dim"]) and np.isfinite(flash).all(),
+              f"{dtype}: embeddings {flash.shape}")
+        check(np.abs(np.linalg.norm(flash, axis=1) - 1).max() <= 1e-3, f"{dtype}: norms")
+
+        # the same model with the plain attention in every block's slot
+        use(attention.reference_attention)
+        peak_reset()
+        plain = emb.embed_batch(crops)
+        peak_plain = peak()
+        check(attention.launch_count == launches, f"{dtype}: the plain attention launched the kernel")
+        cos = np.sum(flash * plain, axis=1)
+        check(cos.min() >= VIT_H14_COSINE_FLOOR,
+              f"{dtype}: min cosine {cos.min()} to the plain attention under {VIT_H14_COSINE_FLOOR}")
+
+        attn = {"kernel": emb.attn_fn, "plain": attention.reference_attention}
+        ms: dict[str, list] = {"kernel": [], "plain": []}
+        for turn in ("kernel", "plain", "plain", "kernel"):
+            use(attn[turn])
+            ms[turn].append(_device_ms(device, lambda: emb.embed_tensor(x), iters=VIT_H14_TIMED))
+        use(emb.attn_fn)
+        leg = {
+            "launches": launches, "forwards": forwards, "min_cosine": float(cos.min()),
+            "bucket_ms": ms,
+            "images_per_s": {k: [BUCKET * 1e3 / t for t in v] for k, v in ms.items()},
+            "peak_gib": {"kernel": peak_flash / 2**30, "plain": peak_plain / 2**30},
+        }
+        print(f"[{card}] vit_h14 {dtype}: {launches} flash launches for {forwards} bucket forwards; "
+              f"min cosine to the plain attention {cos.min():.6f}; bucket ms in turns {ms}; "
+              f"images/s kernel {leg['images_per_s']['kernel']}, plain {leg['images_per_s']['plain']}; "
+              f"peak {leg['peak_gib']['kernel']:.2f} GiB (plain {leg['peak_gib']['plain']:.2f})")
+        legs[dtype] = leg
+        flash_embs[dtype] = flash
+        del emb, model, flash, plain
+        _release(device)
+    cross = np.sum(flash_embs["bfloat16"] * flash_embs["float16"], axis=1)
+    out = {"card": card, **legs, "bf16_vs_f16_min_cosine": float(cross.min()), "build_s": build_s}
+    print(f"[{card}] vit_h14: bf16 vs f16 kernel embeddings, min cosine {cross.min():.6f}; both "
+          f"embedders built at once in {build_s:.1f} s")
+    print("vit_h14 " + json.dumps(out))
+    del x
     _release(device)
     return out
 
@@ -1657,7 +1850,7 @@ CELLPOSE_FIELD = 512
 CELLPOSE_CELLS = 60  # ellipse cells per 512^2 field
 CELLPOSE_CFG = {"tile": 256, "batch_size": 8, "epochs": 3}  # 8 steps an epoch
 CELLPOSE_TIMED_STEPS = 20
-CELLPOSE_INFER_REPEATS = 2  # timed requests after a warm-up call
+CELLPOSE_INFER_REPEATS = 1  # timed requests after a warm-up call
 CELLPOSE_VOLUME = (32, 256, 256)
 # card against CPU, f32 with TF32 off: loss relative, gradients against the
 # largest gradient; the bf16 step's loss against the f32 one
@@ -6889,9 +7082,10 @@ def main() -> int:
 
     ptxas = timed(phase_build, card)
     main_cases = timed(phase_kernels, card)
-    main_case, f32_case = main_cases[torch.bfloat16], main_cases[torch.float32]
+    main_case, f32_case = main_cases[MAIN_CASE], main_cases["vit_b14_main_path_f32"]
     launches = timed(phase_main_path, card)
     main_f32 = timed(phase_main_path_f32, card)
+    vit_h14 = timed(phase_vit_h14, card)
     index = timed(phase_index, card)
     forward = timed(phase_forward, card)
     model_runner = timed(phase_model_runner, card)
@@ -6921,6 +7115,9 @@ def main() -> int:
         # slices 2-5, 7, 8 and 10 launch no attention kernel: their counts stay 0
         "launches_by_path": {"cell_image_search": launches,
                              "cell_image_search_f32": main_f32["launches"],
+                             # slice 19: ViT-H/14 widths, head dim 80
+                             "vit_h14_bf16": vit_h14["bfloat16"]["launches"],
+                             "vit_h14_f16": vit_h14["float16"]["launches"],
                              "index": index["launches"],
                              "model_runner": model_runner["launches"],
                              "cellpose": cellpose["launches"],
@@ -6968,11 +7165,49 @@ def main() -> int:
         "f32": {key: f32_case[key] for key in (
             "path", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_cuda_core_ms", "max_abs_err", "library_max_abs_err")},
+        # slice 19: ViT-B/14's attention in f16, timed in turns
+        "f16": {key: main_cases["vit_b14_main_path_f16"][key] for key in (
+            "path", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "library_max_abs_err")},
+        # every kernel the source instantiates: its cases, worst error and tolerance
+        "instantiations": main_cases["instantiations"],
+        # the padded f32 width and the wide path, timed in turns at bucket shapes
+        # no main path runs (launches 0 there)
+        "timed_off_path": {label: {key: main_cases[label][key] for key in (
+            "shape", "dtype", "path", "dp", "kernel", "kernel_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")}
+            for label in ("vit_h14_main_path_f32", "wide_f32_d160", "wide_bf16_d320")},
         "ptxas": ptxas[attention.KERNEL_NAME],
         "smem_bytes": attention.launch_plan(main_case["shape"], torch.bfloat16).smem_bytes,
         "f32_smem_bytes": attention.launch_plan(f32_case["shape"], torch.float32).smem_bytes,
         "card": card,
-    }]}))
+    }] + [{
+        # slice 19: the ViT-H/14 legs (head dim 80, Dp 128), one per dtype;
+        # launches from each leg's bucket forwards
+        "name": f"flash_attn_fwd ({name}, head dim 80)",
+        "route": "cuda",
+        "source": "bioengine_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "bioengine_tpu/ops/pallas/attention.py:36",
+        "kernel": case["kernel"],
+        "path": case["path"],
+        "launches": vit_h14[dtype]["launches"],
+        "max_abs_err": case["max_abs_err"],
+        "ms": case["kernel_ms"],
+        "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"],
+        "library_ms": case["library_ms"],
+        "ms_turns": case["kernel_ms_turns"],
+        "library_ms_turns": case["library_ms_turns"],
+        "images_per_s": vit_h14[dtype]["images_per_s"],
+        "min_cosine": vit_h14[dtype]["min_cosine"],
+        "ptxas": ptxas[attention.KERNEL_NAME].get(case["kernel"]),
+        "smem_bytes": attention.launch_plan(case["shape"], getattr(torch, dtype)).smem_bytes,
+        "card": card,
+    } for name, dtype, case in (
+        ("bf16", "bfloat16", main_cases["vit_h14_main_path_bf16"]),
+        ("f16", "float16", main_cases["vit_h14_main_path_f16"]),
+    )]}))
     tier_root.cleanup()
     print(json.dumps({
         "ok": True,

@@ -70,7 +70,7 @@ def build_probed() -> ctypes.CDLL:
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.flash_attn_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    lib.flash_attn_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.flash_attn_fwd.restype = ctypes.c_int
     lib.flash_attn_read_probes.argtypes = [ctypes.c_void_p]
@@ -100,7 +100,8 @@ def main() -> int:
         def probed():
             err = lib.flash_attn_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, d,
-                d**-0.5, 0, 0, attention._PATH_CODES[plan.path], plan.q_tiles, plan.grid,
+                plan.ld, plan.dp, d**-0.5, 0, 0, attention._PATH_CODES[plan.path],
+                plan.q_tiles, plan.grid,
                 plan.threads, plan.smem_bytes, torch.cuda.current_stream().cuda_stream,
             )
             if err != 0:

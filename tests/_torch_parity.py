@@ -70,14 +70,17 @@ def seeded_flax_params(model, image_shape, seed=0):
 
 
 def emulate_wgmma_attention(q, k, v, causal=False, block=64):
-    """Plain PyTorch emulation of the rounding of the bf16 (wgmma) path of
-    ``bioengine_tpu_torch/csrc/flash_attn_fwd.cu``, for CPU tests: 64 x 64
-    tiles; S = Q K^T as f32 sums of bf16 products; a running max in log2
-    units with log2(e) d^-1/2 folded into one multiplier and ``exp2``; l
-    summed in f32 from the unrounded P; P rounded to bf16 before P V; O / l
-    rounded once to bf16. q, k, v: (B, H, N, d) -> (B, H, N, d) bf16."""
+    """Plain PyTorch emulation of the rounding of the 16-bit (wgmma) path of
+    ``bioengine_tpu_torch/csrc/flash_attn_fwd.cu``, for CPU tests, in q's
+    dtype (bfloat16 or float16): 64 x 64 tiles; S = Q K^T as f32 sums of
+    16-bit products (the zero columns up to the padded width add nothing);
+    a running max in log2 units with log2(e) d^-1/2 of the true d folded
+    into one multiplier and ``exp2``; l summed in f32 from the unrounded P;
+    P rounded to the 16-bit type before P V; O / l rounded once to it.
+    q, k, v: (B, H, N, d) -> (B, H, N, d) in q's dtype."""
     n, d = q.shape[2], q.shape[3]
-    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    half = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else torch.bfloat16
+    qf, kf, vf = (x.to(half).float() for x in (q, k, v))
     c = d**-0.5 * math.log2(math.e)
     out = torch.empty(qf.shape)
     for q0 in range(0, n, block):
@@ -98,13 +101,13 @@ def emulate_wgmma_attention(q, k, v, causal=False, block=64):
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s * c - m_new[..., None]).masked_fill(~keep, 0.0)
             l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[
+            o = o * alpha[..., None] + p.to(half).float() @ vf[
                 :, :, k0 : k0 + block
             ]
             m = m_new
         safe_l = torch.where(l == 0, 1.0, l)[..., None]
         out[:, :, q0 : q0 + block] = torch.where(l[..., None] == 0, 0.0, o / safe_l)
-    return out.to(torch.bfloat16)
+    return out.to(half)
 
 
 def tf32_round(x):
@@ -141,12 +144,13 @@ def emulate_tf32x3_attention(q, k, v, causal=False, passes=3):
     """Plain PyTorch emulation of the f32 (tf32x3) path of
     ``bioengine_tpu_torch/csrc/flash_attn_fwd.cu``, for CPU tests: q scaled
     by d^-1/2 before its split; 64-row query tiles and key tiles of 64 rows
-    (32 at d = 128), rows past n zero as TMA fills them; both products as
+    (32 at Dp = 128), rows past n zero as TMA fills them; both products as
     3xTF32 (``passes=1``: one TF32 pass, big·big alone); the
     online softmax in f32 with ``exp``; P split before P V; O / l once.
+    Key tiles follow the padded width: 32 rows for d above 64 (Dp = 128).
     q, k, v: (B, H, N, d) float32 -> (B, H, N, d) float32."""
     n, d = q.shape[2], q.shape[3]
-    block_k = 32 if d == 128 else 64
+    block_k = 32 if d > 64 else 64
     qs = q.float() * d**-0.5
     kf, vf = k.float(), v.float()
     out = torch.empty(qs.shape)
