@@ -66,7 +66,11 @@
 //   between tiles, divided by l once, rounded once and stored for rows < n.
 // Not yet: two consumer warpgroups, overlap of softmax with the products,
 // register rebalancing with setmaxnreg (the consumer fits its launch-bound
-// budget).
+// budget). A persistent design with two consumers taking turns at the
+// tensor cores (setmaxnreg 40/232, S of tile j + 1 under the softmax of j)
+// measured slower than this one at n = 257 and d 32, 64 and 80 (faster only
+// at d 256): the softmax's exponentials, not the products, set the time
+// (ROADMAP D5).
 //
 // f32 path ("tf32x3"): both products as 3xTF32 on the tensor cores, so f32
 // inputs agree with the f32 reference within the JAX suite's 2e-5. It

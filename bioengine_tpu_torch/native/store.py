@@ -16,9 +16,11 @@ across processes there).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import mmap
 import os
 import subprocess
+import tempfile
 import threading
 from contextlib import contextmanager
 from pathlib import Path
@@ -48,6 +50,14 @@ def _ensure_lib() -> Optional[ctypes.CDLL]:
     triggering a build — how the CI sanitizer job (and the slow test in
     tests/test_native_store.py) points the same binding at the
     ASan/TSan-instrumented build from ``make -C native sanitizers``.
+
+    Several processes may reach a fresh checkout's first build at once
+    (test workers, a worker and its hosts), and ``make`` writes the
+    library in place: a process that loads it mid-write fails. So the
+    build runs under an exclusive lock, in a private directory, and the
+    result is renamed into place whole; a library that does not load (one
+    another writer has not finished) is built privately and loaded from
+    there.
     """
     override = os.environ.get("BIOENGINE_STORE_LIB")
     with _build_lock:
@@ -57,21 +67,34 @@ def _ensure_lib() -> Optional[ctypes.CDLL]:
             # run go green while exercising zero native code
             lib = ctypes.CDLL(override)
             return _bind_abi(lib)
-        if not _LIB_PATH.exists():
-            if not (_NATIVE_DIR / "Makefile").exists():
-                return None
-            try:
-                subprocess.run(
-                    ["make"], cwd=_NATIVE_DIR, check=True,
-                    capture_output=True, timeout=120,
-                )
-            except Exception:
-                return None
+        if not (_NATIVE_DIR / "Makefile").exists():
+            return None if not _LIB_PATH.exists() else _load(_LIB_PATH)
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
+            _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+            with open(_LIB_PATH.parent / ".build.lock", "a") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if _LIB_PATH.exists():
+                    lib = _load(_LIB_PATH)
+                    if lib is not None:
+                        return lib
+                with tempfile.TemporaryDirectory(dir=_LIB_PATH.parent) as tmp:
+                    subprocess.run(
+                        ["make", f"BUILD_DIR={tmp}"], cwd=_NATIVE_DIR, check=True,
+                        capture_output=True, timeout=120,
+                    )
+                    built = Path(tmp) / _LIB_PATH.name
+                    lib = _load(built)  # loaded before the rename: the mapping stays
+                    os.replace(built, _LIB_PATH)
+                    return lib
+        except Exception:
             return None
-    return _bind_abi(lib)
+
+
+def _load(path: Path) -> Optional[ctypes.CDLL]:
+    try:
+        return _bind_abi(ctypes.CDLL(str(path)))
+    except OSError:
+        return None
 
 
 def _bind_abi(lib: ctypes.CDLL) -> ctypes.CDLL:

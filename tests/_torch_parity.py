@@ -46,6 +46,17 @@ def private_rpc_store():
             os.unlink(f"/dev/shm/{name}")
 
 
+def retry_jax_store_load(store) -> None:
+    """Clear a cached failure of the JAX package's native store
+    (``bioengine_tpu.native.store``) once its library is on disk. That
+    module caches its first attempt, and its ``make`` writes the library in
+    place: in a fresh checkout a test worker that loads it half-written
+    keeps the failure for every later test it runs. The port's own store
+    builds under a lock and is not retried here."""
+    if store._lib_tried and store._lib is None and store._LIB_PATH.exists():
+        store._lib_tried = False
+
+
 def seeded_flax_params(model, image_shape, seed=0):
     """Params for a flax ``model`` drawn from ``np.random.default_rng(seed)``
     in the tree ``model.init`` would build (shaped by ``jax.eval_shape``, so

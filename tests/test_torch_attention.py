@@ -473,6 +473,19 @@ class TestWgmmaEmulation:
         assert out.dtype == torch.bfloat16
         np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2)
 
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("n", [129, 257])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+    def test_last_query_tile_of_one_row(self, dtype, n, causal):
+        """n = 129 and 257: a head's last 64-row query tile holds one real
+        row; against the JAX kernel in the same dtype."""
+        arrays = _inputs(30 + n, (2, 3, n, 64))
+        ref = _run_jax(arrays, JAX_DTYPES[dtype], causal=causal)
+        q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+        out = emulate_wgmma_attention(q, k, v, causal)
+        assert out.dtype == dtype
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=TOLERANCE[dtype][0])
+
     @pytest.mark.parametrize("n", [1, 64, 65])
     def test_tile_edges_match_the_plain_version(self, n):
         arrays = _inputs(11, (1, 2, n, 64))

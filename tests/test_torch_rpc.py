@@ -20,8 +20,9 @@ import aiohttp
 import numpy as np
 import pytest
 
-from _torch_parity import few_torch_threads, private_rpc_store  # noqa: F401
+from _torch_parity import few_torch_threads, private_rpc_store, retry_jax_store_load  # noqa: F401
 from bioengine_tpu.apps import mcp as jax_mcp
+from bioengine_tpu.native import store as jax_store
 from bioengine_tpu.rpc import client as jax_client
 from bioengine_tpu.rpc import protocol as jax_protocol
 from bioengine_tpu.rpc import schema as jax_schema
@@ -181,6 +182,9 @@ def transport(request, monkeypatch):
         pytest.skip("the native shared-memory store does not build here (no make or g++)")
     monkeypatch.setenv("BIOENGINE_RPC_FRAME_LIMIT_MB", str(FRAME_LIMIT_MB))
     monkeypatch.setenv("BIOENGINE_RPC_SHM", "0" if request.param == "wire" else "1")
+    if request.param == "shm":
+        # the pairings are held to the JAX pair's run, which needs its store
+        retry_jax_store_load(jax_store)
     with private_rpc_store():  # a segment of the test's own, unlinked after
         yield request.param
 

@@ -70,7 +70,12 @@ COPIES = {
     "testing/__init__.py": {},
     "testing/faults.py": {},
     "native/__init__.py": {},
-    "native/store.py": {},
+    "native/store.py": {
+        "import fcntl": "the library built under a lock and renamed into place whole (ROADMAP C7)",
+        "import tempfile": "the library built under a lock and renamed into place whole (ROADMAP C7)",
+        "_ensure_lib": "the library built under a lock and renamed into place whole (ROADMAP C7)",
+        "_load": "the library built under a lock and renamed into place whole (ROADMAP C7)",
+    },
     "rpc/transport.py": {},
     "rpc/server.py": {},
     "rpc/client.py": {},
